@@ -1,0 +1,81 @@
+"""Build a CUDA source of this package into a shared library and load it.
+
+Kernels are compiled from the sources under ``kernels/csrc`` at first use,
+with ``nvcc`` for ``sm_90a`` (Hopper), into ``build/torch_ext/`` at the
+root of the checkout (``REPRO_TORCH_BUILD_DIR`` overrides it).  Each library
+exposes a plain C interface and is bound with ``ctypes``: no PyTorch
+headers are compiled, which keeps a build to seconds.  The library name
+carries a hash of the source and the flags, so an edited source is rebuilt
+and never served stale.  A failed build raises; there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
+
+# -fmad=false: no multiply-add contraction, so every product and sum rounds
+# as its own float32 operation — as in the plain PyTorch version, and as the
+# Kahan ledger needs.  No --use_fast_math (it would bring flush-to-zero and
+# approximate division).
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_loaded: dict = {}
+build_log: dict = {}      # name -> {"seconds": float, "ptxas": str, "cached": bool}
+
+
+def build_dir() -> pathlib.Path:
+    return pathlib.Path(os.environ.get(
+        "REPRO_TORCH_BUILD_DIR", REPO_ROOT / "build" / "torch_ext"))
+
+
+def find_nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked at $NVCC, $PATH and $CUDA_HOME/bin); the "
+        "CUDA kernels of repro_torch are built from source at first use")
+
+
+def load_library(name: str, source: str) -> ctypes.CDLL:
+    """Compile ``csrc/<source>`` (once per process and content) and load it."""
+    if name in _loaded:
+        return _loaded[name]
+    src = CSRC / source
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib_path = out_dir / f"lib{name}_{digest}.so"
+    t0 = time.perf_counter()
+    ptxas = ""
+    cached = lib_path.exists()
+    if not cached:
+        tmp = out_dir / f".lib{name}_{digest}.{os.getpid()}.so"
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed to build {src} (exit {proc.returncode}):\n"
+                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+        ptxas = proc.stdout + proc.stderr
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    build_log[name] = {"seconds": time.perf_counter() - t0, "ptxas": ptxas,
+                       "cached": cached, "path": str(lib_path)}
+    _loaded[name] = lib
+    return lib
