@@ -2,21 +2,35 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version on the card, drives the port's main
-path (the renewal Monte-Carlo over the paper's six Table-4 scenarios, the
-42-policy grid and Weibull failures) at the size users run it, holds every
-launch those paths make against the plain version on the same operands,
-checks the results against the port's float64 host oracle, and times the
-kernel alone and the entry points whole.  Every phase prints
-one line; any failure exits non-zero.  The last three lines are the kernel
-record (JSON), the list of kernels, and ``{"ok": true, "device": ...}``.
-Exits non-zero without a result when no CUDA device is present, or when the
-rest of the repository is missing.
+Builds the port's three CUDA kernels from the sources in this checkout (one
+nvcc each, all started together) and holds each against its plain PyTorch
+version on the card.  Then it drives the port's two paths at the size users
+run them, each with the launch counts set to 0 just before it and read just
+after, and holds launches of each path against the plain version on the
+same operands:
+
+* the renewal Monte-Carlo over the paper's six Table-4 scenarios, the
+  42-policy grid and Weibull failures, checked against the port's float64
+  host oracle (``renewal_scan``);
+* Zamba2-7B serving at its published widths with seeded weights: a bf16
+  prefill of 2 x 4096 tokens (13 ``flash_attention`` and 81 ``ssd_scan``
+  launches), a float32 prefill of 2 x 512 tokens against the same tokens
+  decoded one at a time and against the plain path, and the serve loop
+  (batch 4, prompt 16, 32 generated tokens).
+
+It times each kernel alone, its plain version, its bound, the one-call
+PyTorch equivalent where there is one (SDPA for flash attention), and the
+entry points whole.  Every phase prints one line; any failure exits
+non-zero.  The last four lines are the card, the kernel record (JSON), the
+list of kernels, and ``{"ok": true, "device": ...}``.  Exits non-zero
+without a result when no CUDA device is present, or when the rest of the
+repository is missing.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import pathlib
 import statistics
@@ -30,9 +44,11 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 
 # published peaks of one H100 SXM at its full 700 W limit (NVIDIA data
-# sheet): HBM3 bandwidth and float32 outside the tensor cores
+# sheet): HBM3 bandwidth, float32 outside the tensor cores, dense bf16 on
+# the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 # analytic cost of one occurring (epoch, survivor) decision of the renewal
 # kernel (benchmarks/failure_sweep.py, roofline methodology)
 FLOP_PER_DECISION = 190.0
@@ -50,6 +66,20 @@ TOL_ORACLE = 1e-4          # whole-run energies vs the float64 oracle
 TOL_PLAIN = 1e-6           # kernel vs its plain version (bit-equal expected)
 FLOAT_STATS = ("energy_ref", "energy_int", "saving", "balanced_energy",
                "end_time")
+
+# the LM serving path: zamba2-7b at its published widths
+LM_ARCH = "zamba2-7b"
+PREFILL_BATCH, PREFILL_LEN = 2, 4096
+DECODE_CHECK_LEN = 512     # two SSD chunks, eight flash query blocks
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 16, 32
+LM_KERNEL_REPS = 10
+# flash attention against its plain version: the kernel module's
+# PLAIN_TOL (2e-5 in float32; atol 1e-4 / rtol 1e-2, one bf16 ulp, in
+# bf16).  tests/test_kernels.py's bars: the SSD scan atol 2e-3 / rtol
+# 1e-3; decode against the forward tests/test_models.py's
+# test_decode_matches_forward (5e-3 / 1e-3)
+TOL_SSD = (2e-3, 1e-3)
+TOL_DECODE = (5e-3, 1e-3)
 
 
 class Failed(RuntimeError):
@@ -128,25 +158,25 @@ def kernel_only_ms(launch, n: int) -> tuple:
         ev[i].elapsed_time(ev[i + 1]) for i in range(n)), host_ms
 
 
-class Recorder:
-    """Stands in for ``renewal_scan`` while an entry point runs: forwards
-    every call and keeps its operands and outputs, so each launch of the
-    path is held against the plain version on the inputs the path gave it."""
+@contextlib.contextmanager
+def recorded(module, name: str, pick=lambda i, *call: call):
+    """Stands in for ``module.name`` while a path runs: forwards every call
+    and yields a list that gets ``pick(i, args, kw, out)`` of the i-th call
+    (by default the whole call), so launches of the path can be held
+    against the plain version on the operands the path gave them."""
+    fn = getattr(module, name)
+    calls: list = []
 
-    def __init__(self, rs):
-        self.rs, self.fn, self.calls = rs, rs.renewal_scan, []
-
-    def __enter__(self):
-        self.rs.renewal_scan = self
-        return self
-
-    def __exit__(self, *exc):
-        self.rs.renewal_scan = self.fn
-
-    def __call__(self, *args, **kw):
-        out = self.fn(*args, **kw)
-        self.calls.append((args, kw, dict(out)))
+    def wrapped(*args, **kw):
+        out = fn(*args, **kw)
+        calls.append(pick(len(calls), args, kw, out))
         return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
 
 
 def drive(rs, fn) -> tuple:
@@ -154,15 +184,17 @@ def drive(rs, fn) -> tuple:
     returns (its result, the kernel launches it made, the recorded calls).
     Fails if it launched the kernel no time, or other than once per call."""
     rs.reset_launch_counts()
-    with Recorder(rs) as rec:
+    # the caller edits the kernel's output dict: keep a copy
+    with recorded(rs, "renewal_scan",
+                  lambda i, args, kw, out: (args, kw, dict(out))) as calls:
         result = fn()
     torch.cuda.synchronize()
     launches = rs.LAUNCHES["renewal_scan"]
     if launches < 1:
         raise Failed("the path did not launch the renewal_scan kernel")
-    if launches != len(rec.calls):
-        raise Failed(f"{launches} launches for {len(rec.calls)} kernel calls")
-    return result, launches, rec.calls
+    if launches != len(calls):
+        raise Failed(f"{launches} launches for {len(calls)} kernel calls")
+    return result, launches, calls
 
 
 def check_summary(name: str, sm, out: dict, s: int) -> None:
@@ -240,6 +272,417 @@ def check_against_oracle(phase, sweep, cfg, stats_row: dict, gaps, failed,
     return max(gated, sav_err), worst_run, n_over
 
 
+# ---------------------------------------------------------------------------
+# the LM serving path (zamba2-7b): flash_attention and ssd_scan
+# ---------------------------------------------------------------------------
+
+def check_close(what: str, got, want, atol: float, rtol: float) -> float:
+    """Fails unless ``got`` is finite and within atol + rtol * |want| of
+    ``want`` everywhere; returns the max abs error."""
+    got, want = got.double(), want.double()
+    if got.shape != want.shape:
+        raise Failed(f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        raise Failed(f"{what}: non-finite values")
+    err = (got - want).abs()
+    n_bad = int((err > atol + rtol * want.abs()).sum())
+    if n_bad:
+        raise Failed(f"{what}: {n_bad} entries beyond atol {atol} rtol {rtol} "
+                     f"(max abs {float(err.max()):.3e})")
+    return float(err.max())
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def peak_flop_per_s(dtype) -> float:
+    return PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 else PEAK_FP32_FLOP_PER_S
+
+
+def bound(n_bytes: int, flops: float, dtype) -> tuple:
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / peak_flop_per_s(dtype) * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def flash_work(q, k, window) -> float:
+    """flop of causal attention on these shapes: 4 d per (query, key) pair
+    that the mask keeps (q.k and p.v), queries the suffix of the keys."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    keys = np.arange(sq) + (sk - sq) + 1
+    if window is not None:
+        keys = np.minimum(keys, window)
+    return 4.0 * d * bh * float(keys.sum())
+
+
+def ssd_work(x, bmat, chunk: int) -> float:
+    """flop of the chunked scan: per chunk the causal half of C.B^T and of
+    its product with dax, the inter-chunk term and the state update."""
+    b, h, s, p = x.shape
+    n, q = bmat.shape[3], chunk
+    return float(b * h * (s // q)) * (q * (q + 1) * (n + p) + 4.0 * q * n * p)
+
+
+def flash_vs_plain(fa, label, q, k, v, group, window) -> float:
+    got = fa.flash_attention_bhsd(q, k, v, group=group, window=window)
+    want = fa.flash_attention_reference(q, k, v, group=group, window=window)
+    torch.cuda.synchronize()
+    err = check_close(f"flash {label}", got, want, *fa.PLAIN_TOL[q.dtype])
+    line("lm-kernel-vs-plain", kernel="flash_attention", case=label,
+         shape=tuple(q.shape), kv=tuple(k.shape), group=group, window=window,
+         dtype=str(q.dtype).replace("torch.", ""), max_abs_err=f"{err:.3e}")
+    return err
+
+
+def ssd_vs_plain(ssd, label, x, dt, a, bm, cm, chunk) -> float:
+    y, st = ssd.ssd_scan_bhsp(x, dt, a, bm, cm, chunk=chunk)
+    y_p, st_p = ssd.ssd_scan_reference(x, dt, a, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    err = max(check_close(f"ssd {label} y", y, y_p, *TOL_SSD),
+              check_close(f"ssd {label} state", st, st_p, *TOL_SSD))
+    line("lm-kernel-vs-plain", kernel="ssd_scan", case=label,
+         x=tuple(x.shape), bc=tuple(bm.shape), chunk=chunk,
+         dtype=str(x.dtype).replace("torch.", ""), max_abs_err=f"{err:.3e}")
+    return err
+
+
+def flash_operands(bh_b, h, kh, s, d, dtype, seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((bh_b * h, s, d), generator=gen, device=dev) * d ** -0.5
+    k = torch.randn((bh_b * kh, s, d), generator=gen, device=dev)
+    v = torch.randn((bh_b * kh, s, d), generator=gen, device=dev)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def ssd_operands(b, h, g, s, p, n, dtype, seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, h, s, p), generator=gen, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, h, 1, s), generator=gen, device=dev))
+    a = -torch.exp(torch.randn((h,), generator=gen, device=dev) * 0.2)
+    bm = (torch.randn((b, g, s, n), generator=gen, device=dev) * 0.3).to(dtype)
+    cm = (torch.randn((b, g, s, n), generator=gen, device=dev) * 0.3).to(dtype)
+    return x, dt, a, bm, cm
+
+
+def device_profile(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: wall ms (host clock,
+    synchronised), the device time of its kernels by class, the device busy
+    share (kernel time over wall time; kernels on one stream do not
+    overlap) and the eight longest kernels.  Returns None for the times if
+    the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    classes = {"flash_attention": 0.0, "ssd_scan": 0.0, "matmul": 0.0,
+               "other": 0.0}
+    kernels, n_launch = [], 0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = ev.self_device_time_total / 1e3
+        n_launch += ev.count
+        kernels.append((ms, ev.key[:60], ev.count))
+        name = ev.key.lower()
+        if "flash_kernel" in name:
+            classes["flash_attention"] += ms
+        elif "ssd_kernel" in name:
+            classes["ssd_scan"] += ms
+        elif any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma", "gemv")):
+            classes["matmul"] += ms
+        else:
+            classes["other"] += ms
+    device_ms = sum(classes.values())
+    if device_ms == 0.0:
+        return {"wall_ms": wall_ms, "device_ms": None}
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "launches": n_launch,
+            "busy_share": device_ms / wall_ms, "classes": classes,
+            "top": sorted(kernels, reverse=True)[:8]}
+
+
+def print_profile(phase: str, card_line: str, prof: dict) -> None:
+    if prof["device_ms"] is None:
+        line(phase, card=repr(card_line), wall_ms=f"{prof['wall_ms']:.3f}",
+             device_time="not measured (the trace holds no device time)")
+        return
+    line(phase, card=repr(card_line), wall_ms=f"{prof['wall_ms']:.3f}",
+         device_ms=f"{prof['device_ms']:.3f}", kernel_launches=prof["launches"],
+         busy_share=f"{prof['busy_share']:.4f}",
+         **{f"{k}_ms": f"{v:.3f}" for k, v in prof["classes"].items()})
+    for ms, name, count in prof["top"]:
+        line(phase, kernel=repr(name), count=count, device_ms=f"{ms:.3f}")
+
+
+def lm_path(card_line: str, fa, ssd) -> list:
+    """Phases 6-10: the Zamba2-7B serving path.  Returns the kernel
+    records of flash_attention and ssd_scan."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import build_model, transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # float32 is float32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = get_config(LM_ARCH, use_flash_kernel=True)
+    hd, heads = cfg.d_model // cfg.hybrid.shared_num_heads, cfg.hybrid.shared_num_heads
+    s_cfg = cfg.ssm
+    ssm_heads = s_cfg.expand * cfg.d_model // s_cfg.head_dim
+    worst = {"flash_attention": 0.0, "ssd_scan": 0.0}
+
+    # --- phase 6: kernels against their plain versions on the card ---------
+    cases = [("zamba2-prefill", PREFILL_BATCH, heads, heads, PREFILL_LEN, hd,
+              torch.bfloat16, None),
+             ("ragged-4000", PREFILL_BATCH, heads, heads, 4000, hd,
+              torch.bfloat16, None),
+             ("gqa-window", 2, 4, 1, 256, 64, torch.float32, 128),
+             ("gqa-window-nonpow2", 1, 6, 2, 384, 64, torch.float32, 256),
+             ("float32-d128", 1, 8, 2, 1000, 128, torch.float32, None),
+             ("bf16-d256", 1, 4, 2, 512, 256, torch.bfloat16, None)]
+    for i, (label, b, h, kh, s, d, dtype, win) in enumerate(cases):
+        q, k, v = flash_operands(b, h, kh, s, d, dtype, 100 + i, dev)
+        worst["flash_attention"] = max(worst["flash_attention"],
+                                       flash_vs_plain(fa, label, q, k, v,
+                                                      h // kh, win))
+    for i, (label, dtype, g, s) in enumerate((
+            ("zamba2-prefill", torch.bfloat16, 1, PREFILL_LEN),
+            ("zamba2-float32", torch.float32, 1, PREFILL_LEN),
+            ("groups-4", torch.bfloat16, 4, 1024))):
+        ops_ = ssd_operands(PREFILL_BATCH, ssm_heads if g == 1 else 8, g, s,
+                            s_cfg.head_dim, s_cfg.state_dim, dtype, 200 + i, dev)
+        worst["ssd_scan"] = max(worst["ssd_scan"], ssd_vs_plain(
+            ssd, label, *ops_, s_cfg.chunk_size))
+    del q, k, v, ops_
+    torch.cuda.empty_cache()
+
+    # --- phase 7: bf16 prefill at full width, 2 x 4096 ---------------------
+    model = build_model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN)), device=dev)
+    prefill = make_prefill_step(model)
+    batch = {"tokens": tokens}
+    fa.reset_launch_counts()
+    ssd.reset_launch_counts()
+    first_only = lambda i, *call: call if i == 0 else None
+    with recorded(ops, "flash_attention_bhsd", first_only) as cap_fa, \
+            recorded(ops, "ssd_scan_bhsp", first_only) as cap_ssd:
+        last = prefill(params, batch)
+        torch.cuda.synchronize()
+    launches = {"flash_attention": fa.LAUNCHES["flash_attention"],
+                "ssd_scan": ssd.LAUNCHES["ssd_scan"]}
+    n_super = cfg.num_layers // cfg.hybrid.shared_every
+    expect = {"flash_attention": n_super, "ssd_scan": cfg.num_layers}
+    if launches != expect:
+        raise Failed(f"prefill launched {launches}, expected {expect}")
+    if (len(cap_fa), len(cap_ssd)) != (n_super, cfg.num_layers):
+        raise Failed("kernel calls and launches disagree")
+    if last.shape != (PREFILL_BATCH, cfg.padded_vocab_size) or \
+            not torch.isfinite(last).all():
+        raise Failed(f"prefill logits: shape {tuple(last.shape)} or non-finite")
+    line("prefill", arch=LM_ARCH, dtype="bfloat16", params=n_params,
+         init_s=f"{init_s:.2f}", batch=PREFILL_BATCH, tokens=PREFILL_LEN,
+         launches=json.dumps(launches), logits_absmax=f"{float(last.abs().max()):.4f}")
+    del last
+
+    # the operands of the first launch of each kernel against the plain version
+    fa_args, fa_kw, fa_out = cap_fa[0]
+    ssd_args, ssd_kw, (ssd_y, ssd_st) = cap_ssd[0]
+    fa_plain = fa.flash_attention_reference(*fa_args, **fa_kw)
+    err_fa = check_close("flash first prefill launch", fa_out, fa_plain,
+                         *fa.PLAIN_TOL[fa_out.dtype])
+    y_p, st_p = ssd.ssd_scan_reference(*ssd_args, **ssd_kw)
+    err_ssd = max(check_close("ssd first prefill launch y", ssd_y, y_p, *TOL_SSD),
+                  check_close("ssd first prefill launch state", ssd_st, st_p,
+                              *TOL_SSD))
+    worst["flash_attention"] = max(worst["flash_attention"], err_fa)
+    worst["ssd_scan"] = max(worst["ssd_scan"], err_ssd)
+    del fa_plain, y_p, st_p
+    line("prefill-first-launch", flash_max_abs_err=f"{err_fa:.3e}",
+         flash_operands=tuple(fa_args[0].shape), ssd_max_abs_err=f"{err_ssd:.3e}",
+         ssd_operands=tuple(ssd_args[0].shape))
+
+    # times: the prefill whole, each kernel alone, its plain version, SDPA
+    walls = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = statistics.median(walls[1:])
+    q, k, v = fa_args
+    group, window = fa_kw["group"], fa_kw.get("window")
+    fa_ms, fa_host = kernel_only_ms(
+        lambda: fa.flash_attention_bhsd(*fa_args, **fa_kw), LM_KERNEL_REPS)
+    fa_plain_ms = statistics.median(cuda_ms(
+        lambda: fa.flash_attention_reference(*fa_args, **fa_kw), reps=3, warmup=1))
+    b_kv = q.shape[0] // heads
+    q4 = q.view(b_kv, heads, q.shape[1], q.shape[2])
+    k4 = k.view(b_kv, k.shape[0] // b_kv, k.shape[1], k.shape[2])
+    v4 = v.view(b_kv, v.shape[0] // b_kv, v.shape[1], v.shape[2])
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, scale=1.0, enable_gqa=True)
+    sdpa_err = float((sdpa().reshape(fa_out.shape).float()
+                      - fa_out.float()).abs().max())
+    sdpa_ms, _ = kernel_only_ms(sdpa, LM_KERNEL_REPS)
+    fa_bound, fa_by = bound(nbytes(q, k, v, fa_out), flash_work(q, k, window),
+                            q.dtype)
+    ssd_chunk = ssd_kw["chunk"]
+    ssd_ms, ssd_host = kernel_only_ms(
+        lambda: ssd.ssd_scan_bhsp(*ssd_args, **ssd_kw), LM_KERNEL_REPS)
+    ssd_plain_ms = statistics.median(cuda_ms(
+        lambda: ssd.ssd_scan_reference(*ssd_args, **ssd_kw), reps=3, warmup=1))
+    ssd_bound, ssd_by = bound(nbytes(*ssd_args, ssd_y, ssd_st),
+                              ssd_work(ssd_args[0], ssd_args[3], ssd_chunk),
+                              ssd_args[0].dtype)
+    line("timing", kernel="flash_attention", card=repr(card_line),
+         kernel_ms=f"{fa_ms:.5f}", wrapper_host_ms=f"{fa_host:.5f}",
+         plain_ms_median=f"{fa_plain_ms:.3f}", sdpa_ms=f"{sdpa_ms:.5f}",
+         sdpa_vs_kernel_max_abs=f"{sdpa_err:.3e}", bound_ms=f"{fa_bound:.5f}",
+         bound_by=fa_by, flop=f"{flash_work(q, k, window):.4e}",
+         bytes=nbytes(q, k, v, fa_out))
+    line("timing", kernel="ssd_scan", card=repr(card_line),
+         kernel_ms=f"{ssd_ms:.5f}", wrapper_host_ms=f"{ssd_host:.5f}",
+         plain_ms_median=f"{ssd_plain_ms:.3f}", bound_ms=f"{ssd_bound:.5f}",
+         bound_by=ssd_by, flop=f"{ssd_work(ssd_args[0], ssd_args[3], ssd_chunk):.4e}",
+         bytes=nbytes(*ssd_args, ssd_y, ssd_st))
+    kernels_ms = n_super * fa_ms + cfg.num_layers * ssd_ms
+    line("prefill-breakdown", arch=LM_ARCH, card=repr(card_line),
+         wall_ms_median=f"{wall_ms:.3f}", walls_ms=[f"{w:.3f}" for w in walls],
+         flash_ms_x13=f"{n_super * fa_ms:.3f}",
+         ssd_ms_x81=f"{cfg.num_layers * ssd_ms:.3f}",
+         rest_ms=f"{wall_ms - kernels_ms:.3f}",
+         tokens_per_s=f"{PREFILL_BATCH * PREFILL_LEN / (wall_ms * 1e-3):.1f}")
+    del cap_fa, cap_ssd, fa_args, ssd_args, fa_out, ssd_y, ssd_st, q, k, v
+    del q4, k4, v4
+    print_profile("prefill-profile", card_line,
+                  device_profile(lambda: prefill(params, batch)))
+
+    # --- phase 9 (run here, on the bf16 weights): the serve loop -----------
+    prompts = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))
+    fa.reset_launch_counts()
+    ssd.reset_launch_counts()
+    res = serve.serve(model, params, prompts, SERVE_GEN)
+    toks = res["tokens"]
+    if toks.shape != (SERVE_BATCH, SERVE_GEN) or toks.min() < 0 or \
+            toks.max() >= cfg.padded_vocab_size:
+        raise Failed(f"serve loop tokens: shape {toks.shape}, range "
+                     f"[{toks.min()}, {toks.max()}]")
+    line("serve-loop", arch=LM_ARCH, dtype="bfloat16", card=repr(card_line),
+         batch=SERVE_BATCH, bucket=res["bucket"], prompt=SERVE_PROMPT,
+         gen=SERVE_GEN, tokens_per_s=f"{res['tokens_per_s']:.2f}",
+         kernel_launches=fa.LAUNCHES["flash_attention"] + ssd.LAUNCHES["ssd_scan"],
+         first_row=toks[0, :8].tolist())
+    step = make_serve_step(model)
+    cache = model.init_cache(SERVE_BATCH, 8)
+    tok = torch.as_tensor(prompts[:, :1], dtype=torch.int32, device=dev)
+    step(params, cache, tok, 0)
+
+    def three_steps():
+        for t in range(1, 4):
+            step(params, cache, tok, t)
+    prof = device_profile(three_steps)
+    print_profile("decode-profile", card_line, prof)
+    del cache
+    del model, params, tokens, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- phase 8: float32 prefill against decode and the plain path --------
+    cfg32 = get_config(LM_ARCH, use_flash_kernel=True, dtype="float32")
+    model = build_model(cfg32, device="cuda")
+    params = model.init(0)
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (PREFILL_BATCH, DECODE_CHECK_LEN)), device=dev)
+    fa.reset_launch_counts()
+    ssd.reset_launch_counts()
+    # the hidden state after each Mamba2 layer, at the last position
+    last_pos = lambda i, args, kw, x: x[:, -1].float().clone()
+    with recorded(transformer, "_ssm_block", last_pos) as pre_layers:
+        last = make_prefill_step(model)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    if (fa.LAUNCHES["flash_attention"], ssd.LAUNCHES["ssd_scan"]) != \
+            (n_super, cfg.num_layers):
+        raise Failed("the float32 prefill did not launch both kernels per layer")
+    plain = build_model(dataclasses.replace(cfg32, use_flash_kernel=False), "cuda")
+    last_plain = make_prefill_step(plain)(params, {"tokens": tokens})
+    err_plain = check_close("float32 prefill kernel path vs plain path", last,
+                            last_plain, *TOL_SSD)
+    step = make_serve_step(model)
+    cache = model.init_cache(PREFILL_BATCH, DECODE_CHECK_LEN)
+    t0 = time.perf_counter()
+    for t in range(DECODE_CHECK_LEN - 1):
+        _, cache = step(params, cache, tokens[:, t:t + 1], t)
+    with torch.inference_mode(), recorded(
+            transformer, "_ssm_block_decode",
+            lambda i, args, kw, x: x[:, 0].float().clone()) as dec_layers:
+        dec_logits, _ = model.decode_step(params, cache, tokens[:, -1:],
+                                          DECODE_CHECK_LEN - 1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    dec_last = dec_logits[:, -1]
+    # relative error of the hidden state after each super-block (its last
+    # Mamba2 layer) and after the tail, prefill against decode
+    every = cfg.hybrid.shared_every
+    marks = [every * i + every - 1 for i in range(n_super)] + [cfg.num_layers - 1]
+    per_block = [float((pre_layers[i] - dec_layers[i]).abs().max()
+                       / pre_layers[i].abs().max()) for i in marks]
+    argmax_equal = bool(torch.equal(last.argmax(-1), dec_last.argmax(-1)))
+    err = (dec_last.double() - last.double()).abs()
+    line("prefill-vs-decode", arch=LM_ARCH, dtype="float32",
+         tokens=DECODE_CHECK_LEN, batch=PREFILL_BATCH,
+         max_abs_err=f"{float(err.max()):.3e}",
+         logits_absmax=f"{float(last.abs().max()):.4f}",
+         argmax_equal=argmax_equal, decode_s=f"{decode_s:.2f}",
+         kernel_vs_plain_max_abs=f"{err_plain:.3e}",
+         per_superblock_rel=[f"{e:.2e}" for e in per_block])
+    check_close("float32 decode vs prefill logits", dec_last, last, *TOL_DECODE)
+    if not argmax_equal:
+        raise Failed("float32 decode and prefill disagree on the argmax")
+    del model, plain, params, cache, last, last_plain, dec_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    return [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:89",
+         "launches": launches["flash_attention"],
+         "max_abs_err": worst["flash_attention"], "ms": fa_ms,
+         "plain_ms": fa_plain_ms, "bound_ms": fa_bound, "bound_by": fa_by,
+         "library_ms": sdpa_ms},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:75",
+         "launches": launches["ssd_scan"],
+         "max_abs_err": worst["ssd_scan"], "ms": ssd_ms,
+         "plain_ms": ssd_plain_ms, "bound_ms": ssd_bound, "bound_by": ssd_by,
+         "library_ms": None},
+    ]
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -259,15 +702,21 @@ def main() -> int:
     dev = torch.device("cuda")
     card_line = card()
 
-    # --- phase 1: build ----------------------------------------------------
-    _build.load_library("renewal_scan", "renewal_scan.cu")
-    info = _build.build_log["renewal_scan"]
-    regs = [ln.strip() for ln in info["ptxas"].splitlines()
-            if "registers" in ln or "spill" in ln]
-    line("build", kernel="renewal_scan", seconds=f"{info['seconds']:.2f}",
-         cached=info["cached"], card=repr(card_line))
-    for r in regs:
-        line("build", ptxas=repr(r))
+    # --- phase 1: build all kernels, one nvcc each, started together -------
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+
+    t_build = time.perf_counter()
+    _build.load_libraries([rs.LIBRARY, fa.LIBRARY, ssd.LIBRARY])
+    line("build", kernels=3, wall_seconds=f"{time.perf_counter() - t_build:.2f}",
+         card=repr(card_line))
+    for name, _, flags in (rs.LIBRARY, fa.LIBRARY, ssd.LIBRARY):
+        info = _build.build_log[name]
+        line("build", kernel=name, seconds=f"{info['seconds']:.2f}",
+             cached=info["cached"], fmad=("-fmad=false" not in flags))
+        for r in info["ptxas"].splitlines():
+            if "registers" in r or "spill" in r:
+                line("build", kernel=name, ptxas=repr(r.strip()))
 
     scen = list(paper_scenarios().values())
     grid_cfg = sparse_rendezvous_scenario()
@@ -461,10 +910,7 @@ def main() -> int:
              mean_failures=f"{float(wstats.n_failures[s].float().mean()):.6f}",
              oracle_rel_err=f"{err:.3e}")
 
-    line("done", seconds=f"{time.perf_counter() - t_start:.1f}",
-         worst_kernel_vs_plain_rel=f"{worst_rel:.3e}")
-    print(card_line)
-    print(json.dumps({"kernels": [{
+    renewal_record = {
         "name": "renewal_scan",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/renewal_scan.cu",
@@ -476,8 +922,16 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
-    }]}))
-    print('kernels: ["renewal_scan"]')
+    }
+    line("renewal-done", seconds=f"{time.perf_counter() - t_start:.1f}",
+         worst_kernel_vs_plain_rel=f"{worst_rel:.3e}")
+
+    lm_records = lm_path(card_line, fa, ssd)
+    records = [renewal_record] + lm_records
+    line("done", seconds=f"{time.perf_counter() - t_start:.1f}")
+    print(card_line)
+    print(json.dumps({"kernels": records}))
+    print("kernels: " + json.dumps([r["name"] for r in records]))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,7 +4,9 @@ The reference draws every failure history with ``jax.random`` under its
 default ``jax_threefry_partitionable=True``.  This module reproduces those
 bits so the port's engines see the same histories for the same key:
 
-  * ``PRNGKey(seed)`` — the raw ``uint32[2]`` key ``[seed >> 32, seed & M]``;
+  * ``PRNGKey(seed)`` — the raw ``uint32[2]`` key ``[0, seed & 0xFFFFFFFF]``,
+    as ``jax.random.PRNGKey`` makes it outside ``enable_x64`` (how every
+    caller of the reference makes its keys): only the low 32 bits count;
   * ``split(key, num)`` — threefry of the key over the counters
     ``0..num-1`` (hi word, lo word), stacked as ``(num, 2)``;
   * ``random_bits(key, shape)`` — threefry over the row-major flat index
@@ -33,9 +35,10 @@ _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
 def PRNGKey(seed: int) -> np.ndarray:
-    """Raw threefry key for an integer seed, as ``jax.random.PRNGKey``."""
-    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
-    return np.array([seed >> 32, seed & _M32], np.uint32)
+    """Raw threefry key for an integer seed, as ``jax.random.PRNGKey``
+    without x64: the seed's low 32 bits, so ``2**32 + 5`` gives ``[0, 5]``
+    and ``-1`` gives ``[0, 0xFFFFFFFF]``."""
+    return np.array([0, int(seed) & _M32], np.uint32)
 
 
 def _key_words(key) -> tuple:

@@ -1,2 +1,3 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version (counterparts of ``repro.kernels``)."""
+version (counterparts of ``repro.kernels``): ``renewal_scan``,
+``flash_attention`` and ``ssd_scan``, with ``ops`` (model layout)."""

@@ -21,13 +21,23 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
 
-# -fmad=false: no multiply-add contraction, so every product and sum rounds
-# as its own float32 operation — as in the plain PyTorch version, and as the
-# Kahan ledger needs.  No --use_fast_math (it would bring flush-to-zero and
-# approximate division).
-NVCC_FLAGS = (
+# Flags are per library.  None of them takes --use_fast_math (it would bring
+# flush-to-zero, approximate exp and approximate division).
+#
+# EXACT_FLAGS (renewal_scan): -fmad=false, no multiply-add contraction, so
+# every product and sum rounds as its own float32 operation — as in the
+# plain PyTorch version, and as the Kahan ledger needs.
+EXACT_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+# FMA_FLAGS (flash_attention, ssd_scan): nvcc's default contraction into
+# fused multiply-adds.  Their dot products are written as fmaf anyway, and
+# their bar against the plain version is a tolerance, not bit-equality.
+FMA_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xptxas", "-v",
     "-shared", "-Xcompiler", "-fPIC",
 )
 
@@ -51,13 +61,14 @@ def find_nvcc() -> str:
         "CUDA kernels of repro_torch are built from source at first use")
 
 
-def load_library(name: str, source: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source>`` (once per process and content) and load it."""
+def load_library(name: str, source: str, flags: tuple) -> ctypes.CDLL:
+    """Compile ``csrc/<source>`` with ``flags`` (once per process and
+    content) and load it."""
     if name in _loaded:
         return _loaded[name]
     src = CSRC / source
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     lib_path = out_dir / f"lib{name}_{digest}.so"
@@ -66,7 +77,7 @@ def load_library(name: str, source: str) -> ctypes.CDLL:
     cached = lib_path.exists()
     if not cached:
         tmp = out_dir / f".lib{name}_{digest}.{os.getpid()}.so"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [find_nvcc(), *flags, "-o", str(tmp), str(src)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
@@ -79,3 +90,26 @@ def load_library(name: str, source: str) -> ctypes.CDLL:
                        "cached": cached, "path": str(lib_path)}
     _loaded[name] = lib
     return lib
+
+
+def load_libraries(specs) -> list:
+    """Build several libraries at once, one ``nvcc`` each, all started
+    together; ``specs`` are ``(name, source, flags)`` triples (each kernel
+    module's ``LIBRARY``).  Returns the loaded libraries in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    specs = list(specs)
+    with ThreadPoolExecutor(max_workers=len(specs)) as pool:
+        return list(pool.map(lambda s: load_library(*s), specs))
+
+
+def check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
+    """Raise if a launch function of library ``name`` returned a CUDA
+    error (``<name>_error_string`` gives its text)."""
+    if err == 0:
+        return
+    fn = getattr(lib, f"{name}_error_string")
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_char_p
+    raise RuntimeError(f"{name} CUDA launch failed: cudaError {err}: "
+                       f"{fn(err).decode()}")

@@ -48,6 +48,7 @@ from repro_torch.core import energy_model as em
 from repro_torch.core import planning
 from repro_torch.core import strategies
 from repro_torch.core.scenarios import post_recovery_anchor
+from repro_torch.kernels import _build
 
 __all__ = ["renewal_scan", "renewal_scan_reference", "pack_lane_params",
            "N_PARAMS", "PARAM_COLS", "STAT_FIELDS", "LAUNCHES",
@@ -81,6 +82,9 @@ MAX_F = 4
 
 # launches of the CUDA kernel (not of the plain version), per kernel name
 LAUNCHES = {"renewal_scan": 0}
+
+# (name, source under csrc/, nvcc flags) for kernels._build
+LIBRARY = ("renewal_scan", "renewal_scan.cu", _build.EXACT_FLAGS)
 
 
 def reset_launch_counts() -> None:
@@ -333,8 +337,6 @@ def renewal_scan_reference(params, nodes, ladder, gaps, felled=None, *,
 
 def _launch_cuda(params, nodes, ladder, gaps, felled, compensated: bool) -> dict:
     """Launch the CUDA kernel on the operands' card (no synchronisation)."""
-    from repro_torch.kernels import _build
-
     tensors = [params, nodes, ladder, gaps] + ([] if felled is None else [felled])
     dev = params.device
     for t in tensors:
@@ -357,7 +359,7 @@ def _launch_cuda(params, nodes, ladder, gaps, felled, compensated: bool) -> dict
     if n_lanes > 65535:
         raise ValueError("renewal_scan supports at most 65535 lanes per launch")
 
-    lib = _build.load_library("renewal_scan", "renewal_scan.cu")
+    lib = _build.load_library(*LIBRARY)
     fn = lib.renewal_scan_launch
     if fn.argtypes is None:                  # first call: bind the signature
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
@@ -374,9 +376,7 @@ def _launch_cuda(params, nodes, ladder, gaps, felled, compensated: bool) -> dict
              gaps.data_ptr(), 0 if felled is None else felled.data_ptr(),
              n_lanes, n, n_levels, n_epochs, n_runs, int(bool(compensated)),
              valid.data_ptr(), fstats.data_ptr(), istats.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"renewal_scan CUDA launch failed: {_error_string(lib, err)}")
+    _build.check_launch(lib, "renewal_scan", err)
     LAUNCHES["renewal_scan"] += 1
     out = {"valid": valid}
     fi = ii = 0
@@ -388,13 +388,6 @@ def _launch_cuda(params, nodes, ladder, gaps, felled, compensated: bool) -> dict
             out[name] = istats[ii]
             ii += 1
     return out
-
-
-def _error_string(lib, err: int) -> str:
-    fn = lib.renewal_scan_error_string
-    fn.argtypes = [ctypes.c_int]
-    fn.restype = ctypes.c_char_p
-    return f"cudaError {err}: {fn(err).decode()}"
 
 
 def renewal_scan(params, nodes, ladder, gaps, felled=None, *,

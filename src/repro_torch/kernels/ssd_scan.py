@@ -1,0 +1,151 @@
+"""The Mamba2 SSD chunked scan, as a CUDA kernel.
+
+Replaces ``repro.kernels.ssd_scan.ssd_scan_pallas`` (the Pallas TPU kernel
+``_kernel``).  Kernel layout, as the reference's:
+
+  x (B, H, S, P) float32 or bfloat16; dt (B, H, 1, S) float32;
+  a (H,) float32 (negative); bmat, cmat (B, G, S, N) in x's dtype, heads
+  grouped onto G banks (head ``h`` reads bank ``h // (H / G)``);
+  -> y (B, H, S, P) float32 and the final state (B, H, P, N) float32.
+
+Per chunk of ``chunk`` steps, with ``cum = cumsum(dt * a)`` and
+``dax = dt * x``: ``y_i = sum_{j<=i} (C_i.B_j) exp(cum_i - cum_j) dax_j +
+exp(cum_i) C_i.S^T`` and ``S <- exp(cum_end) S + sum_j exp(cum_end - cum_j)
+dax_j (x) B_j``; S starts at zero and its last value is returned.
+
+Two implementations of one function live here:
+
+  * ``ssd_scan_reference`` — the plain PyTorch version: a Python loop over
+    the chunks on (B, H, ...) tensors, the TPU kernel body written out;
+  * the CUDA kernel in ``csrc/ssd_scan.cu`` (one block per (batch, head)
+    looping over the chunks, the state in registers and shared memory;
+    design notes in the source), compiled for the ``(P, N)`` pairs in
+    ``SUPPORTED_PN`` and chunks up to ``MAX_CHUNK``.
+
+``ssd_scan_bhsp`` dispatches on where the tensors lie: CPU tensors take the
+plain version, CUDA tensors launch the kernel (counted in ``LAUNCHES``).
+Anything else raises — a CUDA call never falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = ["ssd_scan_bhsp", "ssd_scan_reference", "LAUNCHES",
+           "reset_launch_counts", "SUPPORTED_PN", "MAX_CHUNK"]
+
+SUPPORTED_PN = ((16, 16), (32, 64), (64, 64), (64, 128), (128, 128))  # csrc SSD_SHAPES
+MAX_CHUNK = 1024                                                      # csrc kMaxChunk
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# launches of the CUDA kernel (not of the plain version)
+LAUNCHES = {"ssd_scan": 0}
+
+# (name, source under csrc/, nvcc flags) for kernels._build
+LIBRARY = ("ssd_scan", "ssd_scan.cu", _build.FMA_FLAGS)
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _check(x, dt, a, bmat, cmat, chunk: int) -> None:
+    if x.dim() != 4 or bmat.dim() != 4 or cmat.shape != bmat.shape:
+        raise ValueError(f"ssd_scan takes x (B,H,S,P) and B/C (B,G,S,N); got "
+                         f"{tuple(x.shape)}, {tuple(bmat.shape)}, "
+                         f"{tuple(cmat.shape)}")
+    b, h, s, _ = x.shape
+    g = bmat.shape[1]
+    if bmat.shape[0] != b or bmat.shape[2] != s or g < 1 or h % g:
+        raise ValueError(f"B/C {tuple(bmat.shape)} do not match x {tuple(x.shape)}")
+    if tuple(dt.shape) != (b, h, 1, s) or tuple(a.shape) != (h,):
+        raise ValueError(f"dt must be (B,H,1,S) and a (H,); got "
+                         f"{tuple(dt.shape)}, {tuple(a.shape)}")
+    if chunk < 1 or s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+
+
+def ssd_scan_reference(x, dt, a, bmat, cmat, *, chunk: int):
+    """Plain PyTorch version of the kernel (same layout, float32 math)."""
+    _check(x, dt, a, bmat, cmat, chunk)
+    b, h, s, p = x.shape
+    g, n = bmat.shape[1], bmat.shape[3]
+    bank = torch.arange(h, device=x.device) // (h // g)
+    xf, dtf, af = x.float(), dt[:, :, 0].float(), a.float()
+    bf, cf = bmat.float()[:, bank], cmat.float()[:, bank]          # (b,h,s,n)
+    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    state = torch.zeros(b, h, p, n, dtype=torch.float32, device=x.device)
+    y = torch.empty(b, h, s, p, dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        dtc = dtf[..., sl]                                          # (b,h,q)
+        cum = torch.cumsum(dtc * af[:, None], dim=-1)
+        dax = xf[:, :, sl] * dtc[..., None]                         # (b,h,q,p)
+        bq, cq = bf[:, :, sl], cf[:, :, sl]                         # (b,h,q,n)
+        decay = torch.where(tri, torch.exp(cum[..., :, None] - cum[..., None, :]),
+                            torch.zeros((), device=x.device))
+        yc = ((cq @ bq.transpose(-1, -2)) * decay) @ dax
+        yc = yc + torch.exp(cum)[..., None] * (cq @ state.transpose(-1, -2))
+        w = torch.exp(cum[..., -1:] - cum)[..., None]               # (b,h,q,1)
+        state = state * torch.exp(cum[..., -1])[..., None, None] \
+            + (dax * w).transpose(-1, -2) @ bq
+        y[:, :, sl] = yc
+    return y, state
+
+
+def _launch_cuda(x, dt, a, bmat, cmat, chunk: int):
+    """Launch the CUDA kernel on the operands' card (no synchronisation)."""
+    _check(x, dt, a, bmat, cmat, chunk)
+    ops = (x, dt, a, bmat, cmat)
+    if any(t.device != x.device for t in ops):
+        raise ValueError("ssd_scan operands must lie on one device")
+    if x.dtype not in _DTYPES or bmat.dtype != x.dtype or cmat.dtype != x.dtype:
+        raise TypeError(f"the SSD kernel takes x, B, C in float32 or bfloat16 "
+                        f"alike; got {x.dtype}, {bmat.dtype}, {cmat.dtype}")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32:
+        raise TypeError("the SSD kernel takes dt and a in float32")
+    if not all(t.is_contiguous() for t in ops):
+        raise ValueError("the SSD kernel takes contiguous operands")
+    b, h, s, p = x.shape
+    g, n = bmat.shape[1], bmat.shape[3]
+    if (p, n) not in SUPPORTED_PN:
+        raise ValueError(f"the SSD kernel is compiled for (P, N) in "
+                         f"{SUPPORTED_PN}; got {(p, n)}")
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"the SSD kernel takes chunks up to {MAX_CHUNK}; got {chunk}")
+
+    lib = _build.load_library(*LIBRARY)
+    fn = lib.ssd_scan_launch
+    if fn.argtypes is None:                  # first call: bind the signature
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    y = torch.empty((b, h, s, p), dtype=torch.float32, device=x.device)
+    state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
+             cmat.data_ptr(), y.data_ptr(), state.data_ptr(), b, h, g, s, p, n,
+             chunk, _DTYPES[x.dtype], stream)
+    _build.check_launch(lib, "ssd_scan", err)
+    LAUNCHES["ssd_scan"] += 1
+    return y, state
+
+
+def ssd_scan_bhsp(x, dt, a, bmat, cmat, *, chunk: int = 256):
+    """SSD scan in kernel layout (module doc); returns ``(y, final_state)``.
+    CPU tensors run the plain version; CUDA tensors launch the
+    hand-written kernel (counted in ``LAUNCHES``) and return without
+    synchronising.  Mixed or other devices raise."""
+    ops = (x, dt, a, bmat, cmat)
+    if not all(isinstance(t, torch.Tensor) for t in ops):
+        raise TypeError("ssd_scan_bhsp takes torch tensors")
+    kinds = {t.device.type for t in ops}
+    if kinds == {"cpu"}:
+        return ssd_scan_reference(x, dt, a, bmat, cmat, chunk=chunk)
+    if kinds == {"cuda"}:
+        return _launch_cuda(x, dt, a, bmat, cmat, chunk)
+    raise ValueError(f"ssd_scan operands on unsupported devices {kinds}")

@@ -1,0 +1,169 @@
+"""Model configuration (pure data), the counterpart of ``repro.models.api``.
+
+One generic ``ModelConfig`` covers all ten assigned architectures (dense GQA
+transformers, MoE, Mamba2/SSD, the Zamba2 hybrid, and the Whisper-style
+encoder-decoder).  The fields, defaults and ``param_count`` are the
+reference's, field for field; only ``activation_dtype`` returns a
+``torch.dtype``.  Models are functions of an explicit parameter tree
+(nested dicts of layer-stacked tensors, the reference's layout): see
+``repro_torch.models.transformer``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+__all__ = ["MoEConfig", "SSMConfig", "HybridConfig", "EncDecConfig", "ModelConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    # "row": per-sequence capacity + shard-local dispatch (optimized default)
+    # "flat": global flat-token capacity buffer (the paper-era baseline,
+    #         kept for the §Perf A/B)
+    dispatch: str = "row"
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    state_dim: int = 128      # N (SSD state size)
+    head_dim: int = 64        # P (channels per SSD head)
+    expand: int = 2           # d_inner = expand * d_model
+    conv_width: int = 4
+    chunk_size: int = 256     # SSD chunk length
+    n_groups: int = 1         # B/C groups (GQA-like for SSD)
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridConfig:
+    """Zamba2-style: Mamba2 backbone with a shared attention block applied
+    every ``shared_every`` layers (its parameters are shared across uses)."""
+
+    shared_every: int = 6
+    shared_num_heads: int = 32
+    shared_num_kv_heads: int = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class EncDecConfig:
+    """Whisper-style.  The audio conv frontend is a stub: the model consumes
+    precomputed frame embeddings of shape (batch, enc_len, d_model)."""
+
+    enc_layers: int = 24
+    enc_len: int = 1500
+    max_dec_len: int = 32_768   # learned decoder position table size
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                   # dense | moe | ssm | hybrid | encdec
+    num_layers: int
+    d_model: int
+    vocab_size: int
+    num_heads: int = 0            # 0 for attention-free families
+    num_kv_heads: int = 0
+    head_dim: int = 0             # 0 -> d_model // num_heads
+    d_ff: int = 0
+    act: str = "swiglu"           # swiglu | geglu | gelu
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    mrope_sections: Optional[Tuple[int, ...]] = None   # M-RoPE (qwen2-vl)
+    sliding_window: Optional[int] = None               # SWA (mixtral)
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    hybrid: Optional[HybridConfig] = None
+    encdec: Optional[EncDecConfig] = None
+    dtype: str = "bfloat16"       # activation / weight dtype
+    remat: str = "none"           # none | full | dots  (scan remat policy)
+    use_flash_kernel: bool = False  # Pallas flash-attention path
+    embeds_input: bool = False    # frontend stub: inputs are embeddings
+    pad_vocab_multiple: int = 512  # pad embed/logits so vocab shards over TP
+    train_microbatches: int = 1    # gradient-accumulation microbatches
+    # decode cache in the scan carry (in-place DUS, donation-aliased).
+    # False = baseline ys-emitting scan (full cache copy per step, §Perf).
+    decode_cache_in_carry: bool = True
+    # training parallelism: "fsdp_tp" (2D) or "zero3" (batch+weights over the
+    # whole mesh, no TP — adopted for the large dense archs; §Perf it. 5)
+    train_parallelism: str = "fsdp_tp"
+
+    @property
+    def padded_vocab_size(self) -> int:
+        m = self.pad_vocab_multiple
+        if m <= 1:
+            return self.vocab_size
+        return ((self.vocab_size + m - 1) // m) * m
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(self.num_heads, 1)
+
+    @property
+    def activation_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    def param_count(self) -> int:
+        """Approximate parameter count (used for 6ND model-FLOPs and for
+        checkpoint sizing; exact counts come from the pytree)."""
+        d, v, L = self.d_model, self.vocab_size, self.num_layers
+        total = v * d * (1 if self.tie_embeddings else 2)
+        hd = self.resolved_head_dim
+        if self.family in ("dense", "moe", "hybrid", "encdec"):
+            attn = d * hd * self.num_heads + 2 * d * hd * self.num_kv_heads \
+                + hd * self.num_heads * d
+        else:
+            attn = 0
+        if self.moe is not None:
+            ff = self.moe.num_experts * 3 * d * self.moe.d_ff_expert + d * self.moe.num_experts
+        elif self.d_ff:
+            n_mats = 3 if self.act in ("swiglu", "geglu") else 2
+            ff = n_mats * d * self.d_ff
+        else:
+            ff = 0
+        if self.family == "ssm":
+            s = self.ssm or SSMConfig()
+            d_in = s.expand * d
+            n_heads = d_in // s.head_dim
+            per = d * (2 * d_in + 2 * s.n_groups * s.state_dim + n_heads) \
+                + d_in * d + 3 * n_heads
+            return total + L * per
+        if self.family == "hybrid":
+            s = self.ssm or SSMConfig()
+            h = self.hybrid or HybridConfig()
+            d_in = s.expand * d
+            n_heads = d_in // s.head_dim
+            per = d * (2 * d_in + 2 * s.n_groups * s.state_dim + n_heads) + d_in * d
+            shared = d * hd * h.shared_num_heads * 2 + 2 * d * hd * h.shared_num_kv_heads \
+                + (3 * d * self.d_ff if self.d_ff else 0)
+            return total + L * per + shared
+        per_layer = attn + ff
+        if self.family == "encdec":
+            e = self.encdec or EncDecConfig()
+            # encoder layers: self-attn + mlp; decoder adds cross-attn
+            enc = e.enc_layers * (attn + ff)
+            dec = L * (2 * attn + ff)
+            return total + enc + dec
+        return total + L * per_layer
+
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: only top-k experts count)."""
+        if self.moe is None:
+            return self.param_count()
+        d, L = self.d_model, self.num_layers
+        dense_total = self.param_count() - L * self.moe.num_experts * 3 * d * self.moe.d_ff_expert
+        return dense_total + L * self.moe.top_k * 3 * d * self.moe.d_ff_expert

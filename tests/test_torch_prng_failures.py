@@ -34,7 +34,7 @@ def _ulps(a, b):
     return np.abs(a - b)
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2**31 - 1])
+@pytest.mark.parametrize("seed", [0, 1, 2**31 - 1, 2**32 + 5, 2**63 - 1, -1])
 def test_prngkey_matches_jax(ref, seed):
     np.testing.assert_array_equal(prng.PRNGKey(seed),
                                   np.asarray(ref.jax.random.PRNGKey(seed)))

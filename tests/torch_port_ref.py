@@ -25,7 +25,7 @@ requires_cuda = pytest.mark.requires_cuda
 def skip_without_cuda() -> None:
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (on the card: PYTHONPATH=src python "
-                    "-m pytest -m requires_cuda tests/test_torch_renewal_scan.py)")
+                    "-m pytest -m requires_cuda tests/test_torch_*.py)")
 
 
 def load_reference():
@@ -37,15 +37,19 @@ def load_reference():
 
     if not hasattr(jax.experimental, "enable_x64"):
         jax.experimental.enable_x64 = jax.enable_x64
+    from repro import configs, models
     from repro.core import (characterization, energy_model, failures,
                             optimize, planning, scenarios, strategies, sweep)
-    from repro.kernels import renewal_scan
+    from repro.kernels import flash_attention, ops, renewal_scan, ssd_scan
+    from repro.launch import batching, steps
 
     return types.SimpleNamespace(
         jax=jax, characterization=characterization,
         energy_model=energy_model, failures=failures, optimize=optimize,
         planning=planning, scenarios=scenarios, strategies=strategies,
-        sweep=sweep, renewal_scan=renewal_scan)
+        sweep=sweep, renewal_scan=renewal_scan, kernel_ops=ops,
+        flash_attention=flash_attention, ssd_scan=ssd_scan, models=models,
+        configs=configs, steps=steps, batching=batching)
 
 
 def to_np(x):
