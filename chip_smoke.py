@@ -20,7 +20,9 @@ same operands:
 
 It times each kernel alone, its plain version, its bound, the one-call
 PyTorch equivalent where there is one (SDPA for flash attention), and the
-entry points whole.  Every phase prints one line; any failure exits
+entry points whole; it prints each compiled kernel's registers and spills
+(``[build]``, from ptxas) and the LM kernels' resident blocks per SM at the
+prefill's shapes (``[occupancy]``, from CUDA's occupancy calculator).  Every phase prints one line; any failure exits
 non-zero.  The last four lines are the card, the kernel record (JSON), the
 list of kernels, and ``{"ok": true, "device": ...}``.  Exits non-zero
 without a result when no CUDA device is present, or when the rest of the
@@ -33,6 +35,7 @@ import dataclasses
 import gc
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -80,6 +83,9 @@ LM_KERNEL_REPS = 10
 # test_decode_matches_forward (5e-3 / 1e-3)
 TOL_SSD = (2e-3, 1e-3)
 TOL_DECODE = (5e-3, 1e-3)
+# kernels of one bf16 ssd_scan call (csrc/ssd_scan.cu ssd_kernel_<part>);
+# a float32 call runs ssd_kernel alone
+SSD_PARTS = ("chunk_state", "state_pass", "chunk_scan", "float32")
 
 
 class Failed(RuntimeError):
@@ -97,6 +103,22 @@ def card() -> str:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     if out.returncode != 0:
         raise Failed(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def loaded_clocks(launch, n: int) -> str:
+    """nvidia-smi's SM clock (and its maximum), power draw and temperature,
+    sampled while ``n`` launches queued back to back keep the card busy:
+    two cards of one model and power limit can still run at other clocks."""
+    for _ in range(n):
+        launch()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    torch.cuda.synchronize()
+    if out.returncode != 0:
+        return f"not read ({out.stderr.strip()[:80]})"
     return out.stdout.strip().splitlines()[0]
 
 
@@ -292,6 +314,85 @@ def check_close(what: str, got, want, atol: float, rtol: float) -> float:
     return float(err.max())
 
 
+def kernel_name(mangled: str) -> str:
+    """The kernel's own name and template arguments in a mangled symbol,
+    e.g. ``flash_mma_kernel<112>``: the last length-prefixed identifier
+    that names a kernel and ends where a name does (template arguments,
+    the end of the nested name or the parameters follow)."""
+    found = None
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(len(m.group())):
+            n, start = int(m.group()[i:]), m.end()
+            ident, rest = mangled[start:start + n], mangled[start + n:]
+            if len(ident) == n and "kernel" in ident and \
+                    re.fullmatch(r"[A-Za-z_]\w*", ident) and \
+                    not re.match(r"[a-z0-9_]", rest):
+                found = (ident, rest)
+    if found is None:
+        return mangled[:60]
+    ident, rest = found
+    args = re.match(r"I((?:Li-?\d+E)+)E", rest)
+    if args:
+        ident += "<" + ",".join(re.findall(r"Li(-?\d+)E", args.group(1))) + ">"
+    return ident
+
+
+def ptxas_functions(text: str) -> list:
+    """One dict per entry function of ``ptxas -v`` output: its name,
+    registers, spill stores and loads (bytes) and static shared memory."""
+    out, cur = [], None
+    for r in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", r)
+        if m:
+            cur = {"function": kernel_name(m.group(1)), "spill_stores": 0,
+                   "spill_loads": 0}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", r)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", r)
+        if m:
+            cur["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", r)
+            cur["static_smem"] = int(smem.group(1)) if smem else 0
+            out.append(cur)
+            cur = None
+    return out
+
+
+def print_occupancy(fa, ssd, head_dim: int, p: int, n: int, chunk: int) -> None:
+    """Blocks per SM of each LM kernel at the prefill's shapes, in both
+    dtypes, as CUDA's occupancy calculator derives them from the compiled
+    registers and the dynamic shared memory (there is no ncu on the card)."""
+    import ctypes
+    from repro_torch.kernels import _build
+
+    ptr = ctypes.POINTER(ctypes.c_int)
+    for dtype, kind in ((1, "bfloat16"), (0, "float32")):
+        rows = []
+        for module, fn_name, shape, names in (
+                (fa, "flash_attention_occupancy", (head_dim,),
+                 [f"flash_mma_kernel<{head_dim}>" if dtype
+                  else f"flash_kernel<{head_dim}>"]),
+                (ssd, "ssd_scan_occupancy", (p, n, chunk),
+                 [f"ssd_kernel_chunk_state<{p},{n}>", "ssd_kernel_state_pass",
+                  f"ssd_kernel_chunk_scan<{p},{n}>"] if dtype
+                 else [f"ssd_kernel<{p},{n}>"])):
+            lib = _build.load_library(*module.LIBRARY)
+            fn = getattr(lib, fn_name)
+            fn.argtypes = [ctypes.c_int] * (len(shape) + 1) + [ptr] * 3
+            blocks, threads, smem = ((ctypes.c_int * 3)() for _ in range(3))
+            _build.check_launch(lib, module.LIBRARY[0],
+                                fn(*shape, dtype, blocks, threads, smem))
+            rows += [(name, blocks[i], threads[i], smem[i])
+                     for i, name in enumerate(names)]
+        for name, b, t, sm in rows:
+            line("occupancy", kernel=name, dtype=kind, threads=t,
+                 dynamic_smem_bytes=sm, blocks_per_sm=b, warps_per_sm=b * t // 32)
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -348,11 +449,13 @@ def ssd_vs_plain(ssd, label, x, dt, a, bm, cm, chunk) -> float:
     return err
 
 
-def flash_operands(bh_b, h, kh, s, d, dtype, seed, dev):
+def flash_operands(bh_b, h, kh, s, d, dtype, seed, dev, sk=None):
+    """q (bh_b*h, s, d) pre-scaled, k and v (bh_b*kh, sk or s, d)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
+    sk = s if sk is None else sk
     q = torch.randn((bh_b * h, s, d), generator=gen, device=dev) * d ** -0.5
-    k = torch.randn((bh_b * kh, s, d), generator=gen, device=dev)
-    v = torch.randn((bh_b * kh, s, d), generator=gen, device=dev)
+    k = torch.randn((bh_b * kh, sk, d), generator=gen, device=dev)
+    v = torch.randn((bh_b * kh, sk, d), generator=gen, device=dev)
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
@@ -383,6 +486,8 @@ def device_profile(fn) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     classes = {"flash_attention": 0.0, "ssd_scan": 0.0, "matmul": 0.0,
                "other": 0.0}
+    # the SSD scan's kernels: three per bf16 call, one per float32 call
+    ssd_parts = {part: 0.0 for part in SSD_PARTS}
     kernels, n_launch = [], 0
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -391,10 +496,13 @@ def device_profile(fn) -> dict:
         n_launch += ev.count
         kernels.append((ms, ev.key[:60], ev.count))
         name = ev.key.lower()
-        if "flash_kernel" in name:
+        if "flash_kernel" in name or "flash_mma_kernel" in name:
             classes["flash_attention"] += ms
         elif "ssd_kernel" in name:
             classes["ssd_scan"] += ms
+            part = next((p for p in SSD_PARTS if f"ssd_kernel_{p}" in name),
+                        "float32")
+            ssd_parts[part] += ms
         elif any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma", "gemv")):
             classes["matmul"] += ms
         else:
@@ -404,7 +512,7 @@ def device_profile(fn) -> dict:
         return {"wall_ms": wall_ms, "device_ms": None}
     return {"wall_ms": wall_ms, "device_ms": device_ms, "launches": n_launch,
             "busy_share": device_ms / wall_ms, "classes": classes,
-            "top": sorted(kernels, reverse=True)[:8]}
+            "ssd_parts": ssd_parts, "top": sorted(kernels, reverse=True)[:8]}
 
 
 def print_profile(phase: str, card_line: str, prof: dict) -> None:
@@ -415,7 +523,8 @@ def print_profile(phase: str, card_line: str, prof: dict) -> None:
     line(phase, card=repr(card_line), wall_ms=f"{prof['wall_ms']:.3f}",
          device_ms=f"{prof['device_ms']:.3f}", kernel_launches=prof["launches"],
          busy_share=f"{prof['busy_share']:.4f}",
-         **{f"{k}_ms": f"{v:.3f}" for k, v in prof["classes"].items()})
+         **{f"{k}_ms": f"{v:.3f}" for k, v in prof["classes"].items()},
+         **{f"ssd_{k}_ms": f"{v:.3f}" for k, v in prof["ssd_parts"].items()})
     for ms, name, count in prof["top"]:
         line(phase, kernel=repr(name), count=count, device_ms=f"{ms:.3f}")
 
@@ -438,28 +547,41 @@ def lm_path(card_line: str, fa, ssd) -> list:
     ssm_heads = s_cfg.expand * cfg.d_model // s_cfg.head_dim
     worst = {"flash_attention": 0.0, "ssd_scan": 0.0}
 
+    print_occupancy(fa, ssd, hd, s_cfg.head_dim, s_cfg.state_dim, s_cfg.chunk_size)
+
     # --- phase 6: kernels against their plain versions on the card ---------
+    # (label, batch, heads, kv heads, Sq, head dim, dtype, window, Sk)
+    bf16, f32 = torch.bfloat16, torch.float32
     cases = [("zamba2-prefill", PREFILL_BATCH, heads, heads, PREFILL_LEN, hd,
-              torch.bfloat16, None),
-             ("ragged-4000", PREFILL_BATCH, heads, heads, 4000, hd,
-              torch.bfloat16, None),
-             ("gqa-window", 2, 4, 1, 256, 64, torch.float32, 128),
-             ("gqa-window-nonpow2", 1, 6, 2, 384, 64, torch.float32, 256),
-             ("float32-d128", 1, 8, 2, 1000, 128, torch.float32, None),
-             ("bf16-d256", 1, 4, 2, 512, 256, torch.bfloat16, None)]
-    for i, (label, b, h, kh, s, d, dtype, win) in enumerate(cases):
-        q, k, v = flash_operands(b, h, kh, s, d, dtype, 100 + i, dev)
+              bf16, None, None),
+             ("ragged-4000", PREFILL_BATCH, heads, heads, 4000, hd, bf16,
+              None, None),
+             ("gqa-window", 2, 4, 1, 256, 64, f32, 128, None),
+             ("gqa-window-bf16", 2, 4, 1, 256, 64, bf16, 128, None),
+             ("gqa-window-nonpow2", 1, 6, 2, 384, 64, f32, 256, None),
+             ("suffix-200-of-1000-bf16", 1, 4, 2, 200, 64, bf16, None, 1000),
+             ("float32-d128", 1, 8, 2, 1000, 128, f32, None, None),
+             ("bf16-d16", 1, 4, 2, 512, 16, bf16, None, None),
+             ("bf16-d256", 1, 4, 2, 512, 256, bf16, None, None)]
+    for i, (label, b, h, kh, s, d, dtype, win, sk) in enumerate(cases):
+        q, k, v = flash_operands(b, h, kh, s, d, dtype, 100 + i, dev, sk)
         worst["flash_attention"] = max(worst["flash_attention"],
                                        flash_vs_plain(fa, label, q, k, v,
                                                       h // kh, win))
-    for i, (label, dtype, g, s) in enumerate((
-            ("zamba2-prefill", torch.bfloat16, 1, PREFILL_LEN),
-            ("zamba2-float32", torch.float32, 1, PREFILL_LEN),
-            ("groups-4", torch.bfloat16, 4, 1024))):
-        ops_ = ssd_operands(PREFILL_BATCH, ssm_heads if g == 1 else 8, g, s,
-                            s_cfg.head_dim, s_cfg.state_dim, dtype, 200 + i, dev)
+    # (label, dtype, batch, heads, groups, S, chunk); zamba2-prefill takes
+    # 16 chunks through the state-passing kernel, chunk-13 is a 13-token
+    # prompt (ops.ssd_scan takes min(chunk, S))
+    q_cfg = s_cfg.chunk_size
+    for i, (label, dtype, b, h, g, s, chunk) in enumerate((
+            ("zamba2-prefill", bf16, PREFILL_BATCH, ssm_heads, 1, PREFILL_LEN, q_cfg),
+            ("zamba2-float32", f32, PREFILL_BATCH, ssm_heads, 1, PREFILL_LEN, q_cfg),
+            ("groups-4", bf16, PREFILL_BATCH, 8, 4, 1024, q_cfg),
+            ("chunk-13", bf16, 1, 8, 1, 13, 13),
+            ("chunk-48", bf16, PREFILL_BATCH, 8, 1, 96, 48))):
+        ops_ = ssd_operands(b, h, g, s, s_cfg.head_dim, s_cfg.state_dim, dtype,
+                            200 + i, dev)
         worst["ssd_scan"] = max(worst["ssd_scan"], ssd_vs_plain(
-            ssd, label, *ops_, s_cfg.chunk_size))
+            ssd, label, *ops_, chunk))
     del q, k, v, ops_
     torch.cuda.empty_cache()
 
@@ -559,6 +681,9 @@ def lm_path(card_line: str, fa, ssd) -> list:
          plain_ms_median=f"{ssd_plain_ms:.3f}", bound_ms=f"{ssd_bound:.5f}",
          bound_by=ssd_by, flop=f"{ssd_work(ssd_args[0], ssd_args[3], ssd_chunk):.4e}",
          bytes=nbytes(*ssd_args, ssd_y, ssd_st))
+    line("clocks", during="flash_attention x100", card=repr(card_line),
+         sm_clock_max_clock_power_temperature=repr(loaded_clocks(
+             lambda: fa.flash_attention_bhsd(*fa_args, **fa_kw), 100)))
     kernels_ms = n_super * fa_ms + cfg.num_layers * ssd_ms
     line("prefill-breakdown", arch=LM_ARCH, card=repr(card_line),
          wall_ms_median=f"{wall_ms:.3f}", walls_ms=[f"{w:.3f}" for w in walls],
@@ -714,9 +839,8 @@ def main() -> int:
         info = _build.build_log[name]
         line("build", kernel=name, seconds=f"{info['seconds']:.2f}",
              cached=info["cached"], fmad=("-fmad=false" not in flags))
-        for r in info["ptxas"].splitlines():
-            if "registers" in r or "spill" in r:
-                line("build", kernel=name, ptxas=repr(r.strip()))
+        for fn in ptxas_functions(info["ptxas"]):
+            line("build", kernel=name, **fn)
 
     scen = list(paper_scenarios().values())
     grid_cfg = sparse_rendezvous_scenario()

@@ -5,8 +5,9 @@ with ``nvcc`` for ``sm_90a`` (Hopper), into ``build/torch_ext/`` at the
 root of the checkout (``REPRO_TORCH_BUILD_DIR`` overrides it).  Each library
 exposes a plain C interface and is bound with ``ctypes``: no PyTorch
 headers are compiled, which keeps a build to seconds.  The library name
-carries a hash of the source and the flags, so an edited source is rebuilt
-and never served stale.  A failed build raises; there is no fallback.
+carries a hash of the source, the shared headers it names
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and never
+served stale.  A failed build raises; there is no fallback.
 """
 from __future__ import annotations
 
@@ -67,8 +68,12 @@ def load_library(name: str, source: str, flags: tuple) -> ctypes.CDLL:
     if name in _loaded:
         return _loaded[name]
     src = CSRC / source
+    # the shared headers the source names count too
+    text = src.read_bytes()
+    parts = [text] + [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))
+                      if h.name.encode() in text]
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+        b"".join(parts) + " ".join(flags).encode()).hexdigest()[:16]
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     lib_path = out_dir / f"lib{name}_{digest}.so"

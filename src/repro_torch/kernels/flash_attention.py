@@ -14,11 +14,16 @@ Two implementations of one function live here:
   * ``flash_attention_reference`` — the plain PyTorch version: float32
     scores, masked to ``NEG_INF``, one softmax over all keys (the online
     softmax's result in one step), float32 product with v;
-  * the CUDA kernel in ``csrc/flash_attention.cu`` (one block per 64 query
+  * the CUDA kernels in ``csrc/flash_attention.cu`` (one block per 64 query
     rows of one head, the key loop inside the program; design notes in the
-    source).  It takes float32 and bfloat16 operands, head dims
-    ``SUPPORTED_HEAD_DIMS`` and any Sq, Sk: it masks ragged tails itself,
-    where the TPU wrapper fell back to the einsum oracle.
+    source).  They take head dims ``SUPPORTED_HEAD_DIMS`` and any Sq, Sk:
+    they mask ragged tails themselves, where the TPU wrapper fell back to
+    the einsum oracle.  The dtype picks the kernel: bfloat16 runs
+    FlashAttention-2 on the tensor cores (``mma.sync``, K/V by
+    ``cp.async``), with P split into two bf16 parts for the P.V product
+    (``_split_bf16`` is that arithmetic in PyTorch); float32 runs the
+    CUDA-core kernel, since tensor-core TF32 would miss the float32 bar.
+    Both are hand-written kernels and both count as launches.
 
 ``flash_attention_bhsd`` dispatches on where the tensors lie: CPU tensors
 take the plain version, CUDA tensors launch the kernel (counted in
@@ -92,6 +97,18 @@ def flash_attention_reference(q, k, v, *, group: int, causal: bool = True,
     return out.to(q.dtype)
 
 
+def _split_bf16(x: torch.Tensor) -> tuple:
+    """``x`` (float32) as ``hi + lo``, both bfloat16: ``hi = bf16(x)``,
+    ``lo = bf16(x - hi)`` (``csrc/mma_sm90.cuh`` ``split_bf16``).  The bf16
+    kernel splits the probabilities P so before its P.V product and issues
+    one product per part against the same bf16 V; one rounding to bf16
+    would miss ``PLAIN_TOL``.  The SSD kernels split their float32
+    operands the same way (``ssd_scan``).  The tests use this to hold that
+    arithmetic in PyTorch; no path here calls it."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
 def _launch_cuda(q, k, v, group: int, causal: bool, window: Optional[int]):
     """Launch the CUDA kernel on the operands' card (no synchronisation)."""
     _check(q, k, v, group, window)
@@ -110,6 +127,9 @@ def _launch_cuda(q, k, v, group: int, causal: bool, window: Optional[int]):
                          f"{SUPPORTED_HEAD_DIMS}; got {d}")
     if bh < 1 or sq < 1 or sk < 1 or -(-sq // 64) > 65535:
         raise ValueError(f"unsupported flash attention shape {tuple(q.shape)}")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the bf16 flash kernel copies 16-byte rows: q, k and "
+                         "v must start 16-byte aligned")
 
     lib = _build.load_library(*LIBRARY)
     fn = lib.flash_attention_launch

@@ -17,14 +17,21 @@ Two implementations of one function live here:
 
   * ``ssd_scan_reference`` — the plain PyTorch version: a Python loop over
     the chunks on (B, H, ...) tensors, the TPU kernel body written out;
-  * the CUDA kernel in ``csrc/ssd_scan.cu`` (one block per (batch, head)
-    looping over the chunks, the state in registers and shared memory;
-    design notes in the source), compiled for the ``(P, N)`` pairs in
-    ``SUPPORTED_PN`` and chunks up to ``MAX_CHUNK``.
+  * the CUDA kernels in ``csrc/ssd_scan.cu`` (design notes in the source),
+    compiled for the ``(P, N)`` pairs in ``SUPPORTED_PN`` and chunks up to
+    ``MAX_CHUNK``.  The dtype picks the design: bfloat16 runs three kernels
+    with the products on the tensor cores (``mma.sync``) and the chunk axis
+    parallel — chunk state, state passing, chunk scan — over three
+    scratches this wrapper allocates; the float32 operand of each product
+    (the decay-weighted x, the entering state, the masked scores) is split
+    into two bf16 parts (``_split_bf16`` is that arithmetic in PyTorch).
+    float32 runs the CUDA-core kernel, one block per (batch, head) looping
+    over the chunks, since tensor-core TF32 would miss the float32 bars.
+    Both are hand-written kernels; one call counts one launch.
 
 ``ssd_scan_bhsp`` dispatches on where the tensors lie: CPU tensors take the
-plain version, CUDA tensors launch the kernel (counted in ``LAUNCHES``).
-Anything else raises — a CUDA call never falls back.
+plain version, CUDA tensors launch the kernels (counted in ``LAUNCHES``,
+one per call).  Anything else raises — a CUDA call never falls back.
 """
 from __future__ import annotations
 
@@ -33,6 +40,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+# the bf16 kernels split the float32 side of each product (exp(cum_end -
+# cum_j) dt_j x_j against B, the entering state against C, the masked
+# scores against x) into bf16 hi + lo as flash attention splits P: one
+# rounding to bf16 would miss the atol 2e-3 / rtol 1e-3 bar.  The tests
+# hold that arithmetic in PyTorch; no path here calls it.
+from repro_torch.kernels.flash_attention import _split_bf16  # noqa: F401
 
 __all__ = ["ssd_scan_bhsp", "ssd_scan_reference", "LAUNCHES",
            "reset_launch_counts", "SUPPORTED_PN", "MAX_CHUNK"]
@@ -117,19 +130,38 @@ def _launch_cuda(x, dt, a, bmat, cmat, chunk: int):
                          f"{SUPPORTED_PN}; got {(p, n)}")
     if chunk > MAX_CHUNK:
         raise ValueError(f"the SSD kernel takes chunks up to {MAX_CHUNK}; got {chunk}")
+    bf16 = x.dtype == torch.bfloat16
+    if bf16 and b * h > 65535:
+        raise ValueError(f"the bf16 SSD kernels take B * H up to 65535 (their "
+                         f"grid's y); got {b * h}")
+    if bf16 and any(t.data_ptr() % 16 for t in (x, bmat, cmat)):
+        raise ValueError("the bf16 SSD kernels copy 16-byte rows: x, B and C "
+                         "must start 16-byte aligned")
 
     lib = _build.load_library(*LIBRARY)
     fn = lib.ssd_scan_launch
     if fn.argtypes is None:                  # first call: bind the signature
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     y = torch.empty((b, h, s, p), dtype=torch.float32, device=x.device)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    # bf16 scratches: cum per step; per chunk its local state (float32) and
+    # the state entering it, split into bf16 hi and lo.  They are held until
+    # the kernels are queued; memory reused later on this stream is ordered
+    # after them.
+    scratch = []
+    if bf16:
+        nc = s // chunk
+        scratch = [torch.empty(shape, dtype=dtype, device=x.device)
+                   for shape, dtype in (((b, h, s), torch.float32),
+                                        ((b, h, nc, p, n), torch.float32),
+                                        ((b, h, nc, 2, p, n), torch.bfloat16))]
+    ptrs = [t.data_ptr() for t in scratch] or [None] * 3
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
-             cmat.data_ptr(), y.data_ptr(), state.data_ptr(), b, h, g, s, p, n,
-             chunk, _DTYPES[x.dtype], stream)
+             cmat.data_ptr(), y.data_ptr(), state.data_ptr(), *ptrs,
+             b, h, g, s, p, n, chunk, _DTYPES[x.dtype], stream)
     _build.check_launch(lib, "ssd_scan", err)
     LAUNCHES["ssd_scan"] += 1
     return y, state

@@ -11,6 +11,13 @@ at the 3rd digit); SSD atol 2e-3 / rtol 1e-3 on y and the final state
 order).  On the card the flash kernel is held to its plain version at the
 kernel module's ``PLAIN_TOL`` (in bfloat16 one unit in the last place:
 atol 1e-4 / rtol 1e-2), since both round float32 results once.
+
+The bf16 kernels run their products on the tensor cores with bf16
+operands; the float32 side of each product (flash's probabilities P, the
+SSD's decay-weighted x, entering state and masked scores) is split into two
+bf16 parts (``_split_bf16``).  The ``*_split_*`` tests hold that
+arithmetic, written in PyTorch, to the same bars at zamba2's widths, and
+show that one bf16 rounding instead would not meet them.
 """
 import numpy as np
 import pytest
@@ -218,6 +225,106 @@ def test_mixed_devices_raise():
                                 v.reshape(1, 64, 16).to("meta"), group=2)
 
 
+def test_split_bf16_is_exact_to_float32_class():
+    """hi is x rounded to bf16 and hi + lo recovers x to ~2^-16 of |x|."""
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (64, 64), np.float32) * 10.0 ** np.arange(-3, 5).repeat(8)[:, None])
+    hi, lo = fa._split_bf16(x)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal(hi, x.bfloat16())
+    err = (hi.double() + lo.double() - x.double()).abs()
+    assert float((err / x.double().abs()).max()) < 2.0 ** -16
+
+
+def _flash_pv_bad(split: bool) -> int:
+    """Entries beyond ``PLAIN_TOL`` when P.V is formed as the bf16 kernel
+    forms it — P in float32, fed to the product split into bf16 hi + lo
+    (``split``) or rounded once to bf16 — against the plain version, at
+    zamba2's head dim and length (2 heads, 4096 x 112, bf16)."""
+    s, d = 4096, 112
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((2, s, d), np.float32)
+                         * d ** -0.5).bfloat16()
+    k, v = (torch.from_numpy(rng.standard_normal((2, s, d), np.float32)).bfloat16()
+            for _ in range(2))
+    want = fa.flash_attention_reference(q, k, v, group=1).double()
+    causal = torch.ones(s, s, dtype=torch.bool).tril()
+    outs = []
+    for h in range(2):
+        sc = (q[h].float() @ k[h].float().T).masked_fill(~causal, fa.NEG_INF)
+        pr = torch.exp(sc - sc.amax(-1, keepdim=True))
+        parts = fa._split_bf16(pr) if split else (pr.bfloat16(),)
+        num = sum(part.float() @ v[h].float() for part in parts)
+        outs.append((num / pr.sum(-1, keepdim=True)).bfloat16())
+    atol, rtol = fa.PLAIN_TOL[torch.bfloat16]
+    err = (torch.stack(outs).double() - want).abs()
+    return int((err > atol + rtol * want.abs()).sum())
+
+
+def test_flash_split_pv_meets_plain_tol():
+    assert _flash_pv_bad(split=True) == 0
+
+
+def test_flash_single_bf16_pv_misses_plain_tol():
+    """Why P is split: one bf16 rounding of P misses one bf16 ulp of the
+    output at thousands of entries (8,716 of 917,504 here)."""
+    assert _flash_pv_bad(split=False) > 1000
+
+
+def _ssd_split_bad(split: bool) -> tuple:
+    """Entries of (y, final state) beyond atol 2e-3 / rtol 1e-3 when the
+    scan is formed as the bf16 kernels form it — per chunk the local state
+    (w x)^T B with w = exp(cum_end - cum) dt, the state passed on in
+    float32, y = exp(cum) C S_in^T + G x with G = (C B^T) exp(cum_i - cum_j)
+    dt_j below the diagonal — with the float32 operand of each product
+    (w x, S_in, G) split into bf16 hi + lo (``split``) or rounded once, and
+    x, B, C exact bf16.  At zamba2's widths: (1, 8, 4096, 64, 64), chunk
+    256, one group."""
+    b, h, s, p, n, chunk = 1, 8, 4096, 64, 64, 256
+    x, dt, a, bm, cm = _ssd_inputs(b, s, h, 1, p, n, seed=11)
+    x = torch.from_numpy(x).transpose(1, 2).contiguous().bfloat16()
+    dt = torch.from_numpy(dt).transpose(1, 2)[:, :, None].contiguous()
+    a = torch.from_numpy(a)
+    bm, cm = (torch.from_numpy(t).transpose(1, 2).contiguous().bfloat16()
+              for t in (bm, cm))
+    y_p, st_p = ssd.ssd_scan_reference(x, dt, a, bm, cm, chunk=chunk)
+
+    def parts(t):
+        return [u.float() for u in (ssd._split_bf16(t) if split else (t.bfloat16(),))]
+
+    xf, dtf, bf, cf = x.float(), dt[:, :, 0], bm.float(), cm.float()
+    tri = torch.ones(chunk, chunk, dtype=torch.bool).tril()
+    state = torch.zeros(b, h, p, n)
+    y = torch.empty(b, h, s, p)
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        dtc = dtf[..., sl]
+        cum = torch.cumsum(dtc * a[:, None], -1)
+        xc, bq, cq = xf[:, :, sl], bf[:, :, sl], cf[:, :, sl]
+        decay = torch.exp(cum[..., :, None] - cum[..., None, :]) * dtc[..., None, :]
+        g = torch.where(tri, (cq @ bq.transpose(-1, -2)) * decay, torch.zeros(()))
+        y[:, :, sl] = sum(part @ xc for part in parts(g)) \
+            + torch.exp(cum)[..., None] * sum(cq @ part.transpose(-1, -2)
+                                              for part in parts(state))
+        wx = xc * (torch.exp(cum[..., -1:] - cum) * dtc)[..., None]
+        local = sum(part.transpose(-1, -2) @ bq for part in parts(wx))
+        state = state * torch.exp(cum[..., -1])[..., None, None] + local
+    bad = lambda got, want: int(((got.double() - want.double()).abs()
+                                 > 2e-3 + 1e-3 * want.double().abs()).sum())
+    return bad(y, y_p), bad(state, st_p)
+
+
+def test_ssd_split_products_meet_plain_bar():
+    assert _ssd_split_bad(split=True) == (0, 0)
+
+
+def test_ssd_single_bf16_products_miss_plain_bar():
+    """Why the float32 operands are split: rounded once to bf16 they miss
+    the bar at tens of thousands of y entries (and at entries of the state)."""
+    bad_y, bad_state = _ssd_split_bad(split=False)
+    assert bad_y > 10000 and bad_state > 0
+
+
 # ---------------------------------------------------------------------------
 # on the card: the CUDA kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -226,9 +333,16 @@ CARD_FLASH_CASES = FLASH_CASES + [
     (2, 4096, 32, 32, 112, None, "bfloat16"),    # zamba2-7b prefill
     (2, 4000, 32, 32, 112, None, "bfloat16"),    # ragged
     (1, 1000, 8, 2, 128, 300, "bfloat16"),
+    # the bf16 tensor-core kernel on what only float32 cases reached before
+    (2, 256, 4, 1, 64, 128, "bfloat16"),         # GQA + sliding window
+    (1, 512, 4, 2, 16, None, "bfloat16"),        # smallest head dim
+    (1, 512, 4, 2, 256, None, "bfloat16"),       # largest head dim
 ]
 CARD_SSD_CASES = SSD_CASES + [
-    (2, 4096, 112, 1, 64, 64, 256),              # zamba2-7b prefill
+    (2, 4096, 112, 1, 64, 64, 256),              # zamba2-7b prefill (16 chunks)
+    (2, 1024, 8, 4, 64, 64, 256),                # four groups
+    (1, 13, 4, 1, 64, 64, 256),                  # chunk 13 (a 13-token prompt)
+    (2, 96, 4, 1, 64, 64, 48),                   # chunk 48, not a multiple of 16
 ]
 
 
@@ -251,6 +365,26 @@ def test_flash_kernel_matches_plain_on_card(case):
     torch.cuda.synchronize()
     assert fa.LAUNCHES["flash_attention"] == 1
     want = fa.flash_attention_reference(q, k, v, group=h // kh, window=win)
+    atol, rtol = fa.PLAIN_TOL[q.dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=atol, rtol=rtol)
+
+
+@requires_cuda
+@pytest.mark.parametrize("window", [None, 100])
+def test_flash_kernel_suffix_queries_match_plain_on_card(window):
+    """bf16 queries that are the last 200 of 1000 keys (q_offset 800),
+    GQA group 2, on the tensor-core kernel."""
+    skip_without_cuda()
+    rng = np.random.default_rng(8)
+    to = lambda shape, scale=1.0: torch.from_numpy(
+        rng.standard_normal(shape, np.float32) * scale).to("cuda", torch.bfloat16)
+    q, k, v = to((4, 200, 64), 64 ** -0.5), to((2, 1000, 64)), to((2, 1000, 64))
+    fa.reset_launch_counts()
+    got = fa.flash_attention_bhsd(q, k, v, group=2, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 1
+    want = fa.flash_attention_reference(q, k, v, group=2, window=window)
     atol, rtol = fa.PLAIN_TOL[q.dtype]
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), atol=atol, rtol=rtol)
