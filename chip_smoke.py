@@ -11,7 +11,9 @@ same operands:
 
 * the renewal Monte-Carlo over the paper's six Table-4 scenarios, the
   42-policy grid and Weibull failures, checked against the port's float64
-  host oracle (``renewal_scan``);
+  host oracle (``renewal_scan``; before them the kernel is held bit-equal
+  to its plain version at 1-4 survivors, 1-4 ladder levels, K 1 and 64,
+  R 1, 31 and 1000: ``[kernel-shapes]``);
 * Zamba2-7B serving at its published widths with seeded weights: a bf16
   prefill of 2 x 4096 tokens (13 ``flash_attention`` and 81 ``ssd_scan``
   launches), a float32 prefill of 2 x 512 tokens against the same tokens
@@ -21,9 +23,10 @@ same operands:
 It times each kernel alone, its plain version, its bound, the one-call
 PyTorch equivalent where there is one (SDPA for flash attention), and the
 entry points whole; it prints each compiled kernel's registers and spills
-(``[build]``, from ptxas) and the LM kernels' resident blocks per SM at the
-prefill's shapes (``[occupancy]``, from CUDA's occupancy calculator).  Every phase prints one line; any failure exits
-non-zero.  The last four lines are the card, the kernel record (JSON), the
+(``[build]``, from ptxas), each kernel's resident blocks per SM
+(``[occupancy]``, from CUDA's occupancy calculator) and the SM clock under
+load beside the timings (``[clocks]``).  Every phase prints one line; any
+failure exits non-zero.  The last four lines are the card, the kernel record (JSON), the
 list of kernels, and ``{"ok": true, "device": ...}``.  Exits non-zero
 without a result when no CUDA device is present, or when the rest of the
 repository is missing.
@@ -67,6 +70,9 @@ WEIBULL_RUNS = 1024
 KERNEL_REPS = 20          # launches queued back to back per kernel timing
 TOL_ORACLE = 1e-4          # whole-run energies vs the float64 oracle
 TOL_PLAIN = 1e-6           # kernel vs its plain version (bit-equal expected)
+# the renewal kernel's shape sweep: survivors x ladder levels x (K, R)
+SHAPE_KR = ((1, 1), (1, 31), (1, 1000), (FULL_EPOCHS, 1), (FULL_EPOCHS, 31),
+            (FULL_EPOCHS, 1000))
 FLOAT_STATS = ("energy_ref", "energy_int", "saving", "balanced_energy",
                "end_time")
 
@@ -391,6 +397,66 @@ def print_occupancy(fa, ssd, head_dim: int, p: int, n: int, chunk: int) -> None:
         for name, b, t, sm in rows:
             line("occupancy", kernel=name, dtype=kind, threads=t,
                  dynamic_smem_bytes=sm, blocks_per_sm=b, warps_per_sm=b * t // 32)
+
+
+def print_renewal_occupancy(rs, launches: dict) -> None:
+    """Blocks per SM of the renewal kernel for each survivor count N and
+    lanes per run (1, or one per survivor), and for the path's launches
+    (``launches``: label -> (lanes, runs, survivors)) the mapping the
+    kernel picks and the blocks and waves it makes on this card."""
+    import ctypes
+    from repro_torch.kernels import _build
+
+    lib = _build.load_library(*rs.LIBRARY)
+    occ_fn = lib.renewal_scan_occupancy
+    occ_fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
+    pick = lib.renewal_scan_lanes_per_run
+    pick.argtypes = [ctypes.c_int] * 3
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    occ = {}
+    for n in range(1, rs.MAX_N + 1):
+        for per_run in sorted({1, n}):
+            blocks, threads, runs = (ctypes.c_int() for _ in range(3))
+            _build.check_launch(lib, "renewal_scan",
+                                occ_fn(n, per_run, blocks, threads, runs))
+            occ[n, per_run] = (blocks.value, threads.value, runs.value)
+            line("occupancy", kernel=f"renewal_scan_kernel<{n},{per_run}>",
+                 threads=threads.value, runs_per_block=runs.value,
+                 blocks_per_sm=blocks.value,
+                 warps_per_sm=blocks.value * threads.value // 32)
+    for label, (lanes, n_runs, n) in launches.items():
+        per_run = pick(n, lanes, n_runs)
+        per_sm, threads, runs = occ[n, per_run]
+        grid = lanes * -(-n_runs // runs)
+        line("occupancy", launch=label,
+             kernel=f"renewal_scan_kernel<{n},{per_run}>", lanes_per_run=per_run,
+             blocks=grid, sms=sms, waves=f"{grid / (per_sm * sms):.3f}",
+             warps_per_sm_first_wave=f"{min(grid / sms, per_sm) * threads / 32:.2f}")
+
+
+def renewal_bound(args, out: dict, n_surv: int) -> tuple:
+    """(bound_ms, bound_by, bytes, occurring decisions) of one renewal
+    launch: each operand read once and each output written once at the
+    card's memory rate, against FLOP_PER_DECISION per occurring (epoch,
+    survivor) decision of this run's data at the float32 rate."""
+    n_bytes = sum(t.numel() * t.element_size() for t in args
+                  if isinstance(t, torch.Tensor)) \
+        + sum(t.numel() * t.element_size() for t in out.values())
+    occurring = int(out["valid"].sum()) * n_surv
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = occurring * FLOP_PER_DECISION / PEAK_FP32_FLOP_PER_S * 1e3
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations",
+            n_bytes, occurring)
+
+
+def with_shape(ops, n: int, nf: int):
+    """Packed operands at ``n`` survivors and ``nf`` ladder levels: node
+    columns taken in turn (a fourth survivor repeats the first), ladder
+    levels sliced from level 0."""
+    params, nodes, ladder = ops
+    cols = [i % nodes.shape[2] for i in range(n)]
+    return (params, nodes[:, :, cols].contiguous(),
+            ladder[:, :, :nf].contiguous())
 
 
 def nbytes(*tensors) -> int:
@@ -853,6 +919,11 @@ def main() -> int:
     scen_ops = sweep._pack_kernel_inputs(scen_stack, MAKESPAN_S)
     grid_ops = sweep._pack_kernel_inputs(
         optimize.policy_inputs(grid_cfg, table, dev), makespans)
+    n_surv = scen_ops[1].shape[2]
+    print_renewal_occupancy(rs, {
+        "main-path": (len(scen), FULL_RUNS, n_surv),
+        "policy-grid": (len(table), FULL_RUNS, n_surv),
+        "weibull": (len(scen), WEIBULL_RUNS, n_surv)})
 
     # --- phase 2: kernel against its plain version, R not a multiple of 128
     r2, k2, n_nodes = 1000, FULL_EPOCHS, len(scen[0].survivors) + 1
@@ -876,6 +947,49 @@ def main() -> int:
                  runs=r2, epochs=k2, felled=fel is not None,
                  compensated=comp, ints="exact",
                  max_abs_err=f"{max_abs:.6g}", max_rel_err=f"{max_rel:.3e}")
+
+    # --- phase 2b: every survivor count and ladder depth the kernel takes,
+    # warps and blocks part-filled (R = 1, 31) and whole, both mappings of
+    # runs to lanes; (felled, compensated) alternate over the shapes so each
+    # shape sees two of the four and each (N, F) all four
+    variants = ((False, True), (True, False), (True, True), (False, False))
+    for n in range(1, rs.MAX_N + 1):
+        for nf in range(1, rs.MAX_F + 1):
+            ops = with_shape(scen_ops, n, nf)
+            seen, n_cases, shape_abs = set(), 0, 0.0
+            for j, (k, r) in enumerate(SHAPE_KR):
+                g32, _ = failures.sample_renewal_gaps(
+                    failures.Exponential(MTBF_S), prng.PRNGKey(100 + j), r, k,
+                    n + 1, dev)
+                gaps_t = g32.T.contiguous()
+                gen = torch.Generator(device="cpu").manual_seed(17 + j)
+                felled = (torch.rand((k, n, r), generator=gen) < 0.15
+                          ).float().to(dev)
+                for use_fel, comp in (variants[(j + n + nf) % 4],
+                                      variants[(j + n + nf + 2) % 4]):
+                    fel = felled if use_fel else None
+                    want = rs.renewal_scan_reference(*ops, gaps_t, fel,
+                                                     compensated=comp)
+                    # the kernel's own pick of lanes per run, then each
+                    # mapping forced
+                    for lanes in (None,) + tuple(sorted({1, n})):
+                        got = rs._launch_cuda(*ops, gaps_t, fel, comp,
+                                              lanes=lanes)
+                        torch.cuda.synchronize()
+                        max_abs, max_rel = compare_outputs(got, want)
+                        shape_abs = max(shape_abs, max_abs)
+                        worst_abs = max(worst_abs, max_abs)
+                        worst_rel = max(worst_rel, max_rel)
+                    seen.add((use_fel, comp))
+                    n_cases += 1
+            if len(seen) != 4:
+                raise Failed(f"kernel-shapes n={n} nf={nf}: only {sorted(seen)}")
+            line("kernel-shapes", survivors=n, levels=nf, lanes=ops[0].shape[0],
+                 shapes="K,R=" + "/".join(f"{k}x{r}" for k, r in SHAPE_KR),
+                 cases=n_cases, felled_compensated="all four",
+                 lanes_per_run="auto/" + "/".join(map(str, sorted({1, n}))),
+                 ints="exact",
+                 max_abs_err=f"{shape_abs:.6g}")
 
     # --- phase 3: the main path at the size users run ----------------------
     key = prng.PRNGKey(1)
@@ -917,20 +1031,16 @@ def main() -> int:
         lambda: rs.renewal_scan_reference(*scen_args, **scen_kw),
         reps=3, warmup=1))
     slots = len(scen) * FULL_RUNS * FULL_EPOCHS * (n_nodes - 1)
-    occurring = int(ker_out["valid"].sum()) * (n_nodes - 1)
-    n_bytes = sum(t.numel() * t.element_size() for t in scen_args) \
-        + sum(t.numel() * t.element_size() for t in ker_out.values())
-    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = occurring * FLOP_PER_DECISION / PEAK_FP32_FLOP_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    bound_ms, bound_by, n_bytes, occurring = renewal_bound(
+        scen_args, ker_out, n_nodes - 1)
     line("timing", kernel="renewal_scan", card=repr(card_line),
          kernel_ms=f"{k_ms:.5f}", wrapper_host_ms=f"{host_ms:.5f}",
          call_ms_median=f"{call_ms:.5f}", plain_ms_median=f"{p_ms:.2f}",
          slots=slots, slot_decisions_per_s=f"{slots / (k_ms * 1e-3):.4e}",
          occurring_decisions=occurring,
          occurring_decisions_per_s=f"{occurring / (k_ms * 1e-3):.4e}",
-         bytes=n_bytes, bound_ms=f"{bound_ms:.5f}",
-         bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+         bytes=n_bytes, bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
+         bound_share=f"{bound_ms / k_ms:.4f}")
 
     # where the entry point's time goes: host clock around whole calls,
     # CUDA events around the device stages
@@ -975,12 +1085,19 @@ def main() -> int:
     grid_wall_ms = wall_ms(lambda: optimize.evaluate_policy_grid(
         grid_cfg, table, key, work_s=GRID_WORK_S, n_runs=FULL_RUNS,
         max_failures=FULL_EPOCHS, mtbf_s=GRID_MTBF_S, engine="kernel"), reps=3)
-    grid_k_ms, grid_host_ms = kernel_only_ms(
-        lambda: rs.renewal_scan(*grid_args, **grid_kw), n=KERNEL_REPS)
+    launch_grid = lambda: rs.renewal_scan(*grid_args, **grid_kw)
+    grid_k_ms, grid_host_ms = kernel_only_ms(launch_grid, n=KERNEL_REPS)
+    g_bound, g_by, g_bytes, g_occ = renewal_bound(grid_args, grid_out,
+                                                  n_nodes - 1)
     line("policy-grid-timing", card=repr(card_line),
          wall_ms_median=f"{grid_wall_ms:.3f}", kernel_ms=f"{grid_k_ms:.5f}",
          wrapper_host_ms=f"{grid_host_ms:.5f}",
-         lanes=len(table), runs=FULL_RUNS, epochs=FULL_EPOCHS)
+         lanes=len(table), runs=FULL_RUNS, epochs=FULL_EPOCHS,
+         occurring_decisions=g_occ, bytes=g_bytes, bound_ms=f"{g_bound:.5f}",
+         bound_by=g_by, bound_share=f"{g_bound / grid_k_ms:.4f}")
+    line("clocks", during="renewal_scan policy grid x2000",
+         card=repr(card_line), sm_clock_max_clock_power_temperature=repr(
+             loaded_clocks(launch_grid, 2000)))
     line("policy-grid", policies=len(table), runs=FULL_RUNS,
          epochs=FULL_EPOCHS, launches=grid_launches,
          kernel_vs_plain="ints exact", max_abs_err=f"{g_abs:.6g}",
@@ -1022,6 +1139,14 @@ def main() -> int:
          epochs=FULL_EPOCHS, launches=w_launches,
          kernel_vs_plain="ints exact", max_abs_err=f"{w_abs:.6g}",
          max_rel_err=f"{w_rel:.3e}")
+    w_ms, w_host_ms = kernel_only_ms(
+        lambda: rs.renewal_scan(*w_args, **w_kw), n=KERNEL_REPS)
+    w_bound, w_by, w_bytes, w_occ = renewal_bound(w_args, w_out, n_nodes - 1)
+    line("weibull-timing", card=repr(card_line), kernel_ms=f"{w_ms:.5f}",
+         wrapper_host_ms=f"{w_host_ms:.5f}", lanes=len(scen),
+         runs=WEIBULL_RUNS, epochs=FULL_EPOCHS, occurring_decisions=w_occ,
+         bytes=w_bytes, bound_ms=f"{w_bound:.5f}", bound_by=w_by,
+         bound_share=f"{w_bound / w_ms:.4f}")
     gaps, failed = sweep.renewal_failure_gaps(
         key, WEIBULL_RUNS, n_nodes, FULL_EPOCHS, process=proc)
     gaps_o, failed_o = gaps[:ORACLE_RUNS].cpu(), failed[:ORACLE_RUNS].cpu()
@@ -1044,7 +1169,7 @@ def main() -> int:
         "ms": k_ms,
         "plain_ms": p_ms,
         "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_by": bound_by,
         "library_ms": None,
     }
     line("renewal-done", seconds=f"{time.perf_counter() - t_start:.1f}",

@@ -62,15 +62,18 @@ def find_nvcc() -> str:
         "CUDA kernels of repro_torch are built from source at first use")
 
 
-def load_library(name: str, source: str, flags: tuple) -> ctypes.CDLL:
-    """Compile ``csrc/<source>`` with ``flags`` (once per process and
-    content) and load it."""
+def load_library(name: str, source: str, flags: tuple,
+                 csrc: pathlib.Path = CSRC) -> ctypes.CDLL:
+    """Compile ``<csrc>/<source>`` with ``flags`` (once per process and
+    content) and load it.  ``csrc`` is this package's ``csrc`` unless a
+    caller builds another checkout's kernel beside it (under another
+    ``name``) to compare the two."""
     if name in _loaded:
         return _loaded[name]
-    src = CSRC / source
+    src = pathlib.Path(csrc) / source
     # the shared headers the source names count too
     text = src.read_bytes()
-    parts = [text] + [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))
+    parts = [text] + [h.read_bytes() for h in sorted(src.parent.glob("*.cuh"))
                       if h.name.encode() in text]
     digest = hashlib.sha256(
         b"".join(parts) + " ".join(flags).encode()).hexdigest()[:16]

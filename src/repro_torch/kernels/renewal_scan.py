@@ -22,8 +22,16 @@ Two implementations of one function live here:
     ``strategies.evaluate_strategies_fold`` and
     ``scenarios.post_recovery_anchor``.  Sums over survivors are written
     out in node order so every float32 operation matches the kernel.
-  * the CUDA kernel in ``csrc/renewal_scan.cu`` (one thread per
-    (lane, run), the carry in registers; design notes in the source).
+  * the CUDA kernel in ``csrc/renewal_scan.cu``.  While a launch's runs
+    are few (latency-bound, as the main path) a group of N lanes of one
+    warp takes each (lane, run), one survivor per lane with its carry in
+    registers, the cross-node sums and maxima gathered by warp shuffles in
+    node order; once the runs fill the card (throughput-bound, as the
+    policy grid) one lane takes each run.  The float64 wraps take an exact
+    fast floor-mod; gaps are loaded one epoch ahead; a warp leaves the
+    epoch loop once all its runs are dead, and ``valid`` is written once
+    per block after the scan (design notes and the arguments for
+    bit-equality in the source).
 
 One deliberate difference from the TPU kernel: the rendezvous anchors and
 their wrap are float64 (the rest is float32).  In float32 the rounding of
@@ -74,9 +82,10 @@ STAT_FIELDS = (
 )
 _N_FSTATS = sum(dt == torch.float32 for _, dt in STAT_FIELDS)
 
-# compile-time bounds of the CUDA kernel's register arrays (kMaxN, kMaxF in
-# csrc/renewal_scan.cu): every configuration on the path has 3 survivors and
-# 4 ladder levels
+# compile-time bounds of the CUDA kernel (kMaxN, kMaxF in
+# csrc/renewal_scan.cu): it is instantiated for 1..kMaxN survivors and
+# unrolls its ladder loop to kMaxF levels; every configuration on the path
+# has 3 survivors and 4 ladder levels
 MAX_N = 4
 MAX_F = 4
 
@@ -335,8 +344,13 @@ def renewal_scan_reference(params, nodes, ladder, gaps, felled=None, *,
     return {"valid": valid, **outs}
 
 
-def _launch_cuda(params, nodes, ladder, gaps, felled, compensated: bool) -> dict:
-    """Launch the CUDA kernel on the operands' card (no synchronisation)."""
+def _launch_cuda(params, nodes, ladder, gaps, felled, compensated: bool,
+                 lib=None, lanes=None) -> dict:
+    """Launch the CUDA kernel on the operands' card (no synchronisation).
+    ``lib`` is this package's build of ``csrc/renewal_scan.cu`` unless a
+    caller passes another build of the same C interface to compare.  The
+    kernel picks its lanes per run (1, or one per survivor) from the launch
+    size; ``lanes`` forces one of the two, to compare them."""
     tensors = [params, nodes, ladder, gaps] + ([] if felled is None else [felled])
     dev = params.device
     for t in tensors:
@@ -359,11 +373,14 @@ def _launch_cuda(params, nodes, ladder, gaps, felled, compensated: bool) -> dict
     if n_lanes > 65535:
         raise ValueError("renewal_scan supports at most 65535 lanes per launch")
 
-    lib = _build.load_library(*LIBRARY)
-    fn = lib.renewal_scan_launch
+    if lanes is not None and lanes not in (1, n):
+        raise ValueError(f"lanes per run must be 1 or N={n}; got {lanes}")
+    if lib is None:
+        lib = _build.load_library(*LIBRARY)
+    fn = lib.renewal_scan_launch if lanes is None else lib.renewal_scan_launch_lanes
     if fn.argtypes is None:                  # first call: bind the signature
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
-            + [ctypes.c_void_p] * 4
+            + [ctypes.c_void_p] * 4 + ([] if lanes is None else [ctypes.c_int])
         fn.restype = ctypes.c_int
     valid = torch.empty((n_lanes, n_epochs, n_runs), dtype=torch.int32,
                         device=dev)
@@ -375,7 +392,8 @@ def _launch_cuda(params, nodes, ladder, gaps, felled, compensated: bool) -> dict
     err = fn(params.data_ptr(), nodes.data_ptr(), ladder.data_ptr(),
              gaps.data_ptr(), 0 if felled is None else felled.data_ptr(),
              n_lanes, n, n_levels, n_epochs, n_runs, int(bool(compensated)),
-             valid.data_ptr(), fstats.data_ptr(), istats.data_ptr(), stream)
+             valid.data_ptr(), fstats.data_ptr(), istats.data_ptr(), stream,
+             *(() if lanes is None else (lanes,)))
     _build.check_launch(lib, "renewal_scan", err)
     LAUNCHES["renewal_scan"] += 1
     out = {"valid": valid}

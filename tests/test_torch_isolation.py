@@ -1,8 +1,9 @@
 """PyTorch port: the package stands alone.
 
-``repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor any part of
-the reference package ``repro``; every module imports with ``jax`` made
-unimportable, and importing them builds no kernel.
+``repro_torch``, ``chip_smoke.py`` and ``renewal_scan_ab.py`` import
+neither ``jax`` nor any part of the reference package ``repro``; every
+module imports with ``jax`` made unimportable, and importing them builds no
+kernel.
 """
 import ast
 import os
@@ -35,7 +36,8 @@ def _imported_names(path):
 
 
 def test_sources_import_no_jax_and_no_reference():
-    files = [p for _, p in _modules()] + [ROOT / "chip_smoke.py"]
+    files = [p for _, p in _modules()] + [ROOT / "chip_smoke.py",
+                                          ROOT / "renewal_scan_ab.py"]
     for path in files:
         for name in _imported_names(path):
             top = name.split(".")[0]

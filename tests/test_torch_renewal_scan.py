@@ -8,12 +8,21 @@ the saving (a difference of two whole-run energies) within 1e-5 of the
 reference energy.  The port keeps the rendezvous anchors in float64 where
 the reference rounds them to float32 (see kernels/renewal_scan.py), so the
 two need not be bit-equal.  The CUDA kernel itself is held against this
-plain version on the card (``requires_cuda``; ``chip_smoke.py`` does it at
-the main path's shapes).
+plain version on the card (``requires_cuda``, at every survivor count and
+ladder depth the kernel takes; ``chip_smoke.py`` also does it at the main
+path's shapes).  The kernel's two numerical shortcuts, its fast floor-mod
+and its early stop of the zero Kahan steps, are held here against what they
+replace through Python twins of the device code.
 """
+import math
+import struct
+from fractions import Fraction
+
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from torch_port_ref import load_reference, requires_cuda, skip_without_cuda, to_np
 
@@ -150,23 +159,49 @@ def test_launch_rejects_shapes_beyond_kernel_bounds(n, nf):
         rs._launch_cuda(*ops, None, True)
 
 
+def test_launch_rejects_a_mapping_the_kernel_lacks():
+    """A run takes one lane or one per survivor; any other count raises
+    before anything is built or launched."""
+    ops = (torch.zeros(1, rs.N_PARAMS), torch.zeros(1, 3, 3),
+           torch.zeros(1, 5, 4), torch.ones(K, 8))
+    with pytest.raises(ValueError, match="lanes per run"):
+        rs._launch_cuda(*ops, None, True, lanes=2)
+
+
+def _with_shape(ops, n: int, nf: int):
+    """Packed operands at ``n`` survivors and ``nf`` ladder levels: node
+    columns taken in turn (a fourth survivor repeats the first), ladder
+    levels sliced from level 0."""
+    params, nodes, ladder = ops
+    cols = [i % nodes.shape[2] for i in range(n)]
+    return (params, nodes[:, :, cols].contiguous(),
+            ladder[:, :, :nf].contiguous())
+
+
 @requires_cuda
-def test_cuda_kernel_matches_plain_version():
+@pytest.mark.parametrize("n,nf", [(n, nf) for n in range(1, rs.MAX_N + 1)
+                                  for nf in range(1, rs.MAX_F + 1)])
+@pytest.mark.parametrize("k,r", [(1, 1), (1, 31), (1, 1000),
+                                 (64, 1), (64, 31), (64, 1000)])
+def test_cuda_kernel_matches_plain_version(n, nf, k, r):
     """The CUDA kernel against its plain version on the card, on the port's
-    own packing of the Table-4 scenarios (no JAX on the GPU machine): every
-    output bit-equal, one counted launch per call."""
+    own packing of the Table-4 scenarios (no JAX on the GPU machine) cut or
+    widened to N survivors and F ladder levels, with and without shocks,
+    compensated and not: every output bit-equal, one counted launch per
+    call.  R = 1 and 31 leave warps and blocks part-filled.  Both mappings
+    of runs to lanes (one lane per run, one per survivor) are forced too."""
     skip_without_cuda()
     from repro_torch.core import scenarios, sweep
 
     dev = torch.device("cuda")
     _, stacked = sweep._renewal_device_inputs(
         list(scenarios.paper_scenarios().values()), torch.float32, dev)
-    ops = sweep._pack_kernel_inputs(stacked, MAKESPAN)
+    ops = _with_shape(sweep._pack_kernel_inputs(stacked, MAKESPAN), n, nf)
     rng = np.random.default_rng(0)
     gaps = torch.from_numpy(rng.exponential(
-        14 * 24 * 3600.0 / 4, (K, 1000)).astype(np.float32)).to(dev)
+        14 * 24 * 3600.0 / 4, (k, r)).astype(np.float32)).to(dev)
     felled = torch.from_numpy(
-        (rng.random((K, 3, 1000)) < 0.2).astype(np.float32)).to(dev)
+        (rng.random((k, n, r)) < 0.2).astype(np.float32)).to(dev)
     for fel in (None, felled):
         for comp in (True, False):
             before = rs.LAUNCHES["renewal_scan"]
@@ -174,6 +209,172 @@ def test_cuda_kernel_matches_plain_version():
             want = rs.renewal_scan_reference(*ops, gaps, fel, compensated=comp)
             torch.cuda.synchronize()
             assert rs.LAUNCHES["renewal_scan"] == before + 1
-            for name, w in want.items():
-                np.testing.assert_array_equal(to_np(got[name]), to_np(w),
-                                              err_msg=name)
+            outs = [got] + [rs._launch_cuda(*ops, gaps, fel, comp, lanes=lanes)
+                            for lanes in sorted({1, n})]
+            torch.cuda.synchronize()
+            for out in outs:
+                for name, w in want.items():
+                    np.testing.assert_array_equal(to_np(out[name]), to_np(w),
+                                                  err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's numerical shortcuts (csrc/renewal_scan.cu), twinned in Python
+# ---------------------------------------------------------------------------
+
+def _fma(x: float, y: float, z: float) -> float:
+    """x * y + z rounded once to float64, as the device's fma()."""
+    return float(Fraction(x) * Fraction(y) + Fraction(z))
+
+
+def _trunc_rem_twin(a: float, b: float, inv_b: float) -> float:
+    """The kernel's trunc_rem: fmod(a, b) from the quotient estimate
+    trunc(a * inv_b), one fma and at most one correction of the quotient;
+    fmod itself beyond |q| = 2^51, for infinite b and for NaN."""
+    x = a * inv_b
+    if not abs(x) < 2.0 ** 51 or math.isinf(b):
+        return math.fmod(a, b)
+    q0 = math.copysign(float(math.trunc(x)), x)
+    r0 = _fma(-q0, b, a)
+    step = 1.0 if (a >= 0.0) == (b > 0.0) else -1.0
+    q_far = r0 < 0.0 if a >= 0.0 else r0 > 0.0
+    q_short = not q_far and abs(r0) >= abs(b)
+    q = q0 - step if q_far else (q0 + step if q_short else q0)
+    r = _fma(-q, b, a)
+    return math.copysign(0.0, a) if r == 0.0 else r
+
+
+def _sign_fix(r: float, b: float) -> float:
+    """The kernel's floor_mod on top of a truncated remainder."""
+    return r + b if r != 0.0 and ((r < 0.0) != (b < 0.0)) else r
+
+
+def _bits(x: float) -> bytes:
+    return struct.pack("<d", x)
+
+
+def _assert_floor_mod_exact(a_values, b: float) -> None:
+    """Twin == math.fmod (truncated) and, after the sign fix, == fmod's
+    floor-mod and torch.remainder in float64, bit for bit (zeros' signs
+    included)."""
+    a_values = [float(a) for a in a_values]
+    inv_b = 1.0 / b
+    torch_rem = torch.remainder(torch.tensor(a_values, dtype=torch.float64),
+                                torch.tensor(b, dtype=torch.float64)).tolist()
+    for a, want_t in zip(a_values, torch_rem):
+        got = _trunc_rem_twin(a, b, inv_b)
+        assert _bits(got) == _bits(math.fmod(a, b)), (a, b, got)
+        fixed = _sign_fix(got, b)
+        assert _bits(fixed) == _bits(_sign_fix(math.fmod(a, b), b)), (a, b)
+        assert _bits(fixed) == _bits(want_t), (a, b, fixed, want_t)
+
+
+# rendezvous periods: the 4 h of the policy grid's workload, one hour, and
+# a period that is not a whole number of seconds
+PERIODS = (14400.0, 3600.0, float(np.float32(14400.0 / 7.0)))
+
+
+@pytest.mark.parametrize("b", PERIODS)
+def test_fast_floor_mod_exact_multiples_and_their_neighbours(b):
+    """a = k * b for k in [-60, 60] (exact zeros, -0.0 for a < 0), and the
+    doubles one ulp either side (remainders next to 0 and next to b)."""
+    multiples = [k * b for k in range(-60, 61)]
+    near = [math.nextafter(a, d) for a in multiples for d in (-math.inf, math.inf)]
+    _assert_floor_mod_exact(multiples + near + [-0.0, 0.0], b)
+
+
+@pytest.mark.parametrize("interval", [2400.0, 4800.0, 9600.0])
+def test_fast_floor_mod_commensurate_grid_intervals(interval):
+    """The policy grid's commensurate intervals against its 14,400 s
+    rendezvous period: anchor - work with work a float32 multiple of the
+    checkpoint interval (plus its duration), where the wrap is exactly 0."""
+    b = 14400.0
+    works = [float(np.float32(j * interval)) for j in range(0, 400)]
+    works += [float(np.float32(j * (interval + 120.0))) for j in range(0, 400)]
+    a_values = [anchor - w for anchor in (0.0, 7200.0, 14400.0, 12345.5)
+                for w in works]
+    assert any(math.fmod(a, b) == 0.0 for a in a_values)
+    _assert_floor_mod_exact(a_values, b)
+
+
+def test_fast_floor_mod_falls_back_where_the_quotient_is_inexact():
+    """|a / b| >= 2^51 and an infinite b take fmod itself."""
+    for a, b in ((1e300, 3.0), (-2.0 ** 60 + 1.0, 7.0), (2.0 ** 52, 0.5),
+                 (5.0, math.inf), (-5.0, math.inf)):
+        _assert_floor_mod_exact([a], b)
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.floats(min_value=-1e8, max_value=1e8),
+       st.floats(min_value=1e-3, max_value=1e6))
+def test_fast_floor_mod_matches_fmod_sweep(a, b):
+    _assert_floor_mod_exact([a], b)
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.integers(min_value=-10 ** 6, max_value=10 ** 6),
+       st.floats(min_value=1.0, max_value=1e5),
+       st.integers(min_value=-3, max_value=3))
+def test_fast_floor_mod_near_multiples_sweep(k, b, ulps):
+    """a within a few ulp of k * b, where the quotient estimate is most
+    likely one off."""
+    a = k * b
+    for _ in range(abs(ulps)):
+        a = math.nextafter(a, math.copysign(math.inf, ulps))
+    _assert_floor_mod_exact([a], b)
+
+
+def _f32(x: float) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32)
+
+
+def _bits32(t: torch.Tensor) -> int:
+    return int(t.view(torch.int32))
+
+
+def _kadd_zeros_twin(s, c, steps: int, compensated: bool):
+    """The kernel's kadd_zeros: up to ``steps`` zero increments, stopped
+    once one leaves the pair bitwise unchanged."""
+    zero = _f32(0.0)
+    for _ in range(steps):
+        s0, c0 = _bits32(s), _bits32(c)
+        s, c = rs._kadd(s, c, zero, compensated)
+        if _bits32(s) == s0 and _bits32(c) == c0:
+            break
+    return s, c
+
+
+def _ledger_pairs():
+    """Kahan pairs as a ledger leaves them: running sums of 200 epoch
+    energies of widely spread size, stopped at several points."""
+    rng = np.random.default_rng(3)
+    s, c = _f32(0.0), _f32(0.0)
+    pairs = []
+    for i, x in enumerate(rng.lognormal(12.0, 3.0, 200).astype(np.float32)):
+        s, c = rs._kadd(s, c, _f32(float(x)), True)
+        if i % 25 == 24:
+            pairs.append((float(s), float(c)))
+    return pairs
+
+
+@pytest.mark.parametrize("compensated", [True, False])
+def test_kahan_zero_steps_stop_at_fixed_point(compensated):
+    """The early stop gives the (s, c) that all remaining zero increments of
+    the plain version's _kadd give, bit for bit: c = -0.0 and +0.0, s = -0.0,
+    a c too small to move s, c that moves s for a few steps, and pairs
+    taken from a running ledger."""
+    pairs = [(0.0, 0.0), (-0.0, 0.0), (0.0, -0.0), (-0.0, -0.0),
+             (1.0, -0.0), (-2.5e7, 0.0),
+             (1.0e6, 1.0e-3), (1.0e6, -1.0e-3),     # |c| below half an ulp of s
+             (1.0e6, 0.05), (1.0e6, -0.04),         # c moves s
+             (1.0, 0.3), (3.0e-38, 1.0e-45), (-7.0, 1.5e-7)]
+    pairs += _ledger_pairs()
+    zero = _f32(0.0)
+    for s0, c0 in pairs:
+        for steps in (0, 1, 2, 3, 7, 64):
+            s, c = _f32(s0), _f32(c0)
+            for _ in range(steps):
+                s, c = rs._kadd(s, c, zero, compensated)
+            es, ec = _kadd_zeros_twin(_f32(s0), _f32(c0), steps, compensated)
+            assert (_bits32(es), _bits32(ec)) == (_bits32(s), _bits32(c)), \
+                (s0, c0, steps)
