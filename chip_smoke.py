@@ -4,7 +4,7 @@
 
 Builds the port's three CUDA kernels from the sources in this checkout (one
 nvcc each, all started together) and holds each against its plain PyTorch
-version on the card.  Then it drives the port's two paths at the size users
+version on the card.  Then it drives the port's paths at the size users
 run them, each with the launch counts set to 0 just before it and read just
 after, and holds launches of each path against the plain version on the
 same operands:
@@ -14,6 +14,14 @@ same operands:
   host oracle (``renewal_scan``; before them the kernel is held bit-equal
   to its plain version at 1-4 survivors, 1-4 ladder levels, K 1 and 64,
   R 1, 31 and 1000: ``[kernel-shapes]``);
+* the paper's single-failure path and the float64 scan engine, plain
+  PyTorch on the card: Table 4 through ``compare`` against the published
+  rows (``[table4]``); ``sweep_scenarios`` over the six scenarios x 262,144
+  failure instants x an eight-margin mu-band, against the CPU and the
+  event oracle (``[sweep]``); ``monte_carlo`` at 2^20 instants per
+  scenario against the CPU (``[monte-carlo]``); the scan engine at the
+  main path's size and on the 42-policy grid against the float64 oracle,
+  the CPU and the kernel engine (``[renewal-f64]``);
 * Zamba2-7B serving at its published widths with seeded weights: a bf16
   prefill of 2 x 4096 tokens (13 ``flash_attention`` and 81 ``ssd_scan``
   launches), a float32 prefill of 2 x 512 tokens against the same tokens
@@ -75,6 +83,26 @@ SHAPE_KR = ((1, 1), (1, 31), (1, 1000), (FULL_EPOCHS, 1), (FULL_EPOCHS, 31),
             (FULL_EPOCHS, 1000))
 FLOAT_STATS = ("energy_ref", "energy_int", "saving", "balanced_energy",
                "end_time")
+
+# the single-failure path: the six Table-4 scenarios x SWEEP_OFFSETS
+# failure instants (linspace(0, 7200 s) + 0.318 s, benchmarks/failure_sweep.py's
+# grid) x an eight-margin mu-band around the Table-4 band (3.67, 7.67);
+# Monte-Carlo over MC_SAMPLES sampled instants per scenario
+SWEEP_OFFSETS = 1 << 18
+SWEEP_HORIZON_S = 7200.0
+SWEEP_JITTER_S = 0.318
+MU_BAND = (3.0, 4.0, 5.0, 6.0, 7.0, 8.0, 9.0, 10.0)
+SWEEP_CPU_STRIDE = 64        # the CPU check takes every 64th instant
+SWEEP_ORACLE_OFFSETS = 16    # event-oracle instants per scenario
+MC_SAMPLES = 1 << 20
+MC_MTBF_S = 30 * 24 * 3600.0
+TOL_TABLE4 = 1e-6            # compare on the card vs on the CPU
+TOL_SWEEP = 1e-5             # sweep / Monte-Carlo floats, card vs CPU
+TOL_SWEEP_ORACLE = 0.01      # sweep savings vs the event oracle (tests/test_sweep.py)
+TOL_F64 = 1e-9               # the float64 scan vs the float64 host oracle
+# checkpoint intervals of the 42-policy grid at which the float32 kernel
+# meets exact ties the float64 engines keep (ROADMAP.md Queue 3, item 4)
+KERNEL_TIE_INTERVALS_S = (2400.0, 4800.0, 9600.0)
 
 # the LM serving path: zamba2-7b at its published widths
 LM_ARCH = "zamba2-7b"
@@ -298,6 +326,368 @@ def check_against_oracle(phase, sweep, cfg, stats_row: dict, gaps, failed,
         raise Failed(f"{phase} {cfg.name} saving: {sav_err:.3e} of "
                      f"energy_ref > {TOL_ORACLE}")
     return max(gated, sav_err), worst_run, n_over
+
+
+# ---------------------------------------------------------------------------
+# the single-failure path and the float64 scan engine (plain PyTorch)
+# ---------------------------------------------------------------------------
+
+def max_rel_err(got, want) -> float:
+    """Largest |got - want| / |want| (0 where both are 0)."""
+    got = torch.as_tensor(np.asarray(got, np.float64)) if not isinstance(
+        got, torch.Tensor) else got.double().cpu()
+    want = torch.as_tensor(np.asarray(want, np.float64)) if not isinstance(
+        want, torch.Tensor) else want.double().cpu()
+    d = (got - want).abs()
+    return float((d / want.abs().clamp_min(1e-300)).where(d > 0, 0.0).max())
+
+
+def t_axis(x: torch.Tensor, n: int) -> int:
+    """The axis of ``x`` that holds the ``n`` failure offsets."""
+    return [i for i, s in enumerate(x.shape) if s == n][0]
+
+
+def wall_ms_median(fn, reps: int) -> tuple:
+    """Host milliseconds of ``fn`` ending in a synchronise: (the result of a
+    warm call, the median of ``reps`` timed calls after it)."""
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, statistics.median(times)
+
+
+def table4_phase(card_line: str) -> None:
+    """Phase 6: Table 4 through ``compare`` with Algorithm 1 on the card,
+    against the published rows and against the same call on the CPU (which
+    tests/test_torch_simulator.py holds against the reference)."""
+    from repro_torch.core.scenarios import (TABLE4_PUBLISHED, paper_scenarios,
+                                            table4_bars)
+    from repro_torch.core.simulator import compare
+
+    t0 = time.perf_counter()
+    worst_cpu = 0.0
+    for name, cfg in paper_scenarios().items():
+        rows, _, _ = compare(cfg, device="cuda")
+        rows_cpu, _, _ = compare(cfg, device="cpu")
+        rel_bar, pct_bar = table4_bars(name)
+        for r, rc in zip(rows, rows_cpu):
+            comp, wait, save_j, save_pct = TABLE4_PUBLISHED[(name, r.node)]
+            cpu_rel = abs(r.save_j - rc.save_j) / abs(rc.save_j)
+            worst_cpu = max(worst_cpu, cpu_rel)
+            pub_rel = abs(r.save_j - save_j) / save_j
+            line("table4", scenario=name, node=r.node,
+                 comp_action=repr(r.comp_action), wait_action=repr(r.wait_action),
+                 published_actions=repr((comp, wait)), save_j=f"{r.save_j:.4f}",
+                 published_save_j=f"{save_j:.2f}", rel_to_published=f"{pub_rel:.3e}",
+                 save_pct=f"{r.save_pct:.4f}", published_pct=f"{save_pct:.2f}",
+                 card_vs_cpu_rel=f"{cpu_rel:.3e}")
+            if (r.comp_action, r.wait_action) != (comp, wait) or \
+                    (r.comp_action, r.wait_action) != (rc.comp_action, rc.wait_action):
+                raise Failed(f"table4 {name} node {r.node}: actions "
+                             f"{(r.comp_action, r.wait_action)} differ")
+            if pub_rel > rel_bar or abs(r.save_pct - save_pct) >= pct_bar:
+                raise Failed(f"table4 {name} node {r.node}: saving {r.save_j} J "
+                             f"({r.save_pct}%) beyond the published bars")
+            if cpu_rel > TOL_TABLE4:
+                raise Failed(f"table4 {name} node {r.node}: card and CPU "
+                             f"savings differ by {cpu_rel:.3e}")
+    line("table4", rows=18, card=repr(card_line),
+         seconds=f"{time.perf_counter() - t0:.2f}",
+         worst_card_vs_cpu_rel=f"{worst_cpu:.3e}")
+
+
+def sweep_phase(card_line: str, sweep, scen) -> None:
+    """Phase 7: the six scenarios x SWEEP_OFFSETS failure instants x the
+    mu-band in one ``sweep_scenarios`` call on the card: timed, held against
+    the same call on the CPU at every SWEEP_CPU_STRIDE-th offset and against
+    the event oracle at SWEEP_ORACLE_OFFSETS instants per scenario."""
+    from repro_torch.core.scenarios import shift_failure
+    from repro_torch.core.simulator import simulate
+
+    offsets = np.linspace(0.0, SWEEP_HORIZON_S, SWEEP_OFFSETS,
+                          endpoint=False) + SWEEP_JITTER_S
+    band = np.asarray(MU_BAND)
+    call = lambda: sweep.sweep_scenarios(scen, offsets, mu1=band, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    res = call()
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = statistics.median(cuda_ms(call, reps=3, warmup=1))
+    prof = device_profile(call)
+    decisions = len(scen) * len(band) * SWEEP_OFFSETS * len(scen[0].survivors)
+    line("sweep", card=repr(card_line), scenarios=len(scen), mu_band=len(band),
+         offsets=SWEEP_OFFSETS, decisions=decisions, ms_median=f"{ms:.3f}",
+         decisions_per_s=f"{decisions / (ms * 1e-3):.4e}",
+         peak_memory_gb=f"{peak_gb:.3f}",
+         kernel_launches=prof.get("launches", "not measured"),
+         device_ms=("not measured" if prof["device_ms"] is None
+                    else f"{prof['device_ms']:.3f}"),
+         busy_share=("not measured" if prof["device_ms"] is None
+                     else f"{prof['busy_share']:.4f}"))
+
+    # the same call on the CPU at a strided subset
+    idx = np.arange(0, SWEEP_OFFSETS, SWEEP_CPU_STRIDE)
+    cpu = sweep.sweep_scenarios(scen, offsets[idx], mu1=band, device="cpu")
+    sel = torch.as_tensor(idx)
+    worst, n_fields = 0.0, 0
+    pairs = [(f.name, getattr(res.decision, f.name), getattr(cpu.decision, f.name))
+             for f in dataclasses.fields(res.decision)]
+    pairs += [(f.name, getattr(res, f.name), getattr(cpu, f.name))
+              for f in dataclasses.fields(res) if f.name != "decision"]
+    for name, got, want in pairs:
+        got = got.index_select(t_axis(got, SWEEP_OFFSETS), sel.to(got.device)).cpu()
+        if got.shape != want.shape:
+            raise Failed(f"sweep {name}: card {tuple(got.shape)} vs CPU "
+                         f"{tuple(want.shape)}")
+        n_fields += 1
+        if got.dtype.is_floating_point:
+            err = max_rel_err(got, want)
+            worst = max(worst, err)
+            if err > TOL_SWEEP:
+                raise Failed(f"sweep {name}: card vs CPU rel {err:.3e} > {TOL_SWEEP}")
+        elif not torch.equal(got, want):
+            raise Failed(f"sweep {name}: card and CPU differ at "
+                         f"{int((got != want).sum())} points")
+    line("sweep", check="card vs cpu", offsets=len(idx), fields=n_fields,
+         ints="exact", max_rel_err=f"{worst:.3e}", bar=TOL_SWEEP)
+
+    # against the event oracle at each scenario's own margin (one band
+    # entry): decisions exact, savings within 1%
+    if len({c.mu1 for c in scen}) != 1:
+        raise Failed("the oracle check reads one band entry for all scenarios")
+    m_own = int(np.flatnonzero(band == scen[0].mu1)[0])
+    t0 = time.perf_counter()
+    worst_sav = 0.0
+    for s, cfg in enumerate(scen):
+        for t in range(0, SWEEP_OFFSETS, SWEEP_OFFSETS // SWEEP_ORACLE_OFFSETS):
+            shifted = shift_failure(cfg, float(offsets[t]))
+            ref = simulate(shifted, intervene=False, device="cuda")
+            act = simulate(shifted, intervene=True, device="cuda")
+            d = res.decision
+            for i, node in enumerate(sorted(act.outcomes)):
+                o = act.outcomes[node]
+                measured = ref.outcomes[node].energy - o.energy
+                if int(d.level[s, m_own, t, i]) != o.level or \
+                        int(d.wait_action[s, m_own, t, i]) != int(o.wait_action):
+                    raise Failed(f"sweep vs oracle {cfg.name} @ {offsets[t]}: "
+                                 f"node {node} decision differs")
+                pred = float(d.saving[s, m_own, t, i])
+                denom = max(abs(measured), 0.01 * float(d.energy_reference[s, t, i]), 1.0)
+                worst_sav = max(worst_sav, abs(pred - measured) / denom)
+    if worst_sav >= TOL_SWEEP_ORACLE:
+        raise Failed(f"sweep vs oracle savings {worst_sav:.3e} >= {TOL_SWEEP_ORACLE}")
+    line("sweep", check="event oracle", instants_per_scenario=SWEEP_ORACLE_OFFSETS,
+         mu1=float(band[m_own]), decisions="exact",
+         worst_saving_rel=f"{worst_sav:.3e}", bar=TOL_SWEEP_ORACLE,
+         seconds=f"{time.perf_counter() - t0:.2f}")
+    for s, cfg in enumerate(scen):
+        # scenario s at its own margin: band fields (S, M, T, N), the rest (S, T, N)
+        pick = lambda x: x[s, m_own] if x.dim() == 4 else x[s]
+        sm = sweep.summarize(dataclasses.replace(
+            res, chain_ok=res.chain_ok[s], decision=dataclasses.replace(
+                res.decision, **{f.name: pick(getattr(res.decision, f.name))
+                                 for f in dataclasses.fields(res.decision)})))
+        line("sweep", scenario=cfg.name, mu1=float(band[m_own]),
+             mean_saving_j=f"{sm.mean_saving_j:.4f}",
+             p5_saving_j=f"{sm.p5_saving_j:.4f}", p95_saving_j=f"{sm.p95_saving_j:.4f}",
+             sleep_occupancy=f"{sm.sleep_occupancy:.6f}",
+             min_freq_rate=f"{sm.min_freq_rate:.6f}",
+             infeasible_rate=f"{sm.infeasible_rate:.6f}")
+    del res
+
+
+def monte_carlo_phase(card_line: str, sweep, prng, scen) -> None:
+    """Phase 8: ``monte_carlo`` per scenario at MC_SAMPLES failure instants
+    on the card, timed, held against the CPU at the same key.  Arrival times
+    are a float64 cumsum of float32 unit-exponential draws, and ``log1p``
+    may round a draw one ulp apart on the two devices (ROADMAP.md Queue 3,
+    item 5), which shifts every later arrival: so the draws are compared
+    (ulps), the CPU summary is computed from the card's own offsets and held
+    at TOL_SWEEP, and the CPU's own same-key run is held there too when the
+    draws agree bit for bit (printed either way)."""
+    key = prng.PRNGKey(0)
+    d_card = prng.exponential(key, (MC_SAMPLES,), "cuda").cpu()
+    d_cpu = prng.exponential(key, (MC_SAMPLES,), "cpu")
+    ulps = (d_card.view(torch.int32).long() - d_cpu.view(torch.int32).long()).abs()
+    n_differ, max_ulp = int((ulps > 0).sum()), int(ulps.max())
+    line("monte-carlo", check="unit draws card vs cpu", samples=MC_SAMPLES,
+         differing=n_differ, max_ulps=max_ulp)
+    if max_ulp > 2:
+        raise Failed(f"monte-carlo: exponential draws {max_ulp} ulps apart")
+    fields = [f.name for f in dataclasses.fields(sweep.MonteCarloSummary)
+              if f.name != "annual_saving_by_strategy"]
+
+    def rel(a, b) -> float:
+        errs = [abs(getattr(a, f) - getattr(b, f)) / max(abs(getattr(b, f)), 1e-300)
+                for f in fields]
+        errs += [abs(a.annual_saving_by_strategy[k] - v) / max(abs(v), 1e-300)
+                 for k, v in b.annual_saving_by_strategy.items()]
+        return max(errs)
+
+    for cfg in scen:
+        wrap = 64.0 * (cfg.ckpt_interval + cfg.ckpt_duration)
+        card_mc, ms = wall_ms_median(
+            lambda: sweep.monte_carlo(cfg, key, n_samples=MC_SAMPLES,
+                                      mtbf_s=MC_MTBF_S, device="cuda"), 3)
+        offs = sweep.exponential_failure_offsets(key, MC_SAMPLES, MC_MTBF_S,
+                                                 wrap, "cuda")
+        same_offsets = sweep._monte_carlo_summary(cfg, offs, MC_MTBF_S, None, "cpu")
+        err = rel(card_mc, same_offsets)
+        own = sweep.monte_carlo(cfg, key, n_samples=MC_SAMPLES, mtbf_s=MC_MTBF_S,
+                                device="cpu")
+        own_err = rel(card_mc, own)
+        line("monte-carlo", scenario=cfg.name, card=repr(card_line),
+             samples=MC_SAMPLES, wall_ms_median=f"{ms:.3f}",
+             mean_saving_j=f"{card_mc.mean_saving_j:.4f}",
+             annual_saving_j=f"{card_mc.annual_saving_j:.6e}",
+             sleep_occupancy=f"{card_mc.sleep_occupancy:.6f}",
+             vs_cpu_same_offsets_rel=f"{err:.3e}",
+             vs_cpu_same_key_rel=f"{own_err:.3e}")
+        if err > TOL_SWEEP:
+            raise Failed(f"monte-carlo {cfg.name}: card vs CPU on the same "
+                         f"offsets rel {err:.3e} > {TOL_SWEEP}")
+        if n_differ == 0 and own_err > TOL_SWEEP:
+            raise Failed(f"monte-carlo {cfg.name}: card vs CPU at the same key "
+                         f"rel {own_err:.3e} > {TOL_SWEEP}")
+
+
+def renewal_f64_phase(card_line: str, sweep, optimize, scen, key, n_nodes: int,
+                      kernel_summaries: dict, kernel_grid, grid_cfg, table,
+                      makespans) -> None:
+    """Phase 9: the float64 scan engine (``engine="scan"``, the default) at
+    the main path's size, timed with its CUDA launches per call counted;
+    held against the float64 host oracle on ORACLE_RUNS (TOL_F64, integers
+    exact), bit for bit against itself on the CPU, and against the kernel
+    engine at the same key (means within TOL_ORACLE); then the 42-policy
+    grid on the scan against the kernel grid's means."""
+    from repro_torch.core.scenarios import apply_policy
+
+    run = lambda: sweep.renewal_monte_carlo_device(
+        scen, key, n_runs=FULL_RUNS, max_failures=FULL_EPOCHS, stats=True,
+        device="cuda")
+    stats, ms = wall_ms_median(run, 3)
+    prof = device_profile(run)
+    summaries = sweep.renewal_monte_carlo_scenarios(
+        scen, key, n_runs=FULL_RUNS, max_failures=FULL_EPOCHS)
+    line("renewal-f64", card=repr(card_line), call="renewal_monte_carlo_device",
+         engine="scan", scenarios=len(scen), runs=FULL_RUNS, epochs=FULL_EPOCHS,
+         wall_ms_median=f"{ms:.3f}",
+         kernel_launches_per_call=prof.get("launches", "not measured"),
+         device_ms=("not measured" if prof["device_ms"] is None
+                    else f"{prof['device_ms']:.3f}"),
+         busy_share=("not measured" if prof["device_ms"] is None
+                     else f"{prof['busy_share']:.4f}"))
+
+    gaps, failed = sweep.renewal_failure_gaps(key, FULL_RUNS, n_nodes,
+                                              FULL_EPOCHS, MTBF_S)
+    gaps_o, failed_o = gaps[:ORACLE_RUNS].cpu(), failed[:ORACLE_RUNS].cpu()
+    # the per-epoch view on the card against itself on the CPU, bit for bit
+    full_card = sweep.renewal_compose_device(scen, gaps_o, MAKESPAN_S,
+                                             failed_node=failed_o, device="cuda")
+    full_cpu = sweep.renewal_compose_device(scen, gaps_o, MAKESPAN_S,
+                                            failed_node=failed_o, device="cpu")
+    n_diff = 0
+    for f in ("energy_ref", "energy_int", "end_time", "balanced_energy",
+              "epoch_ref", "epoch_int", "t_fail", "valid", "n_failures"):
+        n_diff += int((getattr(full_card, f).cpu() != getattr(full_cpu, f)).sum())
+    for f in ("level", "wait_action", "energy_intervened"):
+        n_diff += int((getattr(full_card.decision, f).cpu()
+                       != getattr(full_cpu.decision, f)).sum())
+    worst = 0.0
+    for s, cfg in enumerate(scen):
+        host = sweep.renewal_compose(cfg, gaps_o, MAKESPAN_S, failed_node=failed_o,
+                                     device="cpu")
+        for f in ("n_failures", "truncated"):
+            if not torch.equal(getattr(stats, f)[s, :ORACLE_RUNS].cpu().long(),
+                               getattr(host, f).long()):
+                raise Failed(f"renewal-f64 {cfg.name}: {f} differ from the oracle")
+        v = host.valid[:, :, None].expand(host.decision.level.shape)
+        d = host.decision
+        for f, mask in (("n_sleep", d.wait_action == 2), ("n_min_freq", d.wait_action == 1),
+                        ("n_comp_changed", d.comp_changed),
+                        ("n_infeasible", ~d.feasible_any)):
+            if not torch.equal(getattr(stats, f)[s, :ORACLE_RUNS].cpu().long(),
+                               (v & mask).sum(dim=(1, 2))):
+                raise Failed(f"renewal-f64 {cfg.name}: {f} differ from the oracle")
+        for f in ("energy_ref", "energy_int", "balanced_energy", "end_time"):
+            worst = max(worst, max_rel_err(getattr(stats, f)[s, :ORACLE_RUNS],
+                                           getattr(host, f)))
+        worst = max(worst, float(((stats.saving[s, :ORACLE_RUNS].cpu() - host.saving).abs()
+                                  / host.energy_ref).max()))
+    if worst > TOL_F64:
+        raise Failed(f"renewal-f64: rel {worst:.3e} against the oracle > {TOL_F64}")
+    line("renewal-f64", check="host oracle", runs=ORACLE_RUNS, ints="exact",
+         max_rel_err=f"{worst:.3e}", bar=TOL_F64,
+         card_vs_cpu_differing_entries=n_diff)
+    if n_diff:
+        raise Failed(f"renewal-f64: card and CPU scans differ at {n_diff} entries")
+
+    worst_k = 0.0
+    for cfg in scen:
+        a, b = summaries[cfg.name], kernel_summaries[cfg.name]
+        if (a.mean_failures, a.failure_count_hist, a.sleep_occupancy,
+                a.min_freq_rate, a.comp_change_rate, a.infeasible_rate) != \
+                (b.mean_failures, b.failure_count_hist, b.sleep_occupancy,
+                 b.min_freq_rate, b.comp_change_rate, b.infeasible_rate):
+            raise Failed(f"renewal-f64 {cfg.name}: counts differ from the kernel's")
+        for f in ("mean_energy_ref_j", "mean_energy_int_j"):
+            worst_k = max(worst_k, abs(getattr(a, f) / getattr(b, f) - 1))
+        worst_k = max(worst_k, abs(a.mean_saving_j - b.mean_saving_j)
+                      / b.mean_energy_ref_j)
+        line("renewal-f64", scenario=cfg.name, mean_failures=f"{a.mean_failures:.6f}",
+             mean_saving_pct=f"{a.mean_saving_pct:.6f}",
+             mean_energy_int_j=f"{a.mean_energy_int_j:.6e}")
+    if worst_k > TOL_ORACLE:
+        raise Failed(f"renewal-f64: means {worst_k:.3e} from the kernel's > {TOL_ORACLE}")
+    line("renewal-f64", check="kernel engine, same key", counts="exact",
+         max_mean_rel_err=f"{worst_k:.3e}", bar=TOL_ORACLE)
+
+    # the 42-policy grid on the scan
+    grid_call = lambda: optimize.evaluate_policy_grid(
+        grid_cfg, table, key, work_s=GRID_WORK_S, n_runs=FULL_RUNS,
+        max_failures=FULL_EPOCHS, mtbf_s=GRID_MTBF_S)
+    torch.cuda.reset_peak_memory_stats()
+    scan_grid, g_ms = wall_ms_median(grid_call, 2)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rel = np.abs(scan_grid.mean_energy_j / kernel_grid.mean_energy_j - 1)
+    # at these intervals the float32 kernel breaks exact move-ahead ties the
+    # float64 engines keep (ROADMAP.md Queue 3, item 4): the scan is held
+    # there against the float64 oracle below, not against the kernel
+    tie = np.isin(np.round(table.ckpt_interval, 6), KERNEL_TIE_INTERVALS_S)
+    if rel[~tie].max() > TOL_ORACLE:
+        raise Failed(f"renewal-f64 grid: means {rel[~tie].max():.3e} from the "
+                     f"kernel's > {TOL_ORACLE}")
+    gaps, failed = sweep.renewal_failure_gaps(key, FULL_RUNS, n_nodes,
+                                              FULL_EPOCHS, GRID_MTBF_S)
+    gaps_o, failed_o = gaps[:ORACLE_RUNS].cpu(), failed[:ORACLE_RUNS].cpu()
+    worst_g = 0.0
+    for ival in np.unique(table.ckpt_interval):
+        p = int(np.flatnonzero(table.ckpt_interval == ival)[0])
+        host = sweep.renewal_compose(apply_policy(grid_cfg, **table.policy(p)),
+                                     gaps_o, float(makespans[p]),
+                                     failed_node=failed_o, device="cpu")
+        if not np.array_equal(scan_grid.n_failures[p, :ORACLE_RUNS],
+                              host.n_failures.numpy()):
+            raise Failed(f"renewal-f64 grid policy {p}: failure counts differ")
+        for f in ("energy_ref", "energy_int", "end_time"):
+            worst_g = max(worst_g, max_rel_err(getattr(scan_grid, f)[p, :ORACLE_RUNS],
+                                               getattr(host, f)))
+    if worst_g > TOL_F64:
+        raise Failed(f"renewal-f64 grid: rel {worst_g:.3e} against the oracle > {TOL_F64}")
+    line("renewal-f64", check="policy grid", card=repr(card_line),
+         policies=len(table), runs=FULL_RUNS, epochs=FULL_EPOCHS,
+         wall_ms_median=f"{g_ms:.3f}", peak_memory_gb=f"{peak_gb:.3f}",
+         argmin=scan_grid.best, kernel_argmin=kernel_grid.best,
+         max_mean_rel_vs_kernel_untied=f"{rel[~tie].max():.3e}",
+         max_mean_rel_vs_kernel_tied=f"{rel[tie].max():.3e}",
+         tied_intervals=sorted(set(table.ckpt_interval[tie].round(3).tolist())),
+         oracle_policies=len(np.unique(table.ckpt_interval)),
+         oracle_max_rel_err=f"{worst_g:.3e}")
 
 
 # ---------------------------------------------------------------------------
@@ -1130,7 +1520,7 @@ def main() -> int:
     wstats, w_launches, (w_call,) = drive(
         rs, lambda: sweep.renewal_monte_carlo_device(
             scen, key, n_runs=WEIBULL_RUNS, max_failures=FULL_EPOCHS,
-            process=proc, engine="kernel"))
+            process=proc, stats=True, engine="kernel"))
     w_args, w_kw, w_out = w_call
     w_abs, w_rel = compare_outputs(
         w_out, rs.renewal_scan_reference(*w_args, **w_kw))
@@ -1158,6 +1548,13 @@ def main() -> int:
         line("weibull", scenario=cfg.name,
              mean_failures=f"{float(wstats.n_failures[s].float().mean()):.6f}",
              oracle_rel_err=f"{err:.3e}")
+
+    table4_phase(card_line)
+    sweep_phase(card_line, sweep, scen)
+    monte_carlo_phase(card_line, sweep, prng, scen)
+    renewal_f64_phase(card_line, sweep, optimize, scen, key, n_nodes, summaries,
+                      res, grid_cfg, table, makespans)
+    line("single-failure-done", seconds=f"{time.perf_counter() - t_start:.1f}")
 
     renewal_record = {
         "name": "renewal_scan",

@@ -81,7 +81,7 @@ def main() -> int:
         "weibull": lambda: sweep.renewal_monte_carlo_device(
             scen, key, n_runs=cs.WEIBULL_RUNS, max_failures=cs.FULL_EPOCHS,
             process=failures.Weibull.from_mtbf(0.7, cs.MTBF_S),
-            engine="kernel"),
+            stats=True, engine="kernel"),
     }
     captured = {}
     for label, path in paths.items():

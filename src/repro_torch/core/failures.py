@@ -77,6 +77,12 @@ class FailureProcess:
     def label(self) -> str:
         raise NotImplementedError
 
+    def sample(self, key, shape, device="cuda") -> torch.Tensor:
+        """Unconditional (age-0) float32 gap draws of ``shape`` on
+        ``device`` (for ``Exponential``, ``mtbf_s * prng.exponential``)."""
+        v = prng.uniform(key, shape, device)
+        return self.residual(v, torch.zeros_like(v))
+
 
 @dataclasses.dataclass(frozen=True)
 class Exponential(FailureProcess):

@@ -2,12 +2,13 @@
 
 Counterpart of the grid half of ``repro.core.optimize``: a flat table of
 operator-tunable knobs (checkpoint interval x mu1 x mu2 x wait mode x
-move-ahead fraction) evaluated in ONE kernel launch with common random
-numbers (one sampling pass shared by every policy lane), compared at equal
-useful work (``wall_makespan``), and reduced to a Pareto front of expected
-energy vs expected makespan with its knee.  ``cem_refine``,
-``optimize_policy``, ``optimize_across_processes`` and the fleet
-``clusters=`` axis arrive with the next slice (ROADMAP Queue 1).
+move-ahead fraction) evaluated in one call of the renewal engines (the
+float64 scan by default, or the CUDA kernel) with common random numbers
+(one sampling pass shared by every policy lane), compared at equal useful
+work (``wall_makespan``), and reduced to a Pareto front of expected energy
+vs expected makespan with its knee.  ``cem_refine``, ``optimize_policy``,
+``optimize_across_processes`` and the fleet ``clusters=`` axis are not
+ported yet (ROADMAP.md, Queue 1).
 
 Host-side reductions are numpy float64 on the lean per-run statistics.
 """
@@ -200,7 +201,7 @@ def policy_inputs(cfg: ScenarioConfig, table: PolicyTable,
 
 
 # ---------------------------------------------------------------------------
-# the grid evaluator: one kernel launch per (grid, key)
+# the grid evaluator: one engine call per (grid, key)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -258,54 +259,6 @@ class PolicyEvalResult:
         )
 
 
-def _policy_eval_from_stats(
-    table: PolicyTable,
-    scenario_name: str,
-    stats,
-    makespans: np.ndarray,
-    work_s: Optional[float],
-    mtbf: float,
-    process_label: str,
-    n_runs: int,
-    max_failures: int,
-) -> PolicyEvalResult:
-    """Host-side reduction of device ``RenewalDeviceStats`` (leading policy
-    axis) into a ``PolicyEvalResult`` — shared by the single-cluster path
-    and each cluster row of the fleet dispatch."""
-    f8 = lambda a: np.asarray(a, np.float64)
-    energy_ref, energy_int = f8(stats.energy_ref), f8(stats.energy_int)
-    saving, end_time = f8(stats.saving), f8(stats.end_time)
-    n_failures = np.asarray(stats.n_failures, np.int64)
-    truncated = np.asarray(stats.truncated, bool)
-    n_points = np.maximum(np.asarray(stats.n_points, np.int64).sum(axis=1), 1)
-    rate = lambda c: np.asarray(c, np.int64).sum(axis=1) / n_points
-    return PolicyEvalResult(
-        table=table,
-        scenario=scenario_name,
-        work_s=None if work_s is None else float(work_s),
-        makespan_s=makespans,
-        mtbf_s=mtbf,
-        process_label=process_label,
-        n_runs=n_runs,
-        max_failures=max_failures,
-        energy_ref=energy_ref,
-        energy_int=energy_int,
-        saving=saving,
-        end_time=end_time,
-        n_failures=n_failures,
-        truncated=truncated,
-        mean_energy_j=energy_int.mean(axis=1),
-        mean_energy_ref_j=energy_ref.mean(axis=1),
-        mean_saving_j=saving.mean(axis=1),
-        mean_makespan_s=end_time.mean(axis=1),
-        mean_failures=n_failures.astype(np.float64).mean(axis=1),
-        truncated_rate=truncated.mean(axis=1),
-        sleep_occupancy=rate(stats.n_sleep),
-        min_freq_rate=rate(stats.n_min_freq),
-        infeasible_rate=rate(stats.n_infeasible),
-    )
-
-
 def _policy_eval_from_stats(table: PolicyTable, scenario_name: str,
                             stats: dict, makespans: np.ndarray,
                             work_s: Optional[float], mtbf: float,
@@ -344,22 +297,23 @@ def evaluate_policy_grid(cfg: Optional[ScenarioConfig], table: PolicyTable,
                          n_runs: int = 128, max_failures: int = 32,
                          mtbf_s: Optional[float] = None,
                          process: Optional[failures.FailureProcess] = None,
-                         topology=None, clusters=None, engine: str = "kernel",
+                         topology=None, clusters=None, engine: str = "scan",
                          device="cuda") -> PolicyEvalResult:
-    """Expected whole-run energy AND makespan for every policy in one
-    kernel launch (sampling shared across policies, composition, Algorithm
-    1, whole-run reduction).
+    """Expected whole-run energy AND makespan for every policy in one call
+    (sampling shared across policies, composition, Algorithm 1, whole-run
+    reduction): ``engine="scan"`` (default) is the float64 scan,
+    ``engine="kernel"`` one launch of the float32 CUDA kernel.
 
     Exactly one of ``work_s`` (equal useful work: per-policy wall makespan
     via ``wall_makespan``) or ``makespan_s`` (equal wall time) is given.
     The failure process is ``process`` or the paper's exponential at
     ``mtbf_s``.  Deterministic for a fixed ``key``; within the port every
-    lane is bit-identical to a standalone launch on that policy alone.
+    lane is bit-identical to a standalone call on that policy alone.
     """
     if clusters is not None:
-        raise sweep._not_in_slice("the fleet clusters= axis")
+        raise sweep._not_ported("the fleet clusters= axis")
     if topology is not None:
-        raise sweep._not_in_slice("the correlated topology= sampler")
+        raise sweep._not_ported("the correlated topology= sampler")
     if (work_s is None) == (makespan_s is None):
         raise ValueError("give exactly one of work_s or makespan_s")
     proc = failures.as_process(process, mtbf_s)

@@ -1,9 +1,12 @@
 """Algorithm 1 of the paper: per-survivor strategy selection, on tensors.
 
 Counterpart of ``repro.core.strategies``: the vectorized form
-(``evaluate_strategies_impl``, a trailing ladder axis ``F``) and the
-F-unrolled running-argmin fold (``evaluate_strategies_fold``) that the
-renewal kernel inlines.  Decision semantics are the reference's: a level is
+(``evaluate_strategies_impl``, a trailing ladder axis ``F``), its entry
+points ``evaluate_strategies`` (inputs moved to ``device``; a mu-band
+``(M, 1, 1, 1)`` broadcasts against the ``(..., N, F)`` wait grid) and
+``evaluate_strategies_profile`` (a ``MachineProfile`` instead of ladder
+arrays), and the F-unrolled running-argmin fold
+(``evaluate_strategies_fold``) that the renewal kernel inlines.  Decision semantics are the reference's: a level is
 infeasible if the intervened node would make the recovered process wait;
 the wait action follows the sleep gate (eq. 8); the selected level minimizes
 EI(f); the reference ENI is "continue at ``ref_level``".  Both forms keep
@@ -13,11 +16,15 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.core import energy_model as em
+from repro_torch.core.characterization import MachineProfile
 
-__all__ = ["Decision", "evaluate_strategies_impl", "evaluate_strategies_fold"]
+__all__ = ["Decision", "evaluate_strategies", "evaluate_strategies_impl",
+           "evaluate_strategies_fold", "evaluate_strategies_profile"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +58,14 @@ def _level_value(per_level, level):
     return out
 
 
+def _ref_level(ref_level, device):
+    """A scalar ``ref_level`` stays a python int (the static-slice case);
+    per-node levels become an integer tensor on ``device``."""
+    if isinstance(ref_level, int) or np.ndim(ref_level) == 0:
+        return int(ref_level)
+    return torch.as_tensor(ref_level, device=device).long()
+
+
 def evaluate_strategies_impl(t_comp_fa, t_failed, n_ckpt, t_ckpt,
                              ladder: em.LadderArrays, sleep: em.SleepArrays,
                              wait_mode, p_idle_wait, mu1=6.0, mu2=1.0,
@@ -61,8 +76,10 @@ def evaluate_strategies_impl(t_comp_fa, t_failed, n_ckpt, t_ckpt,
     Node inputs broadcast and are cast to float32 (``wait_mode`` to int32),
     as in the reference.  With ``per_level_n_ckpt`` the checkpoint count
     carries a trailing ladder axis.  ``ref_level`` is the nodes' current
-    ladder level, one python int (per-node levels, the reference's
-    single-failure extension, are not needed by the renewal engines).
+    ladder level: one python int, or per-node levels broadcasting against
+    the node batch (the event simulator's non-fa starts).  A ``mu1`` of
+    shape ``(M, 1, 1, 1)`` broadcasts against the ``(T, N, F)`` wait grid
+    and gives ``(M, T, N)`` decisions.
     """
     dev = torch.as_tensor(t_failed).device
     t_comp_fa, t_failed, wait_mode = torch.broadcast_tensors(
@@ -77,7 +94,7 @@ def evaluate_strategies_impl(t_comp_fa, t_failed, n_ckpt, t_ckpt,
     level = torch.argmin(ei["total"], dim=-1)
     take = lambda a: em.take_level(a, level)
 
-    ref_level = int(ref_level)
+    ref_level = _ref_level(ref_level, dev)
     ct_ref = em.take_level(ei["comp_t"], ref_level)
     ce_ref = em.take_level(ei["e_comp"], ref_level)
     eni = ce_ref + em.awake_wait_energy(
@@ -196,3 +213,42 @@ def evaluate_strategies_fold(t_comp_fa, t_failed, n_ckpt_cols, t_ckpt,
         saving_pct=100.0 * saving / torch.clamp_min(eni, 1e-9),
         feasible_any=feasible_any,
     )
+
+
+def _on(x, dev):
+    """``x`` as a tensor on ``dev`` (python and numpy values keep their
+    dtype until ``evaluate_strategies_impl`` casts them)."""
+    return torch.as_tensor(x, device=dev)
+
+
+def evaluate_strategies(t_comp_fa, t_failed, n_ckpt, t_ckpt,
+                        ladder: em.LadderArrays, sleep: em.SleepArrays,
+                        wait_mode, p_idle_wait, mu1=6.0, mu2=1.0,
+                        per_level_n_ckpt=False, ref_level=0,
+                        device="cuda") -> Decision:
+    """Algorithm 1 on ``device`` for a batch of surviving nodes: the
+    reference's entry point.  Node inputs (numpy, python or tensors) move
+    to ``device``; ``ladder``/``sleep`` must already lie there.  ``mu1`` is
+    a scalar or a mu-band of shape ``(M, 1, 1, 1)``."""
+    dev = resolve_device(device)
+    if not isinstance(mu1, (int, float)):
+        mu1 = torch.as_tensor(mu1, dtype=torch.float32, device=dev)
+    return evaluate_strategies_impl(
+        _on(t_comp_fa, dev), _on(t_failed, dev), _on(n_ckpt, dev), t_ckpt,
+        ladder, sleep, _on(wait_mode, dev), p_idle_wait, mu1=mu1, mu2=mu2,
+        per_level_n_ckpt=per_level_n_ckpt, ref_level=ref_level)
+
+
+def evaluate_strategies_profile(profile: MachineProfile, t_comp_fa, t_failed,
+                                n_ckpt, t_ckpt, wait_mode, mu1=6.0, mu2=1.0,
+                                per_level_n_ckpt=False, ref_level=0,
+                                device="cuda") -> Decision:
+    """``evaluate_strategies`` with the ladder and sleep arrays built from
+    ``profile`` (float32, on ``device``)."""
+    dev = resolve_device(device)
+    return evaluate_strategies(
+        t_comp_fa, t_failed, n_ckpt, t_ckpt,
+        em.LadderArrays.from_table(profile.power_table, device=dev),
+        em.SleepArrays.from_spec(profile.sleep, device=dev), wait_mode,
+        profile.p_idle_wait, mu1=mu1, mu2=mu2,
+        per_level_n_ckpt=per_level_n_ckpt, ref_level=ref_level, device=dev)

@@ -1,21 +1,46 @@
-"""The renewal Monte-Carlo: whole-run energy across repeated failures.
+"""Failure-time sweeps and the renewal Monte-Carlo, on torch tensors.
 
-Counterpart of the renewal subset of ``repro.core.sweep``.  Two engines
-share one sampler, so for a fixed key they see the same failure histories:
+Counterpart of ``repro.core.sweep``.  Two halves:
 
+The single-failure sweep (the paper's "different configurations and
+failure time").  ``sweep_failure_times``/``sweep_scenarios`` evaluate
+Algorithm 1 over a whole ``(scenario x) (mu-band x) failure time x
+survivor`` grid in one call: each survivor's state at each shifted
+failure instant comes from the checkpoint and rendezvous sawtooths in
+closed form (``planning``), so no event stepping.  ``summarize`` and
+``monte_carlo`` (sampled failure instants, float64 arrival cumsum folded
+into a wrap window) reduce it on the host.
+
+The renewal Monte-Carlo: whole-run energy across repeated failures.  Three
+engines share one sampler, so for a fixed key they see the same failure
+histories:
+
+  * ``engine="scan"`` (the default, the reference's ``"scan"``/
+    ``"device"``) — ``_renewal_scan``: the epoch recursion in float64 as a
+    Python loop over the K epochs, vectorised over (lane, run), then the
+    balanced-span energy, the checkpoint plan, one float32 Algorithm-1 fold
+    over every point and the trailing spans, vectorised over the stacked
+    epochs.  ``stats=True`` returns the lean ``RenewalDeviceStats``,
+    ``stats=False`` the per-epoch ``RenewalDeviceResult``.  The reference's
+    ``_renewal_device_core``/``_renewal_policy_core`` (vmaps over runs and
+    lanes) need no counterpart here: one scan takes a scenario stack with
+    one makespan or a policy stack with a makespan per lane.  Every sum
+    over epochs and nodes is a fixed pairwise tree, so a lane's bits do not
+    depend on the lanes beside it or on the device.
   * ``engine="kernel"`` (the reference's ``"pallas"``) — the float32
     composition with the Kahan-compensated ledger,
     ``kernels.renewal_scan.renewal_scan``: the hand-written CUDA kernel on a
     card, its plain PyTorch version on the CPU.  Stats only.
   * ``engine="host"`` — ``renewal_compose``, the float64 oracle: a Python
     loop over failure epochs with float64 geometry plus one float32
-    Algorithm-1 dispatch over every (run, epoch, survivor) point.
+    Algorithm-1 dispatch over every (run, epoch, survivor) point.  It
+    shares no code with ``_renewal_scan`` beyond the closed forms, so the
+    two check each other.
 
-Semantics (occurrence, truncation, re-anchoring, the quiesce policy) are
-the reference's; see its module and docs/sweep.md.  The f64 scan engine
-(``engine="device"``/``"scan"``), ``renewal_compose_device`` and the
-correlated ``topology=`` wait for the next slice (ROADMAP Queue 1) and raise
-``NotImplementedError`` here.
+Semantics (snapping, chain order, occurrence, truncation, re-anchoring,
+the quiesce policy) are the reference's; see its module and docs/sweep.md.
+The correlated ``topology=`` sampler and the fleet ``clusters=`` axis are
+not ported yet and raise ``NotImplementedError`` naming ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -29,19 +54,32 @@ from repro_torch._device import resolve_device
 from repro_torch.core import energy_model as em
 from repro_torch.core import failures
 from repro_torch.core import planning
+from repro_torch.core import prng
 from repro_torch.core import strategies
 from repro_torch.core.scenarios import post_recovery_anchor
 from repro_torch.core.simulator import ScenarioConfig
 
 __all__ = [
     "SweepInputs",
+    "SweepResult",
+    "SweepSummary",
+    "MonteCarloSummary",
     "RenewalResult",
+    "RenewalDeviceResult",
     "RenewalDeviceStats",
     "RenewalMonteCarloSummary",
     "sweep_inputs",
     "inputs_from_reference",
+    "sweep_failure_times",
+    "sweep_scenarios",
+    "summarize",
+    "exponential_failure_offsets",
+    "failure_offsets",
+    "monte_carlo",
     "renewal_failure_gaps",
     "renewal_compose",
+    "renewal_compose_device",
+    "renewal_compose_policies",
     "renewal_monte_carlo_device",
     "renewal_monte_carlo",
     "renewal_monte_carlo_scenarios",
@@ -50,12 +88,16 @@ __all__ = [
 
 SECONDS_PER_YEAR = 365.25 * 24 * 3600.0
 
-_NEXT_SLICE = ("arrives with the next slice of the port (ROADMAP.md Queue 1, "
-               "item 1: the f64 scan engine, simulate_run and topology=)")
+_NOT_PORTED = ("is not ported yet (ROADMAP.md, Queue 1: the correlated "
+               "topology= sampler and the fleet clusters= axis)")
 
 
-def _not_in_slice(what: str):
-    return NotImplementedError(f"{what} {_NEXT_SLICE}")
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} {_NOT_PORTED}")
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 # ---------------------------------------------------------------------------
@@ -189,6 +231,342 @@ def _renewal_device_inputs(cfgs, dtype=torch.float32, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# the single-failure grid (one call per scenario stack)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SweepResult:
+    """Per-grid-point decisions + geometry.
+
+    Geometry is ``(T, N)`` for one scenario and ``(S, T, N)`` for a stack
+    (``t_reexec`` drops the node axis, ``n_ckpt`` adds the ladder axis);
+    ``decision`` fields gain a mu-band axis before ``T`` — ``(M, T, N)``,
+    ``(S, M, T, N)`` — except the mu-independent ``energy_reference`` and
+    ``feasible_any``, which keep the geometry's shape.
+    """
+
+    decision: strategies.Decision
+    exec_rem: torch.Tensor     # work to rendezvous at the failure instant
+    ckpt_age: torch.Tensor
+    delta_eff: torch.Tensor    # per-node snapped failure instant
+    t_reexec: torch.Tensor     # (..., T)
+    t_failed: torch.Tensor     # eq. 14
+    n_ckpt: torch.Tensor       # (..., T, N, F) planned checkpoints per ladder level
+    plan_move: torch.Tensor    # move-ahead planned
+    chain_ok: torch.Tensor     # chained-rendezvous ordering holds
+
+
+def _sweep_core(inp: SweepInputs, offsets: torch.Tensor,
+                band: Optional[torch.Tensor] = None) -> SweepResult:
+    """Algorithm 1 at every failure offset.  ``inp`` is one scenario's
+    float32 inputs (scalar leaves ``()``) or a stack (leading ``S``);
+    ``offsets`` is ``(T,)``; ``band`` is ``None`` (each scenario's own
+    ``mu1``), a scalar ``mu1`` for every scenario, or a mu-band ``(M,)``.
+    The whole grid is one set of launches: the only Python loops run over
+    the chain order (static structure) and, inside the Algorithm-1 fold,
+    the F ladder levels."""
+    stacked = inp.interval.dim() > 0
+    sc = lambda x: x.reshape(x.shape + (1, 1))     # scalar leaf vs (..., T, N)
+    s1 = lambda x: x.unsqueeze(-1)                 # scalar leaf vs (..., T)
+    nd = lambda x: x.unsqueeze(-2)                 # node leaf vs (..., T, N)
+    age, work, _, delta_eff = planning.advance_checkpoint_sawtooth(
+        nd(inp.age0), offsets[:, None], sc(inp.interval), sc(inp.dur))
+    rem = torch.remainder(nd(inp.exec_rem0) - work, nd(inp.period))
+    exec_rem = torch.where(rem == 0.0, nd(inp.period), rem)     # (0, period]
+    t_reexec, _, _, _ = planning.advance_checkpoint_sawtooth(
+        s1(inp.reexec0), offsets, s1(inp.interval), s1(inp.dur))
+    t_recover = s1(inp.t_down) + s1(inp.t_restart) + t_reexec     # eq. 15
+
+    # rendezvous-completion times in chain (topological) order: direct
+    # blockers wait for the recovering process (eq. 14); chained blockers
+    # wait for their peer to resume and reach the shared progress point.
+    cols, ok = [], []
+    for i, p in enumerate(inp.peer):
+        if p == 0:
+            cols.append(t_recover + exec_rem[..., i])
+            ok.append(torch.ones_like(exec_rem[..., i], dtype=torch.bool))
+        else:
+            cols.append(cols[p - 1] + (exec_rem[..., i] - exec_rem[..., p - 1]))
+            ok.append(exec_rem[..., i] > exec_rem[..., p - 1])
+    t_failed = torch.stack(cols, dim=-1)
+    chain_ok = torch.stack(ok, dim=-1)
+
+    plan = planning.checkpoint_plan(
+        exec_rem, age, t_failed, interval=sc(inp.interval), dur=sc(inp.dur),
+        beta=nd(nd(inp.ladder.beta)), gamma=None,
+        move_ahead=sc(inp.move_ahead), move_frac=sc(inp.move_frac))
+
+    # Algorithm 1 as the ladder fold (the vectorized form's arithmetic, op
+    # for op, without the (..., F) intermediates), ladder axis first.  A
+    # stack with a mu-band evaluates (S, 1, T, N) nodes against (M, 1, 1)
+    # margins.
+    banded = band is not None and band.dim() == 1
+    lift = (lambda x: x.unsqueeze(1)) if banded and stacked else (lambda x: x)
+    extra = 1 if banded and stacked else 0
+    bs = lambda x: x.reshape(x.shape + (1,) * (2 + extra))
+    ladder = em.LadderArrays(**{
+        f: bs(getattr(inp.ladder, f).movedim(-1, 0)) for f in _LADDER})
+    sleep = em.SleepArrays(**{f: bs(getattr(inp.sleep, f)) for f in _SLEEP})
+    if band is None:
+        mu1 = bs(inp.mu1)
+    else:
+        mu1 = band.reshape(-1, 1, 1) if banded else band
+    n_ckpt = lift(plan.n_ckpt)
+    decision = strategies.evaluate_strategies_fold(
+        lift(exec_rem), lift(t_failed),
+        [n_ckpt[..., f] for f in range(ladder.num_levels)], bs(inp.dur),
+        ladder, sleep, bs(inp.wait_mode), bs(inp.p_idle_wait), mu1=mu1,
+        mu2=bs(inp.mu2))
+    if banded and stacked:
+        decision = dataclasses.replace(
+            decision, energy_reference=decision.energy_reference.squeeze(1),
+            feasible_any=decision.feasible_any.squeeze(1))
+    return SweepResult(
+        decision=decision, exec_rem=exec_rem, ckpt_age=age,
+        delta_eff=delta_eff, t_reexec=t_reexec, t_failed=t_failed,
+        n_ckpt=plan.n_ckpt, plan_move=plan.plan_move, chain_ok=chain_ok)
+
+
+def _mu_band(mu1, device) -> torch.Tensor:
+    """A scalar margin (``()``) or a mu-band (``(M,)``), float32 on
+    ``device``."""
+    mu1 = torch.as_tensor(mu1, dtype=torch.float32, device=device)
+    if mu1.dim() > 1:
+        raise ValueError(f"mu1 must be a scalar or a 1-d band, got {tuple(mu1.shape)}")
+    return mu1
+
+
+def _offsets(offsets, device) -> torch.Tensor:
+    return torch.as_tensor(offsets).to(device=device, dtype=torch.float32)
+
+
+def sweep_failure_times(cfg: ScenarioConfig, offsets, mu1=None,
+                        device="cuda") -> SweepResult:
+    """Dense failure-time sweep of one scenario in one call on ``device``.
+
+    ``offsets`` are wall seconds after the scenario's reference failure
+    instant, shape (T,).  ``mu1=None`` uses the scenario's own sleep-gate
+    margin; an (M,) array sweeps the mu-band, giving decisions (M, T, N).
+    """
+    dev = resolve_device(device)
+    band = None if mu1 is None else _mu_band(mu1, dev)
+    return _sweep_core(sweep_inputs(cfg, device=dev), _offsets(offsets, dev),
+                       band)
+
+
+def sweep_scenarios(cfgs: Sequence[ScenarioConfig], offsets, mu1=None,
+                    device="cuda") -> SweepResult:
+    """Stacked sweep over scenarios: the whole (scenario x failure time x
+    node x ladder) grid in one call on ``device``, results with a leading
+    scenario axis.  The scenarios must share survivor count, ladder size
+    and blocking topology (the Table-4 six do); per-scenario wait modes,
+    margins and ladders ride along.  ``mu1=None`` uses each scenario's own
+    margin; an (M,) band gives decisions (S, M, T, N)."""
+    dev = resolve_device(device)
+    inputs = [sweep_inputs(c, device=dev) for c in cfgs]
+    peers = {i.peer for i in inputs}
+    if len(peers) != 1:
+        raise ValueError(f"scenarios have mixed blocking topologies: {peers}")
+    shapes = {(tuple(i.exec_rem0.shape), tuple(i.ladder.beta.shape))
+              for i in inputs}
+    if len(shapes) != 1:
+        raise ValueError(f"stacked scenarios must share survivor count and "
+                         f"ladder size (got {shapes})")
+    band = None if mu1 is None else _mu_band(mu1, dev)
+    return _sweep_core(_stack(inputs), _offsets(offsets, dev), band)
+
+
+# ---------------------------------------------------------------------------
+# summary statistics
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SweepSummary:
+    """Distributional view of one scenario's sweep (floats, host-side)."""
+
+    points: int                 # grid points (T * N)
+    mean_saving_j: float        # per-node saving, eq. (1)
+    p5_saving_j: float
+    p95_saving_j: float
+    mean_saving_pct: float
+    sleep_occupancy: float      # fraction of points the sleep gate admitted
+    min_freq_rate: float
+    comp_change_rate: float
+    infeasible_rate: float      # no ladder level feasible -> no intervention
+    mean_wait_s: float
+    chain_violation_rate: float  # chained-rendezvous ordering broken (see chain_ok)
+
+
+def summarize(res: SweepResult) -> SweepSummary:
+    """Reduce a sweep (any batch shape) to summary statistics on the host.
+
+    Points where a chained survivor wrapped past its peer (``chain_ok``
+    False) carry meaningless savings: they are excluded from every
+    statistic and reported only through ``chain_violation_rate``.
+    ``points`` counts the full grid; the other fields are over the
+    chain-valid subset (NaN when nothing is valid).
+    """
+    d = res.decision
+    saving = _np(d.saving).astype(np.float64)
+    chain_ok = _np(res.chain_ok).astype(bool)
+    # decision arrays may carry extra leading batch dims (a mu-band) that
+    # the geometry and the mu-independent fields do not
+    ok = np.broadcast_to(chain_ok, saving.shape)
+    valid = ok.reshape(-1)
+    pick = lambda a: np.broadcast_to(_np(a), ok.shape).reshape(-1)[valid]
+    saving = saving.reshape(-1)[valid]
+    actions = pick(d.wait_action)
+    violation = float(np.mean(~chain_ok))
+    if saving.size == 0:
+        nan = float("nan")
+        return SweepSummary(
+            points=int(ok.size), mean_saving_j=nan, p5_saving_j=nan,
+            p95_saving_j=nan, mean_saving_pct=nan, sleep_occupancy=nan,
+            min_freq_rate=nan, comp_change_rate=nan, infeasible_rate=nan,
+            mean_wait_s=nan, chain_violation_rate=violation)
+    return SweepSummary(
+        points=int(ok.size),
+        mean_saving_j=float(saving.mean()),
+        p5_saving_j=float(np.percentile(saving, 5)),
+        p95_saving_j=float(np.percentile(saving, 95)),
+        mean_saving_pct=float(pick(d.saving_pct).mean()),
+        sleep_occupancy=float(np.mean(actions == em.WaitAction.SLEEP)),
+        min_freq_rate=float(np.mean(actions == em.WaitAction.MIN_FREQ)),
+        comp_change_rate=float(np.mean(pick(d.comp_changed))),
+        infeasible_rate=float(np.mean(~pick(d.feasible_any))),
+        mean_wait_s=float(pick(d.wait_time).mean()),
+        chain_violation_rate=violation,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Monte-Carlo over sampled failure instants
+# ---------------------------------------------------------------------------
+
+def exponential_failure_offsets(key, n_samples: int, mtbf_s: float,
+                                wrap_s: float, device="cuda") -> np.ndarray:
+    """Failure offsets of a Poisson failure process with the given MTBF:
+    unit-exponential draws from ``key`` on ``device``, arrival times
+    accumulated on the host in float64 and folded into ``[0, wrap_s)``
+    (float32 offsets, the sweep's dtype)."""
+    gaps = prng.exponential(key, (n_samples,), device).cpu().numpy()
+    arrivals = np.cumsum(gaps.astype(np.float64) * float(mtbf_s))
+    return np.mod(arrivals, float(wrap_s)).astype(np.float32)
+
+
+def failure_offsets(key, n_samples: int, process: failures.FailureProcess,
+                    wrap_s: float, device="cuda") -> np.ndarray:
+    """``exponential_failure_offsets`` for any renewal arrival process: one
+    cluster-level stream of unconditional float32 gap draws (scalar process
+    parameters only), accumulated in float64 and folded as above."""
+    if np.size(process.mean_s()) != 1:
+        raise ValueError(
+            "failure_offsets samples one cluster-level arrival stream; "
+            "per-node heterogeneous parameters belong to the renewal "
+            "engines (renewal_failure_gaps / renewal_monte_carlo)")
+    gaps = process.sample(key, (n_samples,), device).cpu().numpy()
+    arrivals = np.cumsum(gaps.astype(np.float64))
+    return np.mod(arrivals, float(wrap_s)).astype(np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class MonteCarloSummary:
+    """Expected-value view of a scenario under a failure distribution."""
+
+    n_samples: int
+    mtbf_s: float
+    failures_per_year: float
+    # per-failure totals over all survivors (J)
+    mean_saving_j: float
+    p5_saving_j: float
+    p95_saving_j: float
+    mean_saving_pct: float
+    # action occupancy over (sample, node) points
+    sleep_occupancy: float
+    min_freq_rate: float
+    comp_change_rate: float
+    infeasible_rate: float
+    # expected annual savings (J/year), total and per strategy family
+    annual_saving_j: float
+    annual_saving_by_strategy: dict
+
+
+def _monte_carlo_summary(cfg: ScenarioConfig, offsets, mtbf_s: float, mu1,
+                         device) -> MonteCarloSummary:
+    """The sweep at sampled ``offsets`` reduced to expectations (host
+    float64); ``monte_carlo`` without the sampling."""
+    res = sweep_failure_times(cfg, offsets, mu1=mu1, device=device)
+    chain_ok = _np(res.chain_ok).astype(bool)
+    if not chain_ok.all():
+        # savings at chain-broken instants are meaningless: refuse to
+        # average them into expectations (as shift_failure refuses)
+        raise ValueError(
+            f"{cfg.name}: {float(np.mean(~chain_ok)):.1%} of sampled failure "
+            "instants break the chained-rendezvous ordering; Monte-Carlo "
+            "expectations are not defined for this blocking topology")
+    d = res.decision
+    saving = _np(d.saving).astype(np.float64)           # (T, N)
+    eni = _np(d.energy_reference).astype(np.float64)
+    actions = _np(d.wait_action)
+    comp_changed = _np(d.comp_changed)
+    per_failure = saving.sum(axis=-1)                   # (T,)
+    failures_per_year = SECONDS_PER_YEAR / float(mtbf_s)
+    mean_saving = float(per_failure.mean())
+    masks = {
+        "sleep": actions == em.WaitAction.SLEEP,
+        "min_freq": actions == em.WaitAction.MIN_FREQ,
+        "comp_change_only": (actions == em.WaitAction.NONE) & comp_changed,
+    }
+    by_strategy = {
+        name: float((saving * mask).sum(axis=-1).mean() * failures_per_year)
+        for name, mask in masks.items()
+    }
+    return MonteCarloSummary(
+        n_samples=int(saving.shape[0]),
+        mtbf_s=float(mtbf_s),
+        failures_per_year=failures_per_year,
+        mean_saving_j=mean_saving,
+        p5_saving_j=float(np.percentile(per_failure, 5)),
+        p95_saving_j=float(np.percentile(per_failure, 95)),
+        mean_saving_pct=float(100.0 * per_failure.sum() / max(eni.sum(), 1e-9)),
+        sleep_occupancy=float(np.mean(masks["sleep"])),
+        min_freq_rate=float(np.mean(masks["min_freq"])),
+        comp_change_rate=float(np.mean(comp_changed)),
+        infeasible_rate=float(np.mean(~_np(d.feasible_any))),
+        annual_saving_j=mean_saving * failures_per_year,
+        annual_saving_by_strategy=by_strategy,
+    )
+
+
+def monte_carlo(cfg: ScenarioConfig, key, n_samples: int = 4096,
+                mtbf_s: float = 30 * 24 * 3600.0,
+                wrap_s: Optional[float] = None, mu1=None,
+                process: Optional[failures.FailureProcess] = None,
+                device="cuda") -> MonteCarloSummary:
+    """Monte-Carlo expectation of the paper's strategies under sampled
+    failure times (one node failing per event, as in the paper): the
+    sampled instants go through the sweep in one call, and the summary
+    scales the per-failure mean by the expected failure count.  The
+    ``by_strategy`` split attributes each point's saving to the selected
+    action family (a frequency change with a wait action counts toward the
+    wait action, as Table 4 labels it).  ``process=None`` keeps the
+    paper's exponential arrivals at ``mtbf_s``; another process drives the
+    stream through ``failure_offsets`` and its mean gap replaces
+    ``mtbf_s``.  Deterministic for a fixed ``key`` and device.
+    """
+    dev = resolve_device(device)
+    if wrap_s is None:
+        wrap_s = 64.0 * (cfg.ckpt_interval + cfg.ckpt_duration)
+    if process is None:
+        offsets = exponential_failure_offsets(key, n_samples, mtbf_s, wrap_s,
+                                              dev)
+    else:
+        offsets = failure_offsets(key, n_samples, process, wrap_s, dev)
+        mtbf_s = float(np.mean(process.mean_s()))
+    return _monte_carlo_summary(cfg, offsets, mtbf_s, mu1, dev)
+
+
+# ---------------------------------------------------------------------------
 # failure histories
 # ---------------------------------------------------------------------------
 
@@ -201,7 +579,7 @@ def renewal_failure_gaps(key, n_runs: int, n_nodes: int, max_failures: int,
     max_failures)`` on ``device`` — the float64 cast of the float32
     sampler's gaps, so every engine sees the same histories for a key."""
     if topology is not None:
-        raise _not_in_slice("the correlated topology= sampler")
+        raise _not_ported("the correlated topology= sampler")
     if process is None and mtbf_s is None:
         raise ValueError("provide mtbf_s or a FailureProcess")
     gaps, failed = failures.sample_renewal_gaps(
@@ -400,8 +778,36 @@ def renewal_compose(cfg: ScenarioConfig, gaps, makespan_s: float,
 
 
 # ---------------------------------------------------------------------------
-# engine="kernel": float32 composition with the Kahan ledger
+# the device engines: the float64 scan and the float32 kernel
 # ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RenewalDeviceResult:
+    """Per-epoch view of the scan engine, leading lane axis (scenarios or
+    policies).  ``decision`` fields are ``(S, R, K, N)`` float32 (the host
+    oracle's dispatch, op for op), geometry and energies float64; ``gaps``
+    ``(R, K)`` is shared by every lane.  Epochs with ``valid`` False hold
+    placeholders and are excluded from every total."""
+
+    decision: strategies.Decision
+    valid: torch.Tensor          # (S, R, K) bool
+    gaps: torch.Tensor           # (R, K) balanced-execution gaps as evaluated
+    t_fail: torch.Tensor         # (S, R, K) absolute (snapped) failure instants
+    exec_rem: torch.Tensor       # (S, R, K, N)
+    t_failed: torch.Tensor       # (S, R, K, N) eq. 14 per epoch
+    t_renewal: torch.Tensor      # (S, R, K) epoch duration T_E
+    failed_node: torch.Tensor    # (S, R, K) which node failed (labeling only)
+    n_failures: torch.Tensor     # (S, R)
+    truncated: torch.Tensor      # (S, R) bool
+    end_time: torch.Tensor       # (S, R)
+    balanced_energy: torch.Tensor  # (S, R)
+    epoch_ref: torch.Tensor      # (S, R, K, N)
+    epoch_int: torch.Tensor      # (S, R, K, N)
+    epoch_failed: torch.Tensor   # (S, R, K)
+    energy_ref: torch.Tensor     # (S, R)
+    energy_int: torch.Tensor     # (S, R)
+    saving: torch.Tensor         # (S, R)
+
 
 @dataclasses.dataclass(frozen=True)
 class RenewalDeviceStats:
@@ -421,6 +827,282 @@ class RenewalDeviceStats:
     n_comp_changed: torch.Tensor
     n_infeasible: torch.Tensor
     failed_counts: torch.Tensor  # (S, n_nodes) failures attributed per node
+
+
+def _tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in a fixed pairwise order (zero-padded to a
+    power of two, then halved): the same bits for every leading shape and
+    on every device, unlike a library reduction whose order may follow the
+    output count."""
+    n = x.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    x = torch.nn.functional.pad(x, (0, width - n))
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def _renewal_scan(inp: SweepInputs, gaps: torch.Tensor, makespan_s,
+                  stats: bool = False, felled=None) -> dict:
+    """Whole-run renewal recursion for every (lane, run) in float64.
+
+    ``inp`` is a lane-stacked ``SweepInputs`` (scenarios or policies,
+    leading axis P; any float dtype, cast to float64 here), ``gaps`` (R, K)
+    float64 shared by every lane, ``makespan_s`` a scalar or (P,), and
+    ``felled`` None or an (R, K, N) survivor-slot mask.  A Python loop over
+    the K epochs carries only the re-anchor recursion ``(ages, exec_anchor,
+    bal_elapsed, t_anchor, alive)`` — the failed node's lost-work age rides
+    as node N of the ages — vectorised over (P, R).  The balanced-span
+    energy, the checkpoint plan, one float32 Algorithm-1 fold over every
+    (lane, run, epoch, survivor) point and the trailing spans run after the
+    loop over the stacked epochs.  Felled slots join the re-execution race,
+    leave the resync point and the survivor energies, and pay the failed
+    node's closed form; with no mask the same formulas reduce through exact
+    neutral elements (max with -inf, a factor of 1).  The reference's
+    ``_renewal_scan``, written independently of ``renewal_compose``."""
+    dev = gaps.device
+    f8 = lambda x: x.to(dtype=torch.float64)
+    f4 = lambda x: x.to(dtype=torch.float32)
+    n_lanes = inp.interval.shape[0]
+    n_runs, n_epochs = gaps.shape
+    n = inp.period.shape[-1]
+    n_nodes = n + 1
+    lane = lambda x, k: x.reshape((n_lanes,) + (1,) * k)   # vs (P, ...k axes)
+    interval, dur = f8(inp.interval), f8(inp.dur)
+    beta, gamma = f8(inp.ladder.beta), f8(inp.ladder.gamma)        # (P, F)
+    p_comp0 = f8(inp.ladder.p_comp[..., 0])
+    p_ckpt0 = f8(inp.ladder.p_ckpt[..., 0])
+    dur_fa = dur * gamma[:, 0]
+    t_restart = f8(inp.t_restart)
+    t_dr = f8(inp.t_down) + t_restart
+    makespan = torch.as_tensor(makespan_s, dtype=torch.float64,
+                               device=dev).expand(n_lanes)
+    period = f8(inp.period)[:, None, :]                            # (P, 1, N)
+    m_all = (torch.zeros(gaps.shape + (n,), dtype=torch.bool, device=dev)
+             if felled is None else felled.to(device=dev, dtype=torch.bool))
+    neg_inf = -float("inf")
+
+    # the carry, (P, R, ...)
+    ages_all = torch.cat([f8(inp.age0), f8(inp.reexec0)[:, None]], dim=-1)[
+        :, None, :].expand(n_lanes, n_runs, n_nodes)
+    exec_anchor = f8(inp.exec_rem0)[:, None, :].expand(n_lanes, n_runs, n)
+    bal_elapsed = torch.zeros((n_lanes, n_runs), dtype=torch.float64, device=dev)
+    t_anchor = torch.zeros_like(bal_elapsed)
+    alive = torch.ones((n_lanes, n_runs), dtype=torch.bool, device=dev)
+    ys = []
+    for k in range(n_epochs):
+        delta, m = gaps[:, k], m_all[:, k]                         # (R,), (R, N)
+        occurs = alive & (bal_elapsed + delta <= lane(makespan, 1))
+        age_all, work, _, d_eff_all = planning.advance_checkpoint_sawtooth(
+            ages_all, delta[:, None], lane(interval, 2), lane(dur, 2))
+        rem = torch.remainder(exec_anchor - work[..., :-1], period)
+        exec_rem = torch.where(rem == 0.0, period, rem)
+        d_eff_fail = d_eff_all[..., -1]
+        # felled survivors' lost work joins the re-execution race; the
+        # resync point is the furthest non-felled survivor
+        reexec = torch.maximum(age_all[..., -1], torch.amax(
+            torch.where(m, age_all[..., :-1], neg_inf), dim=-1))
+        p_star = torch.clamp_min(
+            torch.amax(torch.where(m, neg_inf, exec_rem), dim=-1), 0.0)
+        t_e = lane(t_dr, 1) + reexec + p_star                      # epoch span T_E
+        ys.append((occurs, age_all, work, exec_rem, d_eff_all,
+                   None if stats else torch.where(
+                       occurs, t_anchor + d_eff_fail, 0.0)))
+        # re-anchor: coordinated resync checkpoint -> ages 0, progress P*
+        ages_all = torch.where(occurs[..., None], 0.0, ages_all)
+        exec_anchor = torch.where(
+            occurs[..., None],
+            post_recovery_anchor(exec_rem, period, p_star=p_star), exec_anchor)
+        t_anchor = torch.where(
+            occurs, t_anchor + d_eff_fail + t_e + lane(dur_fa, 1), t_anchor)
+        bal_elapsed = torch.where(occurs, bal_elapsed + d_eff_fail, bal_elapsed)
+        alive = alive & occurs
+
+    stack = lambda i: torch.stack([y[i] for y in ys], dim=2)
+    valid, age_all, work_all, exec_rem_k, d_eff_all = (stack(i) for i in range(5))
+
+    # --- per-epoch accounting over the stacked epochs, (P, R, K[, N]) ------
+    m4 = m_all[None]
+    age_f = age_all[..., :-1]
+    reexec_f = torch.maximum(age_all[..., -1], torch.amax(
+        torch.where(m4, age_f, neg_inf), dim=-1))
+    t_recover = lane(t_dr, 2) + reexec_f
+    t_failed_k = t_recover[..., None] + exec_rem_k
+    p_star = torch.clamp_min(
+        torch.amax(torch.where(m4, neg_inf, exec_rem_k), dim=-1), 0.0)
+    t_e = t_recover + p_star
+
+    # balanced span energy up to each node's snapped failure instant (the
+    # sawtooth's work / checkpoint split at the snapped instant), plus the
+    # coordinated resync checkpoint closing each epoch
+    e_bal = _tree_sum(work_all * lane(p_comp0, 3)
+                      + (d_eff_all - work_all) * lane(p_ckpt0, 3))
+    balanced = _tree_sum(torch.where(
+        valid, e_bal + lane(n_nodes * dur_fa * p_ckpt0, 2), 0.0))
+    # failed node over [failure, T_E]: restart at P_ckpt + re-execution and
+    # post-recovery serving at P_comp; each felled slot pays the same
+    epoch_failed = torch.where(
+        valid, (1.0 + m4.sum(dim=-1).to(torch.float64))
+        * (lane(t_restart * p_ckpt0, 2) + (reexec_f + p_star) * lane(p_comp0, 2)),
+        0.0)
+
+    # the checkpoint plan as F node-batch columns: the fa column (and the
+    # move-ahead) from checkpoint_plan, the others from the same closed form
+    plan0 = planning.checkpoint_plan(
+        exec_rem_k, age_f, t_failed_k, interval=lane(interval, 3),
+        dur=lane(dur, 3), beta=lane(beta[:, 0], 4), gamma=None,
+        move_ahead=lane(inp.move_ahead, 3),
+        move_frac=lane(f8(inp.move_frac), 3))
+    move = plan0.plan_move.to(torch.float64)
+    n_cols = [plan0.n_ckpt[..., 0]] + [
+        planning.timer_checkpoint_count(exec_rem_k, age_f, lane(beta[:, f], 3),
+                                        lane(interval, 3)) + move
+        for f in range(1, beta.shape[-1])]
+    # Algorithm 1 in float32 on casts of the float64 geometry, ladder first
+    ladder32 = em.LadderArrays(**{
+        f: f4(getattr(inp.ladder, f)).T.reshape((-1, n_lanes, 1, 1, 1))
+        for f in _LADDER})
+    sleep32 = em.SleepArrays(**{f: lane(f4(getattr(inp.sleep, f)), 3)
+                                for f in _SLEEP})
+    decision = strategies.evaluate_strategies_fold(
+        f4(exec_rem_k), f4(t_failed_k), n_cols, lane(f4(dur), 3), ladder32,
+        sleep32, lane(inp.wait_mode, 3), lane(f4(inp.p_idle_wait), 3),
+        mu1=lane(f4(inp.mu1), 3), mu2=lane(f4(inp.mu2), 3))
+
+    # per-survivor epoch energy = window energy + trailing fa span to T_E
+    ct_ref = exec_rem_k * lane(beta[:, 0], 3) \
+        + n_cols[0] * lane(dur, 3) * lane(gamma[:, 0], 3)
+    t_e2 = t_e[..., None]
+    trail_ref = torch.clamp_min(
+        t_e2 - torch.maximum(t_failed_k, ct_ref), 0.0) * lane(p_comp0, 3)
+    trail_int = torch.clamp_min(
+        t_e2 - torch.maximum(t_failed_k, f8(decision.comp_time)), 0.0) \
+        * lane(p_comp0, 3)
+    # felled slots are accounted through epoch_failed, not the windows
+    v2 = valid[..., None] & ~m4
+    epoch_ref = torch.where(v2, f8(decision.energy_reference) + trail_ref, 0.0)
+    epoch_int = torch.where(v2, f8(decision.energy_intervened) + trail_int, 0.0)
+
+    # balanced tail: the rest of the failure-free work (mid-checkpoint snaps
+    # can nudge bal_elapsed past the makespan; clamp)
+    span = torch.clamp_min(lane(makespan, 1) - bal_elapsed, 0.0)
+    w_t, ck_t = planning.balanced_span(ages_all, span[..., None],
+                                       lane(interval, 2), lane(dur, 2))
+    balanced = balanced + _tree_sum(w_t * lane(p_comp0, 2)
+                                    + ck_t * lane(p_ckpt0, 2))
+
+    e_failed = _tree_sum(epoch_failed)
+    energy_ref = balanced + _tree_sum(_tree_sum(epoch_ref)) + e_failed
+    energy_int = balanced + _tree_sum(_tree_sum(epoch_int)) + e_failed
+    common = dict(
+        valid=valid,
+        n_failures=valid.sum(dim=-1, dtype=torch.int32),
+        truncated=alive & (bal_elapsed < lane(makespan, 1)),
+        end_time=t_anchor + span,
+        balanced_energy=balanced,
+        energy_ref=energy_ref,
+        energy_int=energy_int,
+        saving=energy_ref - energy_int,
+    )
+    if stats:
+        # integer action counts over valid (epoch, survivor) points: the
+        # summary rates divide them by the point count on the host
+        i32 = lambda mask: (v2 & mask).sum(dim=(2, 3), dtype=torch.int32)
+        return dict(
+            common,
+            n_points=v2.sum(dim=(2, 3), dtype=torch.int32),
+            n_sleep=i32(decision.wait_action == int(em.WaitAction.SLEEP)),
+            n_min_freq=i32(decision.wait_action == int(em.WaitAction.MIN_FREQ)),
+            n_comp_changed=i32(decision.comp_changed),
+            n_infeasible=i32(~decision.feasible_any),
+        )
+    return dict(
+        common,
+        decision=decision,
+        t_fail=stack(5),
+        exec_rem=exec_rem_k,
+        t_failed=t_failed_k,
+        t_renewal=torch.where(valid, t_e, 0.0),
+        epoch_ref=epoch_ref,
+        epoch_int=epoch_int,
+        epoch_failed=epoch_failed,
+    )
+
+
+def _attach_failed_counts(out: dict, failed: torch.Tensor, n_nodes: int) -> dict:
+    """Per-node failure counts over valid epochs, reduced over runs;
+    ``out['valid']`` is (S|P, R, K) bool, ``failed`` (R, K)."""
+    valid = out.pop("valid")
+    node = torch.arange(n_nodes, device=valid.device)
+    hit = valid[..., None] & (failed[None, ..., None] == node)
+    out["failed_counts"] = hit.to(torch.int32).sum(dim=(1, 2))
+    return out
+
+
+def _renewal_mc_core(stacked: SweepInputs, key, makespan_s, process,
+                     n_runs: int, max_failures: int, stats: bool):
+    """Sampling (shared across lanes — common random numbers, the kernel
+    engine's histories) plus the float64 scan; returns ``(out, gaps,
+    failed)``."""
+    dev = stacked.interval.device
+    n_nodes = stacked.period.shape[-1] + 1
+    gaps32, failed = failures.sample_renewal_gaps(
+        process, key, n_runs, max_failures, n_nodes, dev)
+    gaps = gaps32.to(torch.float64)
+    out = _renewal_scan(stacked, gaps, makespan_s, stats=stats)
+    if stats:
+        out = _attach_failed_counts(out, failed, n_nodes)
+    return out, gaps, failed
+
+
+def _wrap_device_result(out: dict, gaps: torch.Tensor,
+                        failed_node) -> RenewalDeviceResult:
+    valid = out["valid"]
+    failed = (torch.zeros(gaps.shape, dtype=torch.int32, device=valid.device)
+              if failed_node is None else
+              torch.as_tensor(failed_node).to(device=valid.device,
+                                               dtype=torch.int32))
+    failed = torch.where(valid, failed.expand(valid.shape), -1)
+    return RenewalDeviceResult(gaps=gaps, failed_node=failed, **out)
+
+
+def _histories(gaps, felled, device):
+    """Explicit histories as float64 ``(R, K)`` gaps and an ``(R, K, N)``
+    felled mask (or None) on ``device``."""
+    gaps = torch.atleast_2d(torch.as_tensor(np.asarray(_np(gaps), np.float64),
+                                            device=device))
+    if felled is not None:
+        felled = torch.as_tensor(np.asarray(_np(felled), bool), device=device)
+        felled = felled.expand(gaps.shape + felled.shape[-1:])
+    return gaps, felled
+
+
+def renewal_compose_device(cfgs, gaps, makespan_s: float, failed_node=None,
+                           felled=None, device="cuda") -> RenewalDeviceResult:
+    """Compose explicit failure histories with the float64 scan on
+    ``device``: ``cfgs`` is one ``ScenarioConfig`` or a stack sharing
+    survivor count and ladder size, ``gaps`` (R, K) or (K,) shared by every
+    scenario, ``felled`` an (R, K, N) survivor-slot mask (see
+    ``renewal_compose``).  Semantics match the host oracle to ~1e-9."""
+    dev = resolve_device(device)
+    _, stacked = _renewal_device_inputs(cfgs, torch.float64, dev)
+    gaps, felled = _histories(gaps, felled, dev)
+    out = _renewal_scan(stacked, gaps, float(makespan_s), felled=felled)
+    return _wrap_device_result(out, gaps, failed_node)
+
+
+def renewal_compose_policies(stacked: SweepInputs, gaps, makespan_s,
+                             felled=None) -> RenewalDeviceResult:
+    """Compose explicit histories for a policy-stacked float64
+    ``SweepInputs`` (``optimize.policy_inputs``) with a (P,) per-policy wall
+    makespan, on the device ``stacked`` lies on; histories and ``felled``
+    are shared by every policy (common random numbers)."""
+    dev = stacked.interval.device
+    gaps, felled = _histories(gaps, felled, dev)
+    out = _renewal_scan(stacked, gaps, torch.as_tensor(
+        np.asarray(makespan_s, np.float64), device=dev), felled=felled)
+    return _wrap_device_result(out, gaps, None)
 
 
 def _pack_kernel_inputs(stacked: SweepInputs, makespan_s):
@@ -448,28 +1130,6 @@ def _pack_kernel_inputs(stacked: SweepInputs, makespan_s):
     return params, nodes, ladder
 
 
-def _attach_failed_counts(out: dict, failed: torch.Tensor, n_nodes: int) -> dict:
-    """Per-node failure counts over valid epochs, reduced over runs;
-    ``out['valid']`` is (S|P, R, K) bool, ``failed`` (R, K)."""
-    valid = out.pop("valid")
-    node = torch.arange(n_nodes, device=valid.device)
-    hit = valid[..., None] & (failed[None, ..., None] == node)
-    out["failed_counts"] = hit.to(torch.int32).sum(dim=(1, 2))
-    return out
-
-
-def _check_kernel_call(engine: str, stats: bool, topology) -> None:
-    if engine in ("scan", "device"):
-        raise _not_in_slice(f"engine={engine!r} (the f64 scan engine)")
-    if engine != "kernel":
-        raise ValueError(f"unknown engine {engine!r} (use 'kernel')")
-    if not stats:
-        raise ValueError("engine='kernel' is the stats-only hot path; the "
-                         "per-epoch diagnostic view is the scan engine's")
-    if topology is not None:
-        raise _not_in_slice("the correlated topology= sampler")
-
-
 def _renewal_kernel_mc(stacked: SweepInputs, key, makespan_s, process,
                        n_runs: int, max_failures: int,
                        compensated: bool = True) -> RenewalDeviceStats:
@@ -490,22 +1150,41 @@ def _renewal_kernel_mc(stacked: SweepInputs, key, makespan_s, process,
     return RenewalDeviceStats(**out)
 
 
+def _check_engine(engine: str, stats: bool, topology) -> None:
+    if topology is not None:
+        raise _not_ported("the correlated topology= sampler")
+    if engine not in ("scan", "kernel"):
+        raise ValueError(f"unknown engine {engine!r} (use 'scan' or 'kernel')")
+    if engine == "kernel" and not stats:
+        raise ValueError("engine='kernel' is the stats-only hot path; the "
+                         "per-epoch diagnostic view is the scan engine's")
+
+
 def renewal_monte_carlo_device(cfgs, key, *, n_runs: int = 256,
                                makespan_s: float = 30 * 24 * 3600.0,
                                mtbf_s: float = 14 * 24 * 3600.0,
-                               max_failures: int = 64, stats: bool = True,
+                               max_failures: int = 64, stats: bool = False,
                                process: Optional[failures.FailureProcess] = None,
-                               topology=None, engine: str = "kernel",
-                               device="cuda") -> RenewalDeviceStats:
-    """Whole-run Monte-Carlo for stacked scenarios in one kernel launch:
-    sampling on ``device``, then the float32 Kahan-ledger composition.
-    Returns the lean ``RenewalDeviceStats`` (the kernel is stats-only)."""
-    _check_kernel_call(engine, stats, topology)
+                               topology=None, engine: str = "scan",
+                               device="cuda"):
+    """Whole-run Monte-Carlo for stacked scenarios with the sampling on
+    ``device``.  ``engine="scan"`` composes with the float64 scan and
+    returns the per-epoch ``RenewalDeviceResult`` (``stats=False``) or the
+    lean ``RenewalDeviceStats`` (``stats=True``); ``engine="kernel"`` is
+    the float32 Kahan-ledger kernel, one launch, stats only.  Both see the
+    same histories for a key."""
+    _check_engine(engine, stats, topology)
     dev = resolve_device(device)
     proc = failures.as_process(process, mtbf_s)
-    _, stacked = _renewal_device_inputs(cfgs, torch.float32, dev)
-    return _renewal_kernel_mc(stacked, key, float(makespan_s), proc,
-                              n_runs, max_failures)
+    if engine == "kernel":
+        _, stacked = _renewal_device_inputs(cfgs, torch.float32, dev)
+        return _renewal_kernel_mc(stacked, key, float(makespan_s), proc,
+                                  n_runs, max_failures)
+    _, stacked = _renewal_device_inputs(cfgs, torch.float64, dev)
+    out, gaps, failed = _renewal_mc_core(stacked, key, float(makespan_s), proc,
+                                         n_runs, max_failures, stats)
+    return RenewalDeviceStats(**out) if stats else \
+        _wrap_device_result(out, gaps, failed)
 
 
 def renewal_monte_carlo_policies(stacked: SweepInputs, key, *, makespan_s,
@@ -513,17 +1192,26 @@ def renewal_monte_carlo_policies(stacked: SweepInputs, key, *, makespan_s,
                                  mtbf_s: Optional[float] = None,
                                  process: Optional[failures.FailureProcess] = None,
                                  stats: bool = True, topology=None,
-                                 engine: str = "kernel") -> RenewalDeviceStats:
-    """Whole-run Monte-Carlo over a policy-stacked ``SweepInputs`` (leading
-    policy axis P, per-policy ``makespan_s``) in one kernel launch, on the
-    device ``stacked`` lies on.  The sampler never sees the policy axis, so
-    every lane meets the same histories (common random numbers)."""
-    _check_kernel_call(engine, stats, topology)
+                                 engine: str = "scan"):
+    """Whole-run Monte-Carlo over a policy-stacked float64 ``SweepInputs``
+    (leading policy axis P, per-policy ``makespan_s``), on the device
+    ``stacked`` lies on.  The sampler never sees the policy axis, so every
+    lane meets the same histories (common random numbers) and each lane is
+    bit-identical to a standalone ``renewal_monte_carlo_device`` call on
+    that policy with the same engine.  Engines as there."""
+    _check_engine(engine, stats, topology)
     if stacked.interval.dim() != 1:
-        raise _not_in_slice("the cluster axis (clusters=)")
+        raise _not_ported("the cluster axis (clusters=)")
     proc = failures.as_process(process, mtbf_s)
-    return _renewal_kernel_mc(stacked, key, makespan_s, proc, n_runs,
-                              max_failures)
+    if engine == "kernel":
+        return _renewal_kernel_mc(stacked, key, makespan_s, proc, n_runs,
+                                  max_failures)
+    makespan = torch.as_tensor(np.asarray(makespan_s, np.float64),
+                               device=stacked.interval.device)
+    out, gaps, failed = _renewal_mc_core(stacked, key, makespan, proc, n_runs,
+                                         max_failures, stats)
+    return RenewalDeviceStats(**out) if stats else \
+        _wrap_device_result(out, gaps, failed)
 
 
 # ---------------------------------------------------------------------------
@@ -553,10 +1241,6 @@ class RenewalMonteCarloSummary:
     comp_change_rate: float
     infeasible_rate: float
     annual_saving_j: float
-
-
-def _np(x):
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def _assemble_summary(*, counts, per_node, truncated, energy_ref, energy_int,
@@ -659,32 +1343,33 @@ def _summarize_device_scenario(stats: dict, s: int, n_runs: int,
 def renewal_monte_carlo(cfg: ScenarioConfig, key, n_runs: int = 256,
                         makespan_s: float = 30 * 24 * 3600.0,
                         mtbf_s: float = 14 * 24 * 3600.0,
-                        max_failures: int = 64, engine: str = "kernel",
+                        max_failures: int = 64, engine: str = "device",
                         process: Optional[failures.FailureProcess] = None,
                         topology=None, device="cuda") -> RenewalMonteCarloSummary:
     """Monte-Carlo whole-run energy under per-node failure processes.
 
-    ``engine="kernel"`` runs the float32 Kahan-ledger composition
-    (``renewal_monte_carlo_device``); ``engine="host"`` the float64 oracle
+    ``engine="device"`` (the default) runs the float64 scan and
+    ``engine="kernel"`` the float32 Kahan-ledger kernel, both through
+    ``renewal_monte_carlo_device``; ``engine="host"`` the float64 oracle
     (``renewal_compose``) on the same histories, reduced by the same
     summary code.  With a ``process`` the summary's ``mtbf_s`` reports the
     process's mean gap.
     """
-    if engine in ("device", "scan"):
-        raise _not_in_slice(f"engine={engine!r} (the f64 scan engine)")
     if topology is not None:
-        raise _not_in_slice("the correlated topology= sampler")
+        raise _not_ported("the correlated topology= sampler")
     dev = resolve_device(device)
     if process is not None:
         mtbf_s = float(np.mean(failures.as_process(process).mean_s()))
     kw = dict(n_runs=n_runs, makespan_s=makespan_s, mtbf_s=mtbf_s,
               max_failures=max_failures)
-    if engine == "kernel":
-        res = renewal_monte_carlo_device(cfg, key, process=process,
-                                         device=dev, **kw)
+    if engine in ("device", "kernel"):
+        res = renewal_monte_carlo_device(
+            cfg, key, stats=True, process=process, device=dev,
+            engine="kernel" if engine == "kernel" else "scan", **kw)
         return _summarize_device_scenario(_stats_to_host(res), 0, **kw)
     if engine != "host":
-        raise ValueError(f"unknown engine {engine!r} (use 'kernel' or 'host')")
+        raise ValueError(
+            f"unknown engine {engine!r} (use 'device', 'kernel' or 'host')")
     n_nodes = len(cfg.survivors) + 1
     gaps, failed = renewal_failure_gaps(key, n_runs, n_nodes, max_failures,
                                         mtbf_s, process=process, device=dev)
@@ -704,17 +1389,18 @@ def renewal_monte_carlo_scenarios(cfgs: Sequence[ScenarioConfig], key,
                                   mtbf_s: float = 14 * 24 * 3600.0,
                                   max_failures: int = 64,
                                   process: Optional[failures.FailureProcess] = None,
-                                  topology=None, engine: str = "kernel",
+                                  topology=None, engine: str = "scan",
                                   device="cuda") -> dict:
-    """name -> ``RenewalMonteCarloSummary`` for stacked scenarios from ONE
-    kernel launch; every scenario sees the same sampled histories."""
+    """name -> ``RenewalMonteCarloSummary`` for stacked scenarios from one
+    ``renewal_monte_carlo_device`` call (``engine="scan"`` or
+    ``"kernel"``); every scenario sees the same sampled histories."""
     cfg_list = list(cfgs)
     if process is not None:
         mtbf_s = float(np.mean(failures.as_process(process).mean_s()))
     kw = dict(n_runs=n_runs, makespan_s=makespan_s, mtbf_s=mtbf_s,
               max_failures=max_failures)
     res = _stats_to_host(renewal_monte_carlo_device(
-        cfg_list, key, process=process, topology=topology, engine=engine,
-        device=device, **kw))
+        cfg_list, key, stats=True, process=process, topology=topology,
+        engine=engine, device=device, **kw))
     return {cfg.name: _summarize_device_scenario(res, s, **kw)
             for s, cfg in enumerate(cfg_list)}

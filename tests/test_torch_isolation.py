@@ -3,7 +3,9 @@
 ``repro_torch``, ``chip_smoke.py`` and ``renewal_scan_ab.py`` import
 neither ``jax`` nor any part of the reference package ``repro``; every
 module imports with ``jax`` made unimportable, and importing them builds no
-kernel.
+kernel.  The entry points that import lazily (the event oracle, the sweep,
+the Monte-Carlo, the planners, both renewal engines) run with ``jax`` and
+``repro`` unimportable too.
 """
 import ast
 import os
@@ -63,3 +65,41 @@ def test_every_module_imports_without_jax():
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
     assert len(mods) >= 13
+
+
+def test_entry_points_run_without_jax():
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import numpy as np
+        from repro_torch.core import optimize, planning, prng, scenarios, simulator, sweep
+        cfgs = list(scenarios.paper_scenarios().values())
+        rows, _, _ = simulator.compare(cfgs[0], device="cpu")
+        run = simulator.simulate_run(cfgs[1], [4000.0, 9000.0], 3e4, device="cpu")
+        res = sweep.sweep_scenarios(cfgs, np.linspace(0.3, 7000.3, 8),
+                                    mu1=[4.0, 6.0], device="cpu")
+        mc = sweep.monte_carlo(cfgs[2], prng.PRNGKey(0), n_samples=64, device="cpu")
+        es = planning.expected_savings(cfgs[0].profile, ckpt_interval_s=1800.0,
+                                       t_down_s=60.0, t_restart_s=60.0,
+                                       comp_to_block_s=300.0, grid=16,
+                                       device="cpu")
+        for engine in ("scan", "kernel"):
+            sweep.renewal_monte_carlo_scenarios(cfgs, prng.PRNGKey(1), n_runs=8,
+                                                max_failures=4, engine=engine,
+                                                device="cpu")
+        grid = optimize.evaluate_policy_grid(
+            scenarios.sparse_rendezvous_scenario(),
+            optimize.policy_grid(ckpt_interval=[3600.0, 7200.0]),
+            prng.PRNGKey(2), work_s=1e5, n_runs=8, max_failures=4,
+            mtbf_s=1e4, device="cpu")
+        assert len(rows) == 3 and run.n_failures == 2 and mc.n_samples == 64
+        assert tuple(res.decision.level.shape) == (6, 2, 8, 3)
+        assert "jax" not in [k for k, v in sys.modules.items() if v is not None]
+        print("ok", es.grid, len(grid))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=str(ROOT), timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok 16 2")

@@ -39,14 +39,16 @@ def load_reference():
         jax.experimental.enable_x64 = jax.enable_x64
     from repro import configs, models
     from repro.core import (characterization, energy_model, failures,
-                            optimize, planning, scenarios, strategies, sweep)
+                            optimize, planning, scenarios, simulator,
+                            strategies, sweep)
     from repro.kernels import flash_attention, ops, renewal_scan, ssd_scan
     from repro.launch import batching, steps
 
     return types.SimpleNamespace(
         jax=jax, characterization=characterization,
         energy_model=energy_model, failures=failures, optimize=optimize,
-        planning=planning, scenarios=scenarios, strategies=strategies,
+        planning=planning, scenarios=scenarios, simulator=simulator,
+        strategies=strategies,
         sweep=sweep, renewal_scan=renewal_scan, kernel_ops=ops,
         flash_attention=flash_attention, ssd_scan=ssd_scan, models=models,
         configs=configs, steps=steps, batching=batching)
