@@ -13,7 +13,13 @@ same operands:
   42-policy grid and Weibull failures, checked against the port's float64
   host oracle (``renewal_scan``; before them the kernel is held bit-equal
   to its plain version at 1-4 survivors, 1-4 ladder levels, K 1 and 64,
-  R 1, 31 and 1000: ``[kernel-shapes]``);
+  R 1, 31 and 1000: ``[kernel-shapes]``, and past those shapes, the wide
+  kernel up to its caps and the fleet preset's 7 survivors at the main
+  path's size: ``[kernel-bounds]``);
+* correlated rack failures at the main path's size under the reference's
+  gentle and aggressive topologies, both engines against the float64
+  oracle (``[correlated]``), and the failure-process axis (LogNormal,
+  Gamma, empirical traces) through both engines (``[processes]``);
 * the paper's single-failure path and the float64 scan engine, plain
   PyTorch on the card: Table 4 through ``compare`` against the published
   rows (``[table4]``); ``sweep_scenarios`` over the six scenarios x 262,144
@@ -83,6 +89,21 @@ SHAPE_KR = ((1, 1), (1, 31), (1, 1000), (FULL_EPOCHS, 1), (FULL_EPOCHS, 31),
             (FULL_EPOCHS, 1000))
 FLOAT_STATS = ("energy_ref", "energy_int", "saving", "balanced_energy",
                "end_time")
+# the renewal kernel past its fast shapes (phase 2c): the wide kernel at
+# 5-32 survivors x 3-8 ladder levels and at its caps, the fast kernel's
+# survivor counts at deeper ladders; the fleet preset's shape (8 nodes,
+# src/repro/campaign/presets.py, on the paper's 4-level ladder) at the
+# main path's size
+KERNEL_BOUND_SHAPES = tuple((n, nf) for n in (5, 7, 16, 32)
+                            for nf in (3, 4, 5, 8)) \
+    + ((3, 5), (3, 8), (4, 8), (64, 16))
+FLEET_SHAPE = (7, 4)
+EARLIER_MAIN_PATH_MS = 0.04829   # the main path's kernel time before the wide kernel (PERF.md §6)
+# correlated rack failures (phase 5b), the reference's own fixtures
+# (tests/test_topology.py): rack size (None: one rack of every node),
+# shock MTBS in days, p_kill, age boost of the spared members in seconds
+CORRELATED_TOPOLOGIES = {"gentle": (3, 8, 0.6, 1800.0),
+                         "aggressive": (None, 3, 0.95, 3600.0)}
 
 # the single-failure path: the six Table-4 scenarios x SWEEP_OFFSETS
 # failure instants (linspace(0, 7200 s) + 0.318 s, benchmarks/failure_sweep.py's
@@ -691,6 +712,333 @@ def renewal_f64_phase(card_line: str, sweep, optimize, scen, key, n_nodes: int,
 
 
 # ---------------------------------------------------------------------------
+# the failure-process axis and correlated rack failures, and the renewal
+# kernel past its fast shapes
+# ---------------------------------------------------------------------------
+
+STAT_INTS = ("n_failures", "truncated", "n_points", "n_sleep", "n_min_freq",
+             "n_comp_changed", "n_infeasible")
+
+
+def check_stats_against_oracle(phase: str, sweep, cfg, stats_row: dict, gaps,
+                               failed, felled, tol: float) -> float:
+    """The first ORACLE_RUNS runs of one lane's stats against the float64
+    host oracle on the same histories (``felled`` an (R, K, N) survivor-slot
+    mask or None): every integer count exact per run (failures, truncation,
+    decision points and the four action counts over valid, non-felled
+    points); energies, balanced energy and end time within ``tol`` relative
+    per run, the saving within ``tol`` of the reference energy.  Returns
+    the largest error."""
+    host = sweep.renewal_compose(cfg, gaps, MAKESPAN_S, failed_node=failed,
+                                 felled=felled, device="cpu")
+    d = host.decision
+    v = host.valid[:, :, None].expand(d.level.shape)
+    if felled is not None:
+        v = v & ~torch.as_tensor(felled, dtype=torch.bool)
+    want = {"n_failures": host.n_failures, "truncated": host.truncated,
+            "n_points": v.sum(dim=(1, 2)),
+            "n_sleep": (v & (d.wait_action == 2)).sum(dim=(1, 2)),
+            "n_min_freq": (v & (d.wait_action == 1)).sum(dim=(1, 2)),
+            "n_comp_changed": (v & d.comp_changed).sum(dim=(1, 2)),
+            "n_infeasible": (v & ~d.feasible_any).sum(dim=(1, 2))}
+    for f in STAT_INTS:
+        got = stats_row[f][:ORACLE_RUNS].cpu().long()
+        if not torch.equal(got, want[f].long()):
+            n_bad = int((got != want[f].long()).sum())
+            raise Failed(f"{phase} {cfg.name}: {f} differs from the oracle "
+                         f"in {n_bad} runs")
+    worst = 0.0
+    for f in ("energy_ref", "energy_int", "balanced_energy", "end_time"):
+        worst = max(worst, max_rel_err(stats_row[f][:ORACLE_RUNS],
+                                       getattr(host, f)))
+    sav = stats_row["saving"][:ORACLE_RUNS].double().cpu()
+    worst = max(worst, float(((sav - host.saving).abs()
+                              / host.energy_ref).max()))
+    if worst > tol:
+        raise Failed(f"{phase} {cfg.name}: rel {worst:.3e} against the "
+                     f"float64 oracle > {tol}")
+    return worst
+
+
+def stats_row(stats, s: int) -> dict:
+    """Lane ``s`` of a ``RenewalDeviceStats`` (or of the kernel's output
+    dict) as a dict of (R,) tensors."""
+    get = (lambda f: stats[f]) if isinstance(stats, dict) else \
+        (lambda f: getattr(stats, f))
+    return {f: get(f)[s] for f in FLOAT_STATS + STAT_INTS}
+
+
+def kernel_bounds_phase(card_line: str, rs, failures, prng, scen_ops, dev,
+                        n_scen: int) -> tuple:
+    """Phase 2c: the survivor counts and ladder depths past the fast
+    kernel's bounds (the wide kernel), and the fast kernel's survivor counts
+    at deeper ladders, with and without shocks, compensated and not, every
+    launch bit-equal to the plain version; then the fleet preset's shape
+    (7 survivors, 4 levels: the Table-4 scenarios widened) at the main
+    path's size, timed alone against its bound.  Returns (worst abs, worst
+    rel) against the plain version."""
+    variants = ((False, True), (True, False), (True, True), (False, False))
+    worst_abs = worst_rel = 0.0
+    for n, nf in KERNEL_BOUND_SHAPES:
+        ops = with_shape(scen_ops, n, nf)
+        shape_abs, seen = 0.0, set()
+        for j, (k, r) in enumerate(SHAPE_KR):
+            g32, _ = failures.sample_renewal_gaps(
+                failures.Exponential(MTBF_S), prng.PRNGKey(200 + j), r, k,
+                n + 1, dev)
+            gaps_t = g32.T.contiguous()
+            gen = torch.Generator(device="cpu").manual_seed(31 + j)
+            felled = (torch.rand((k, n, r), generator=gen) < 0.15).float().to(dev)
+            for use_fel, comp in (variants[j % 4], variants[(j + 2) % 4]):
+                fel = felled if use_fel else None
+                want = rs.renewal_scan_reference(*ops, gaps_t, fel,
+                                                 compensated=comp)
+                before = rs.LAUNCHES["renewal_scan"]
+                got = rs.renewal_scan(*ops, gaps_t, fel, compensated=comp)
+                torch.cuda.synchronize()
+                if rs.LAUNCHES["renewal_scan"] != before + 1:
+                    raise Failed(f"kernel-bounds n={n} nf={nf}: no counted launch")
+                max_abs, max_rel = compare_outputs(got, want)
+                if max_rel != 0.0:
+                    raise Failed(f"kernel-bounds n={n} nf={nf}: floats not "
+                                 f"bit-equal (rel {max_rel:.3e})")
+                shape_abs = max(shape_abs, max_abs)
+                worst_abs, worst_rel = max(worst_abs, max_abs), max(worst_rel, max_rel)
+                seen.add((use_fel, comp))
+        if len(seen) != 4:
+            raise Failed(f"kernel-bounds n={n} nf={nf}: only {sorted(seen)}")
+        line("kernel-bounds", survivors=n, levels=nf, lanes=n_scen,
+             kernel=rs.kernel_name(n, nf),
+             shapes="K,R=" + "/".join(f"{k}x{r}" for k, r in SHAPE_KR),
+             felled_compensated="all four", bit_equal=True,
+             max_abs_err=f"{shape_abs:.6g}")
+
+    # the fleet preset's shape at the main path's size
+    n, nf = FLEET_SHAPE
+    ops = with_shape(scen_ops, n, nf)
+    g32, _ = failures.sample_renewal_gaps(
+        failures.Exponential(MTBF_S), prng.PRNGKey(1), FULL_RUNS, FULL_EPOCHS,
+        n + 1, dev)
+    gaps_t = g32.T.contiguous()
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    felled = (torch.rand((FULL_EPOCHS, n, FULL_RUNS), generator=gen) < 0.15
+              ).float().to(dev)
+    for fel in (None, felled):
+        out = rs.renewal_scan(*ops, gaps_t, fel)
+        want = rs.renewal_scan_reference(*ops, gaps_t, fel)
+        torch.cuda.synchronize()
+        max_abs, max_rel = compare_outputs(out, want)
+        if max_rel != 0.0:
+            raise Failed(f"kernel-bounds fleet: floats not bit-equal ({max_rel:.3e})")
+        worst_abs, worst_rel = max(worst_abs, max_abs), max(worst_rel, max_rel)
+        args = (*ops, gaps_t) + (() if fel is None else (fel,))
+        k_ms, host_ms = kernel_only_ms(lambda: rs.renewal_scan(*args),
+                                       n=KERNEL_REPS)
+        b_ms, b_by, n_bytes, occ = renewal_bound(args, out, n)
+        line("kernel-bounds", shape="fleet preset", card=repr(card_line),
+             survivors=n, levels=nf, kernel=rs.kernel_name(n, nf),
+             lanes=n_scen, runs=FULL_RUNS, epochs=FULL_EPOCHS,
+             felled=fel is not None, bit_equal=True, kernel_ms=f"{k_ms:.5f}",
+             wrapper_host_ms=f"{host_ms:.5f}", occurring_decisions=occ,
+             bytes=n_bytes, bound_ms=f"{b_ms:.5f}", bound_by=b_by,
+             bound_share=f"{b_ms / k_ms:.4f}")
+    return worst_abs, worst_rel
+
+
+def correlated_phase(card_line: str, rs, sweep, topology, failures, prng,
+                     scen, key, n_nodes: int) -> tuple:
+    """Phase 5b: correlated rack failures at the main path's size — the six
+    scenarios x FULL_RUNS x FULL_EPOCHS, Weibull k = 0.7 at MTBF_S, under
+    the reference's gentle and aggressive topologies.  The kernel engine
+    (one counted launch with the felled operand, held bit-equal to its
+    plain version) and the float64 scan against the float64 oracle on the
+    card's histories (1e-4 and 1e-9, every integer count exact); the scan
+    on the card against itself on the CPU bit for bit; the sampler timed
+    with its launches; same-key histories of the card and the CPU compared.
+    Returns (worst abs, worst rel) of the kernel against its plain version."""
+    dev = torch.device("cuda")
+    proc = failures.Weibull.from_mtbf(0.7, MTBF_S)
+    worst_abs = worst_rel = 0.0
+    n_multi_all = n_all_all = 0
+    for label, (rack, mtbs_d, p_kill, boost) in CORRELATED_TOPOLOGIES.items():
+        topo = topology.rack_topology(n_nodes, rack or n_nodes,
+                                      shock_mtbs_s=mtbs_d * 24 * 3600.0,
+                                      p_kill=p_kill, age_boost_s=boost)
+        sample = lambda: topology.sample_correlated_renewal_gaps(
+            topo, proc, key, FULL_RUNS, FULL_EPOCHS, n_nodes, dev)
+        (gaps32, fmask, primary), s_ms = wall_ms_median(sample, 3)
+        prof = device_profile(sample)
+        summaries, launches, (call,) = drive(
+            rs, lambda: sweep.renewal_monte_carlo_scenarios(
+                scen, key, n_runs=FULL_RUNS, max_failures=FULL_EPOCHS,
+                process=proc, topology=topo, engine="kernel"))
+        args, kw, out = call
+        felled = topology.survivor_slot_mask(fmask, primary)
+        if len(args) < 5 or not torch.equal(
+                args[4], felled.permute(1, 2, 0).float()):
+            raise Failed(f"correlated {label}: the kernel did not get the "
+                         "sampler's felled slots")
+        max_abs, max_rel = compare_outputs(
+            out, rs.renewal_scan_reference(*args, **kw))
+        worst_abs, worst_rel = max(worst_abs, max_abs), max(worst_rel, max_rel)
+        k_ms, host_ms = kernel_only_ms(lambda: rs.renewal_scan(*args, **kw),
+                                       n=KERNEL_REPS)
+        b_ms, b_by, n_bytes, occ = renewal_bound(args, out, n_nodes - 1)
+        # epochs that occur in some scenario, by how many nodes they fell
+        occurs = out["valid"].bool().any(dim=0).T                  # (R, K)
+        n_fell = fmask.sum(dim=-1)
+        n_multi = int((occurs & (n_fell > 1)).sum())
+        n_all = int((occurs & (n_fell == n_nodes)).sum())
+        n_multi_all, n_all_all = n_multi_all + n_multi, n_all_all + n_all
+        line("correlated", topology=label, card=repr(card_line),
+             label=repr(topo.label()), rack=rack or n_nodes,
+             shock_mtbs_days=mtbs_d, p_kill=p_kill, age_boost_s=boost,
+             scenarios=len(scen), runs=FULL_RUNS, epochs=FULL_EPOCHS,
+             launches=launches, kernel_vs_plain="bit-equal" if max_rel == 0
+             else f"rel {max_rel:.3e}", sampler_ms_median=f"{s_ms:.3f}",
+             sampler_launches=prof.get("launches", "not measured"),
+             kernel_ms=f"{k_ms:.5f}", wrapper_host_ms=f"{host_ms:.5f}",
+             occurring_decisions=occ, bytes=n_bytes, bound_ms=f"{b_ms:.5f}",
+             bound_by=b_by, bound_share=f"{b_ms / k_ms:.4f}",
+             multi_felled_epochs=n_multi, all_felled_epochs=n_all)
+        if n_multi == 0:
+            raise Failed(f"correlated {label}: no epoch felled several nodes")
+
+        # the oracle on the card's histories, kernel and scan
+        gaps_o = gaps32[:ORACLE_RUNS].double().cpu()
+        prim_o = primary[:ORACLE_RUNS].cpu()
+        fel_o = felled[:ORACLE_RUNS].cpu()
+        scan_stats, scan_ms = wall_ms_median(
+            lambda: sweep.renewal_monte_carlo_device(
+                scen, key, n_runs=FULL_RUNS, max_failures=FULL_EPOCHS,
+                process=proc, topology=topo, stats=True), 2)
+        worst_k = worst_s = 0.0
+        for s, cfg in enumerate(scen):
+            worst_k = max(worst_k, check_stats_against_oracle(
+                f"correlated {label} kernel", sweep, cfg, stats_row(out, s),
+                gaps_o, prim_o, fel_o, TOL_ORACLE))
+            worst_s = max(worst_s, check_stats_against_oracle(
+                f"correlated {label} scan", sweep, cfg,
+                stats_row(scan_stats, s), gaps_o, prim_o, fel_o, TOL_F64))
+            sm = summaries[cfg.name]
+            check_summary(cfg.name, sm, out, s)
+            line("correlated", topology=label, scenario=cfg.name,
+                 mean_failures=f"{sm.mean_failures:.6f}",
+                 felled_per_run=f"{sum(sm.per_node_failures):.6f}",
+                 mean_saving_pct=f"{sm.mean_saving_pct:.6f}",
+                 sleep_occupancy=f"{sm.sleep_occupancy:.6f}")
+        if not torch.equal(scan_stats.failed_counts.cpu(),
+                           (out["valid"].bool().transpose(1, 2)[..., None]
+                            & fmask[None]).sum(dim=(1, 2)).int().cpu()):
+            raise Failed(f"correlated {label}: per-node counts differ")
+        # the scan on the card against itself on the CPU, same histories
+        full = [sweep.renewal_compose_device(
+            scen, gaps_o, MAKESPAN_S, failed_node=prim_o, felled=fel_o,
+            device=d) for d in ("cuda", "cpu")]
+        n_diff = sum(int((getattr(full[0], f).cpu() != getattr(full[1], f)).sum())
+                     for f in ("energy_ref", "energy_int", "end_time",
+                               "balanced_energy", "epoch_ref", "epoch_int",
+                               "epoch_failed", "valid", "n_failures"))
+        # same-key histories drawn on the CPU
+        g_cpu, m_cpu, p_cpu = topology.sample_correlated_renewal_gaps(
+            topo, proc, key, FULL_RUNS, FULL_EPOCHS, n_nodes, "cpu")
+        line("correlated", topology=label, check="float64 oracle",
+             runs=ORACLE_RUNS, ints="exact",
+             kernel_max_rel_err=f"{worst_k:.3e}", kernel_bar=TOL_ORACLE,
+             scan_max_rel_err=f"{worst_s:.3e}", scan_bar=TOL_F64,
+             scan_wall_ms_median=f"{scan_ms:.3f}",
+             scan_card_vs_cpu_differing_entries=n_diff,
+             same_key_cpu_gaps_differing=int((g_cpu != gaps32.cpu()).sum()),
+             same_key_cpu_masks_differing=int((m_cpu != fmask.cpu()).sum()),
+             same_key_cpu_primaries_differing=int((p_cpu != primary.cpu()).sum()),
+             histories=gaps32.numel())
+        if n_diff:
+            raise Failed(f"correlated {label}: card and CPU scans differ at "
+                         f"{n_diff} entries")
+    if n_all_all == 0:
+        raise Failed("correlated: no epoch felled every node")
+    return worst_abs, worst_rel
+
+
+def process_catalog(failures) -> dict:
+    """The failure processes of phase 5c, each at MTBF_S: LogNormal
+    (sigma 1), Gamma (k 0.5 and 3), and empirical traces (one shared and
+    one per node) of Weibull(0.8)-shaped gaps drawn from a seed and scaled
+    to the MTBF."""
+    rng = np.random.default_rng(23)
+    shared = rng.weibull(0.8, 512)
+    per_node = rng.weibull(0.8, (4, 512))
+    return {
+        "lognormal-s1": failures.LogNormal.from_mtbf(MTBF_S, 1.0),
+        "gamma-k0.5": failures.Gamma.from_mtbf(0.5, MTBF_S),
+        "gamma-k3": failures.Gamma.from_mtbf(3.0, MTBF_S),
+        "trace-1d": failures.EmpiricalTrace(shared * MTBF_S / shared.mean()),
+        "trace-per-node": failures.EmpiricalTrace(
+            per_node * MTBF_S / per_node.mean(axis=1, keepdims=True)),
+    }
+
+
+def processes_phase(card_line: str, rs, sweep, failures, scen, key,
+                    n_nodes: int) -> tuple:
+    """Phase 5c: every failure process through both engines on the main
+    path's shape: the kernel (one counted launch, bit-equal to its plain
+    version) within TOL_ORACLE and the scan within TOL_F64 of the float64
+    oracle on the card's histories, integer counts exact; the card's
+    same-key histories against the CPU's.  Returns (worst abs, worst rel)
+    of the kernel against its plain version."""
+    dev = torch.device("cuda")
+    worst_abs = worst_rel = 0.0
+    for label, proc in process_catalog(failures).items():
+        t0 = time.perf_counter()
+        kstats, launches, (call,) = drive(
+            rs, lambda: sweep.renewal_monte_carlo_device(
+                scen, key, n_runs=FULL_RUNS, max_failures=FULL_EPOCHS,
+                process=proc, stats=True, engine="kernel"))
+        k_wall = (time.perf_counter() - t0) * 1e3
+        args, kw, out = call
+        max_abs, max_rel = compare_outputs(
+            out, rs.renewal_scan_reference(*args, **kw))
+        worst_abs, worst_rel = max(worst_abs, max_abs), max(worst_rel, max_rel)
+        sample = lambda: failures.sample_renewal_gaps(
+            proc, key, FULL_RUNS, FULL_EPOCHS, n_nodes, dev)
+        (g32, failed), s_ms = wall_ms_median(sample, 2)
+        scan_stats, scan_ms = wall_ms_median(
+            lambda: sweep.renewal_monte_carlo_device(
+                scen, key, n_runs=FULL_RUNS, max_failures=FULL_EPOCHS,
+                process=proc, stats=True), 1)
+        gaps_o = g32[:ORACLE_RUNS].double().cpu()
+        failed_o = failed[:ORACLE_RUNS].cpu()
+        worst_k = worst_s = 0.0
+        for s, cfg in enumerate(scen):
+            worst_k = max(worst_k, check_stats_against_oracle(
+                f"processes {label} kernel", sweep, cfg, stats_row(kstats, s),
+                gaps_o, failed_o, None, TOL_ORACLE))
+            worst_s = max(worst_s, check_stats_against_oracle(
+                f"processes {label} scan", sweep, cfg,
+                stats_row(scan_stats, s), gaps_o, failed_o, None, TOL_F64))
+        g_cpu, f_cpu = failures.sample_renewal_gaps(
+            proc, key, FULL_RUNS, FULL_EPOCHS, n_nodes, "cpu")
+        g_card = g32.cpu()
+        differ = g_cpu != g_card
+        rel = ((g_cpu.double() - g_card.double()).abs()
+               / g_card.double().abs().clamp_min(1e-30))
+        line("processes", process=label, label=repr(proc.label()),
+             card=repr(card_line), scenarios=len(scen), runs=FULL_RUNS,
+             epochs=FULL_EPOCHS, launches=launches,
+             kernel_vs_plain="bit-equal" if max_rel == 0 else f"rel {max_rel:.3e}",
+             kernel_entry_wall_ms=f"{k_wall:.3f}",
+             sampler_ms_median=f"{s_ms:.3f}", scan_wall_ms=f"{scan_ms:.3f}",
+             mean_failures=f"{float(kstats.n_failures.float().mean()):.6f}",
+             kernel_oracle_max_rel=f"{worst_k:.3e}",
+             scan_oracle_max_rel=f"{worst_s:.3e}", ints="exact",
+             same_key_cpu_gaps_differing=int(differ.sum()),
+             same_key_cpu_gaps_max_rel=f"{float(rel.max()):.3e}",
+             same_key_cpu_failed_differing=int((f_cpu != failed.cpu()).sum()),
+             histories=g32.numel())
+    return worst_abs, worst_rel
+
+
+# ---------------------------------------------------------------------------
 # the LM serving path (zamba2-7b): flash_attention and ssd_scan
 # ---------------------------------------------------------------------------
 
@@ -804,22 +1152,24 @@ def print_renewal_occupancy(rs, launches: dict) -> None:
     pick.argtypes = [ctypes.c_int] * 3
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     occ = {}
-    for n in range(1, rs.MAX_N + 1):
-        for per_run in sorted({1, n}):
-            blocks, threads, runs = (ctypes.c_int() for _ in range(3))
-            _build.check_launch(lib, "renewal_scan",
-                                occ_fn(n, per_run, blocks, threads, runs))
-            occ[n, per_run] = (blocks.value, threads.value, runs.value)
-            line("occupancy", kernel=f"renewal_scan_kernel<{n},{per_run}>",
-                 threads=threads.value, runs_per_block=runs.value,
-                 blocks_per_sm=blocks.value,
-                 warps_per_sm=blocks.value * threads.value // 32)
-    for label, (lanes, n_runs, n) in launches.items():
-        per_run = pick(n, lanes, n_runs)
-        per_sm, threads, runs = occ[n, per_run]
+    # the fast kernel per N and mapping, then the wide kernel (one entry:
+    # N is a runtime argument there)
+    for n, per_run in [(n, g) for n in range(1, rs.FAST_MAX_N + 1)
+                       for g in sorted({1, n})] + [(rs.FAST_MAX_N + 1, 1)]:
+        blocks, threads, runs = (ctypes.c_int() for _ in range(3))
+        _build.check_launch(lib, "renewal_scan",
+                            occ_fn(n, per_run, blocks, threads, runs))
+        name = rs.kernel_name(n, 1, per_run)
+        occ[name] = (blocks.value, threads.value, runs.value)
+        line("occupancy", kernel=name, threads=threads.value,
+             runs_per_block=runs.value, blocks_per_sm=blocks.value,
+             warps_per_sm=blocks.value * threads.value // 32)
+    for label, (lanes, n_runs, n, nf) in launches.items():
+        per_run = pick(n, lanes, n_runs) if nf <= rs.FAST_MAX_F else 1
+        name = rs.kernel_name(n, nf, per_run)
+        per_sm, threads, runs = occ[name]
         grid = lanes * -(-n_runs // runs)
-        line("occupancy", launch=label,
-             kernel=f"renewal_scan_kernel<{n},{per_run}>", lanes_per_run=per_run,
+        line("occupancy", launch=label, kernel=name, lanes_per_run=per_run,
              blocks=grid, sms=sms, waves=f"{grid / (per_sm * sms):.3f}",
              warps_per_sm_first_wave=f"{min(grid / sms, per_sm) * threads / 32:.2f}")
 
@@ -841,12 +1191,22 @@ def renewal_bound(args, out: dict, n_surv: int) -> tuple:
 
 def with_shape(ops, n: int, nf: int):
     """Packed operands at ``n`` survivors and ``nf`` ladder levels: node
-    columns taken in turn (a fourth survivor repeats the first), ladder
-    levels sliced from level 0."""
+    columns taken in turn (a fourth survivor repeats the first); the first
+    ``nf`` ladder levels, or past the ladder's F levels ``nf`` levels spaced
+    evenly between its first and last by linear interpolation of every row
+    (level 0 stays the reference)."""
     params, nodes, ladder = ops
     cols = [i % nodes.shape[2] for i in range(n)]
-    return (params, nodes[:, :, cols].contiguous(),
-            ladder[:, :, :nf].contiguous())
+    f = ladder.shape[2]
+    if nf <= f:
+        lad = ladder[:, :, :nf]
+    else:
+        lad64 = ladder.double().cpu().numpy()
+        pos = np.linspace(0.0, f - 1.0, nf)
+        lad = torch.as_tensor(np.stack(
+            [[np.interp(pos, np.arange(f), row) for row in lane]
+             for lane in lad64]).astype(np.float32), device=ladder.device)
+    return params, nodes[:, :, cols].contiguous(), lad.contiguous()
 
 
 def nbytes(*tensors) -> int:
@@ -1273,7 +1633,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import failures, optimize, prng, sweep
+    from repro_torch.core import failures, optimize, prng, sweep, topology
     from repro_torch.core.scenarios import (apply_policy, paper_scenarios,
                                             sparse_rendezvous_scenario)
     from repro_torch.kernels import _build
@@ -1310,10 +1670,12 @@ def main() -> int:
     grid_ops = sweep._pack_kernel_inputs(
         optimize.policy_inputs(grid_cfg, table, dev), makespans)
     n_surv = scen_ops[1].shape[2]
+    n_lev = scen_ops[2].shape[2]
     print_renewal_occupancy(rs, {
-        "main-path": (len(scen), FULL_RUNS, n_surv),
-        "policy-grid": (len(table), FULL_RUNS, n_surv),
-        "weibull": (len(scen), WEIBULL_RUNS, n_surv)})
+        "main-path": (len(scen), FULL_RUNS, n_surv, n_lev),
+        "policy-grid": (len(table), FULL_RUNS, n_surv, n_lev),
+        "weibull": (len(scen), WEIBULL_RUNS, n_surv, n_lev),
+        "fleet-preset": (len(scen), FULL_RUNS, *FLEET_SHAPE)})
 
     # --- phase 2: kernel against its plain version, R not a multiple of 128
     r2, k2, n_nodes = 1000, FULL_EPOCHS, len(scen[0].survivors) + 1
@@ -1343,8 +1705,8 @@ def main() -> int:
     # runs to lanes; (felled, compensated) alternate over the shapes so each
     # shape sees two of the four and each (N, F) all four
     variants = ((False, True), (True, False), (True, True), (False, False))
-    for n in range(1, rs.MAX_N + 1):
-        for nf in range(1, rs.MAX_F + 1):
+    for n in range(1, rs.FAST_MAX_N + 1):
+        for nf in range(1, rs.FAST_MAX_F + 1):
             ops = with_shape(scen_ops, n, nf)
             seen, n_cases, shape_abs = set(), 0, 0.0
             for j, (k, r) in enumerate(SHAPE_KR):
@@ -1380,6 +1742,11 @@ def main() -> int:
                  lanes_per_run="auto/" + "/".join(map(str, sorted({1, n}))),
                  ints="exact",
                  max_abs_err=f"{shape_abs:.6g}")
+
+    # --- phase 2c: past the fast kernel's shapes (the wide kernel) ---------
+    b_abs, b_rel = kernel_bounds_phase(
+        card_line, rs, failures, prng, scen_ops, dev, len(scen))
+    worst_abs, worst_rel = max(worst_abs, b_abs), max(worst_rel, b_rel)
 
     # --- phase 3: the main path at the size users run ----------------------
     key = prng.PRNGKey(1)
@@ -1424,7 +1791,8 @@ def main() -> int:
     bound_ms, bound_by, n_bytes, occurring = renewal_bound(
         scen_args, ker_out, n_nodes - 1)
     line("timing", kernel="renewal_scan", card=repr(card_line),
-         kernel_ms=f"{k_ms:.5f}", wrapper_host_ms=f"{host_ms:.5f}",
+         kernel_ms=f"{k_ms:.5f}", earlier_kernel_ms=EARLIER_MAIN_PATH_MS,
+         wrapper_host_ms=f"{host_ms:.5f}",
          call_ms_median=f"{call_ms:.5f}", plain_ms_median=f"{p_ms:.2f}",
          slots=slots, slot_decisions_per_s=f"{slots / (k_ms * 1e-3):.4e}",
          occurring_decisions=occurring,
@@ -1548,6 +1916,14 @@ def main() -> int:
         line("weibull", scenario=cfg.name,
              mean_failures=f"{float(wstats.n_failures[s].float().mean()):.6f}",
              oracle_rel_err=f"{err:.3e}")
+
+    # --- phases 5b, 5c: correlated rack failures, the process axis --------
+    c_abs, c_rel = correlated_phase(card_line, rs, sweep, topology, failures,
+                                    prng, scen, key, n_nodes)
+    p_abs, p_rel = processes_phase(card_line, rs, sweep, failures, scen, key,
+                                   n_nodes)
+    worst_abs = max(worst_abs, c_abs, p_abs)
+    worst_rel = max(worst_rel, c_rel, p_rel)
 
     table4_phase(card_line)
     sweep_phase(card_line, sweep, scen)

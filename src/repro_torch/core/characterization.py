@@ -24,6 +24,7 @@ __all__ = [
     "paper_power_table",
     "paper_sleep_spec",
     "paper_machine_profile",
+    "tpu_v5e_like_profile",
 ]
 
 
@@ -144,4 +145,36 @@ def paper_machine_profile() -> MachineProfile:
         sleep=paper_sleep_spec(),
         p_base=60.0,
         p_idle_wait=60.0,
+    )
+
+
+def tpu_v5e_like_profile() -> MachineProfile:
+    """A synthetic accelerator-host ladder for framework scenarios (the
+    reference's second machine profile).
+
+    TPUs do not expose per-chip DVFS; this ladder abstracts host DVFS + chip
+    power capping into the same table shape the decision algorithm consumes.
+    Numbers are representative, not measured: ~170 W/chip + host share at
+    full tilt, deep power-capped levels with super-linear slowdown, and a
+    suspend state with longer transitions than x86 S3 (pod-level
+    orchestration).
+    """
+    return MachineProfile(
+        name="tpu-v5e-like",
+        power_table=PowerTable(
+            freq_ghz=np.array([1.0, 0.85, 0.7, 0.5]),   # normalized clock domain
+            p_comp=np.array([260.0, 225.0, 198.0, 170.0]),
+            beta=np.array([1.0, 1.18, 1.44, 2.05]),
+            p_ckpt=np.array([210.0, 195.0, 182.0, 168.0]),
+            gamma=np.array([1.0, 1.08, 1.18, 1.35]),
+        ),
+        sleep=SleepSpec(
+            t_go_sleep=40.0,
+            t_wakeup=12.0,
+            p_go_sleep=120.0,
+            p_wakeup=180.0,
+            p_sleep=18.0,
+        ),
+        p_base=95.0,
+        p_idle_wait=95.0,
     )

@@ -307,13 +307,14 @@ def evaluate_policy_grid(cfg: Optional[ScenarioConfig], table: PolicyTable,
     Exactly one of ``work_s`` (equal useful work: per-policy wall makespan
     via ``wall_makespan``) or ``makespan_s`` (equal wall time) is given.
     The failure process is ``process`` or the paper's exponential at
-    ``mtbf_s``.  Deterministic for a fixed ``key``; within the port every
-    lane is bit-identical to a standalone call on that policy alone.
+    ``mtbf_s``; a ``core.topology.Topology`` swaps in the correlated shock
+    sampler, whose histories and felled sets every policy lane shares
+    (common random numbers).  Deterministic for a fixed ``key``; within the
+    port every lane is bit-identical to a standalone call on that policy
+    alone.
     """
     if clusters is not None:
         raise sweep._not_ported("the fleet clusters= axis")
-    if topology is not None:
-        raise sweep._not_ported("the correlated topology= sampler")
     if (work_s is None) == (makespan_s is None):
         raise ValueError("give exactly one of work_s or makespan_s")
     proc = failures.as_process(process, mtbf_s)
@@ -326,7 +327,8 @@ def evaluate_policy_grid(cfg: Optional[ScenarioConfig], table: PolicyTable,
     stacked = policy_inputs(cfg, table, device)
     stats = sweep._stats_to_host(sweep.renewal_monte_carlo_policies(
         stacked, key, makespan_s=makespans, n_runs=n_runs,
-        max_failures=max_failures, process=proc, engine=engine))
+        max_failures=max_failures, process=proc, topology=topology,
+        engine=engine))
     return _policy_eval_from_stats(
         table, cfg.name, stats, makespans, work_s, mtbf, proc.label(),
         n_runs, max_failures)

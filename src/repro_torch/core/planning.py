@@ -40,6 +40,13 @@ __all__ = [
 ]
 
 
+def _ns(*arrays):
+    """numpy/torch namespace dispatch: torch iff any input is a tensor (the
+    reference's numpy/jnp ``_ns``), for helpers that serve host numpy and
+    device tensors alike (``topology.survivor_slot_mask``)."""
+    return torch if any(isinstance(a, torch.Tensor) for a in arrays) else np
+
+
 def advance_checkpoint_sawtooth(age0, delta, interval, dur):
     """Advance a timer-checkpoint sawtooth by ``delta`` wall seconds.
 

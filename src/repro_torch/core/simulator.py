@@ -14,8 +14,9 @@ float64 Python with exact piecewise-constant power integration; only the
 Algorithm-1 dispatch runs on ``device``.  The execution model (progress in
 fa-seconds, timer checkpoints, move-ahead, the failed node's down ->
 restart -> re-execute timeline, the intervention window) is the
-reference's; see its module docstring.  The correlated ``topology=``
-sampler of ``simulate_run`` is not ported yet (ROADMAP.md, Queue 1).
+reference's; see its module docstring.  ``simulate_run`` draws its
+history from any failure process, or from the correlated shock sampler of
+``core.topology`` (``topology=``).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from repro_torch.core import energy_model as em
 from repro_torch.core import failures
 from repro_torch.core import planning
 from repro_torch.core import strategies
+from repro_torch.core import topology as node_topology
 from repro_torch.core.characterization import MachineProfile, paper_machine_profile
 
 __all__ = [
@@ -494,26 +496,35 @@ def simulate_run(cfg: ScenarioConfig, gaps, makespan_s: float, *,
     ``device``.  ``felled`` ((K, N) bool over survivor slots) marks
     survivors rolled back with the primary: such an epoch re-executes to
     the largest lost work, the spared survivors rendezvous against it, and
-    each felled node pays the failed node's closed form.  Semantics are the
-    reference's; the correlated ``topology=`` sampler is not ported yet.
+    each felled node pays the failed node's closed form.  With a
+    ``core.topology.Topology`` (and ``gaps=None``) the history and the
+    felled sets come from the correlated shock sampler instead.  Semantics
+    are the reference's.
     """
     from repro_torch.core.scenarios import (failure_state_at,
                                             post_recovery_config, shift_failure)
 
     dev = resolve_device(device)
-    if topology is not None:
-        raise NotImplementedError(
-            "simulate_run(topology=...): the correlated shock sampler is not "
-            "ported yet (ROADMAP.md, Queue 1)")
     if gaps is None:
         if process is None or key is None:
             raise ValueError("gaps=None requires a FailureProcess and a key")
-        g32, _ = failures.sample_renewal_gaps(
-            failures.as_process(process), key, 1, max_failures,
-            len(cfg.survivors) + 1, dev)
-        gaps = g32[0].double().cpu().numpy()
+        n_nodes = len(cfg.survivors) + 1
+        if topology is not None:
+            g, fm, pri = node_topology.correlated_renewal_gaps(
+                topology, failures.as_process(process), key, 1, n_nodes,
+                max_failures, dev)
+            gaps = g[0]
+            felled = node_topology.survivor_slot_mask(fm, pri)[0]
+        else:
+            gaps, _ = failures.renewal_gaps(
+                failures.as_process(process), key, 1, n_nodes, max_failures,
+                dev)
+            gaps = gaps[0]
     elif process is not None:
         raise ValueError("pass explicit gaps OR a process, not both")
+    elif topology is not None:
+        raise ValueError("a topology needs gaps=None (it draws the history); "
+                         "pass explicit felled masks with explicit gaps")
 
     if any(sv.peer != 0 for sv in cfg.survivors):
         raise ValueError(

@@ -37,10 +37,14 @@ histories:
     shares no code with ``_renewal_scan`` beyond the closed forms, so the
     two check each other.
 
+Every engine takes a ``core.topology.Topology`` (``topology=``): the
+correlated shock sampler then draws the histories and the felled survivor
+slots of each epoch, which every engine composes.
+
 Semantics (snapping, chain order, occurrence, truncation, re-anchoring,
 the quiesce policy) are the reference's; see its module and docs/sweep.md.
-The correlated ``topology=`` sampler and the fleet ``clusters=`` axis are
-not ported yet and raise ``NotImplementedError`` naming ROADMAP.md.
+The fleet ``clusters=`` axis is not ported yet and raises
+``NotImplementedError`` naming ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -56,6 +60,7 @@ from repro_torch.core import failures
 from repro_torch.core import planning
 from repro_torch.core import prng
 from repro_torch.core import strategies
+from repro_torch.core import topology as node_topology
 from repro_torch.core.scenarios import post_recovery_anchor
 from repro_torch.core.simulator import ScenarioConfig
 
@@ -88,8 +93,8 @@ __all__ = [
 
 SECONDS_PER_YEAR = 365.25 * 24 * 3600.0
 
-_NOT_PORTED = ("is not ported yet (ROADMAP.md, Queue 1: the correlated "
-               "topology= sampler and the fleet clusters= axis)")
+_NOT_PORTED = ("is not ported yet (ROADMAP.md, Queue 1: the fleet "
+               "clusters= axis)")
 
 
 def _not_ported(what: str):
@@ -577,14 +582,23 @@ def renewal_failure_gaps(key, n_runs: int, n_nodes: int, max_failures: int,
     """Per-node failure sequences reduced to renewal-epoch gaps:
     ``(gaps float64, failed_node int64)`` of shape ``(n_runs,
     max_failures)`` on ``device`` — the float64 cast of the float32
-    sampler's gaps, so every engine sees the same histories for a key."""
-    if topology is not None:
-        raise _not_ported("the correlated topology= sampler")
+    sampler's gaps, so every engine sees the same histories for a key.
+
+    A ``core.topology.Topology`` switches to the correlated shock sampler
+    and the return becomes the reference's triple ``(gaps, failed_node,
+    failed_mask)``: ``failed_node`` is each epoch's primary (int32) and
+    ``failed_mask`` ((n_runs, max_failures, n_nodes) bool) marks every
+    node felled in the epoch; ``topology.survivor_slot_mask`` maps it to
+    ``renewal_compose``'s ``felled``."""
     if process is None and mtbf_s is None:
         raise ValueError("provide mtbf_s or a FailureProcess")
+    proc = failures.as_process(process, mtbf_s)
+    if topology is not None:
+        gaps, fmask, primary = node_topology.sample_correlated_renewal_gaps(
+            topology, proc, key, n_runs, max_failures, n_nodes, device)
+        return gaps.to(torch.float64), primary, fmask
     gaps, failed = failures.sample_renewal_gaps(
-        failures.as_process(process, mtbf_s), key, n_runs, max_failures,
-        n_nodes, device)
+        proc, key, n_runs, max_failures, n_nodes, device)
     return gaps.to(torch.float64), failed
 
 
@@ -1030,29 +1044,52 @@ def _renewal_scan(inp: SweepInputs, gaps: torch.Tensor, makespan_s,
     )
 
 
-def _attach_failed_counts(out: dict, failed: torch.Tensor, n_nodes: int) -> dict:
+def _attach_failed_counts(out: dict, failed: torch.Tensor, n_nodes: int,
+                          fmask=None) -> dict:
     """Per-node failure counts over valid epochs, reduced over runs;
-    ``out['valid']`` is (S|P, R, K) bool, ``failed`` (R, K)."""
+    ``out['valid']`` is (S|P, R, K) bool, ``failed`` (R, K).  With a
+    correlated sampler's physical-node ``fmask`` ((R, K, n_nodes)) every
+    felled node counts, not just the primary."""
     valid = out.pop("valid")
-    node = torch.arange(n_nodes, device=valid.device)
-    hit = valid[..., None] & (failed[None, ..., None] == node)
+    if fmask is None:
+        node = torch.arange(n_nodes, device=valid.device)
+        hit = valid[..., None] & (failed[None, ..., None] == node)
+    else:
+        hit = valid[..., None] & fmask[None]
     out["failed_counts"] = hit.to(torch.int32).sum(dim=(1, 2))
     return out
 
 
+def _sample_histories(process, topology, key, n_runs: int, max_failures: int,
+                      n_nodes: int, device):
+    """The histories every engine composes: ``(gaps float32 (R, K), failed
+    (R, K), felled (R, K, N) survivor-slot mask or None, fmask (R, K,
+    n_nodes) physical-node mask or None)`` on ``device``.  The independent
+    sampler without a topology, the correlated shock sampler with one."""
+    if topology is None:
+        gaps32, failed = failures.sample_renewal_gaps(
+            process, key, n_runs, max_failures, n_nodes, device)
+        return gaps32, failed, None, None
+    gaps32, fmask, failed = node_topology.sample_correlated_renewal_gaps(
+        topology, process, key, n_runs, max_failures, n_nodes, device)
+    return (gaps32, failed, node_topology.survivor_slot_mask(fmask, failed),
+            fmask)
+
+
 def _renewal_mc_core(stacked: SweepInputs, key, makespan_s, process,
-                     n_runs: int, max_failures: int, stats: bool):
+                     n_runs: int, max_failures: int, stats: bool,
+                     topology=None):
     """Sampling (shared across lanes — common random numbers, the kernel
     engine's histories) plus the float64 scan; returns ``(out, gaps,
     failed)``."""
     dev = stacked.interval.device
     n_nodes = stacked.period.shape[-1] + 1
-    gaps32, failed = failures.sample_renewal_gaps(
-        process, key, n_runs, max_failures, n_nodes, dev)
+    gaps32, failed, felled, fmask = _sample_histories(
+        process, topology, key, n_runs, max_failures, n_nodes, dev)
     gaps = gaps32.to(torch.float64)
-    out = _renewal_scan(stacked, gaps, makespan_s, stats=stats)
+    out = _renewal_scan(stacked, gaps, makespan_s, stats=stats, felled=felled)
     if stats:
-        out = _attach_failed_counts(out, failed, n_nodes)
+        out = _attach_failed_counts(out, failed, n_nodes, fmask=fmask)
     return out, gaps, failed
 
 
@@ -1132,27 +1169,29 @@ def _pack_kernel_inputs(stacked: SweepInputs, makespan_s):
 
 def _renewal_kernel_mc(stacked: SweepInputs, key, makespan_s, process,
                        n_runs: int, max_failures: int,
-                       compensated: bool = True) -> RenewalDeviceStats:
+                       compensated: bool = True,
+                       topology=None) -> RenewalDeviceStats:
     """Sampling (shared across lanes — common random numbers) plus the
-    packed float32 composition through ``kernels.renewal_scan``."""
+    packed float32 composition through ``kernels.renewal_scan``; felled
+    slots travel in the kernel's (K, N, R) float32 layout."""
     from repro_torch.kernels import renewal_scan as rs
 
     dev = stacked.interval.device
     n_nodes = stacked.period.shape[-1] + 1
-    gaps32, failed = failures.sample_renewal_gaps(
-        process, key, n_runs, max_failures, n_nodes, dev)
+    gaps32, failed, felled, fmask = _sample_histories(
+        process, topology, key, n_runs, max_failures, n_nodes, dev)
     params, nodes, ladder = _pack_kernel_inputs(stacked, makespan_s)
+    felled_t = (None if felled is None else
+                felled.permute(1, 2, 0).to(torch.float32).contiguous())
     out = rs.renewal_scan(params, nodes, ladder, gaps32.T.contiguous(),
-                          compensated=compensated)
+                          felled_t, compensated=compensated)
     out["valid"] = out["valid"].transpose(1, 2).bool()
     out["truncated"] = out["truncated"].bool()
-    out = _attach_failed_counts(out, failed, n_nodes)
+    out = _attach_failed_counts(out, failed, n_nodes, fmask=fmask)
     return RenewalDeviceStats(**out)
 
 
-def _check_engine(engine: str, stats: bool, topology) -> None:
-    if topology is not None:
-        raise _not_ported("the correlated topology= sampler")
+def _check_engine(engine: str, stats: bool) -> None:
     if engine not in ("scan", "kernel"):
         raise ValueError(f"unknown engine {engine!r} (use 'scan' or 'kernel')")
     if engine == "kernel" and not stats:
@@ -1172,17 +1211,18 @@ def renewal_monte_carlo_device(cfgs, key, *, n_runs: int = 256,
     returns the per-epoch ``RenewalDeviceResult`` (``stats=False``) or the
     lean ``RenewalDeviceStats`` (``stats=True``); ``engine="kernel"`` is
     the float32 Kahan-ledger kernel, one launch, stats only.  Both see the
-    same histories for a key."""
-    _check_engine(engine, stats, topology)
+    same histories for a key; a ``topology`` swaps in the correlated shock
+    sampler on both."""
+    _check_engine(engine, stats)
     dev = resolve_device(device)
     proc = failures.as_process(process, mtbf_s)
     if engine == "kernel":
         _, stacked = _renewal_device_inputs(cfgs, torch.float32, dev)
         return _renewal_kernel_mc(stacked, key, float(makespan_s), proc,
-                                  n_runs, max_failures)
+                                  n_runs, max_failures, topology=topology)
     _, stacked = _renewal_device_inputs(cfgs, torch.float64, dev)
     out, gaps, failed = _renewal_mc_core(stacked, key, float(makespan_s), proc,
-                                         n_runs, max_failures, stats)
+                                         n_runs, max_failures, stats, topology)
     return RenewalDeviceStats(**out) if stats else \
         _wrap_device_result(out, gaps, failed)
 
@@ -1198,18 +1238,20 @@ def renewal_monte_carlo_policies(stacked: SweepInputs, key, *, makespan_s,
     ``stacked`` lies on.  The sampler never sees the policy axis, so every
     lane meets the same histories (common random numbers) and each lane is
     bit-identical to a standalone ``renewal_monte_carlo_device`` call on
-    that policy with the same engine.  Engines as there."""
-    _check_engine(engine, stats, topology)
+    that policy with the same engine.  Engines as there; a ``topology``
+    swaps in the correlated shock sampler, whose histories and felled masks
+    every lane shares too."""
+    _check_engine(engine, stats)
     if stacked.interval.dim() != 1:
         raise _not_ported("the cluster axis (clusters=)")
     proc = failures.as_process(process, mtbf_s)
     if engine == "kernel":
         return _renewal_kernel_mc(stacked, key, makespan_s, proc, n_runs,
-                                  max_failures)
+                                  max_failures, topology=topology)
     makespan = torch.as_tensor(np.asarray(makespan_s, np.float64),
                                device=stacked.interval.device)
     out, gaps, failed = _renewal_mc_core(stacked, key, makespan, proc, n_runs,
-                                         max_failures, stats)
+                                         max_failures, stats, topology)
     return RenewalDeviceStats(**out) if stats else \
         _wrap_device_result(out, gaps, failed)
 
@@ -1282,16 +1324,24 @@ def _assemble_summary(*, counts, per_node, truncated, energy_ref, energy_int,
 def _renewal_summary(*, valid, failed_node, truncated, energy_ref, energy_int,
                      saving, wait_action, comp_changed, feasible_any,
                      n_survivors: int, n_runs: int, makespan_s: float,
-                     mtbf_s: float, max_failures: int,
-                     felled=None) -> RenewalMonteCarloSummary:
+                     mtbf_s: float, max_failures: int, felled=None,
+                     fmask=None) -> RenewalMonteCarloSummary:
     """Reduce one scenario's (R, K[, N]) host-oracle arrays to expectations
-    (rates as means over valid, non-felled decision points)."""
+    (rates as means over valid, non-felled decision points).  ``fmask``
+    (physical-node mask) attributes every felled node in ``per_node``, as
+    the device path's counts do."""
     valid = _np(valid).astype(bool)
     counts = valid.sum(axis=1)
-    failed_node = _np(failed_node)
-    per_node = tuple(
-        float(np.mean(np.sum((failed_node == m) & valid, axis=1)))
-        for m in range(n_survivors + 1))
+    if fmask is None:
+        failed_node = _np(failed_node)
+        per_node = tuple(
+            float(np.mean(np.sum((failed_node == m) & valid, axis=1)))
+            for m in range(n_survivors + 1))
+    else:
+        fmask = _np(fmask).astype(bool)
+        per_node = tuple(
+            float(np.mean(np.sum(fmask[:, :, m] & valid, axis=1)))
+            for m in range(n_survivors + 1))
     v = valid[:, :, None] & np.ones(n_survivors, bool)
     if felled is not None:
         v = v & ~_np(felled).astype(bool)
@@ -1353,10 +1403,9 @@ def renewal_monte_carlo(cfg: ScenarioConfig, key, n_runs: int = 256,
     ``renewal_monte_carlo_device``; ``engine="host"`` the float64 oracle
     (``renewal_compose``) on the same histories, reduced by the same
     summary code.  With a ``process`` the summary's ``mtbf_s`` reports the
-    process's mean gap.
+    process's mean gap.  A ``topology`` swaps in the correlated shock
+    sampler on every engine.
     """
-    if topology is not None:
-        raise _not_ported("the correlated topology= sampler")
     dev = resolve_device(device)
     if process is not None:
         mtbf_s = float(np.mean(failures.as_process(process).mean_s()))
@@ -1364,17 +1413,28 @@ def renewal_monte_carlo(cfg: ScenarioConfig, key, n_runs: int = 256,
               max_failures=max_failures)
     if engine in ("device", "kernel"):
         res = renewal_monte_carlo_device(
-            cfg, key, stats=True, process=process, device=dev,
-            engine="kernel" if engine == "kernel" else "scan", **kw)
+            cfg, key, stats=True, process=process, topology=topology,
+            device=dev, engine="kernel" if engine == "kernel" else "scan",
+            **kw)
         return _summarize_device_scenario(_stats_to_host(res), 0, **kw)
     if engine != "host":
         raise ValueError(
             f"unknown engine {engine!r} (use 'device', 'kernel' or 'host')")
     n_nodes = len(cfg.survivors) + 1
-    gaps, failed = renewal_failure_gaps(key, n_runs, n_nodes, max_failures,
-                                        mtbf_s, process=process, device=dev)
-    res = renewal_compose(cfg, gaps, makespan_s, failed_node=failed, device=dev)
+    felled = fmask = None
+    if topology is None:
+        gaps, failed = renewal_failure_gaps(
+            key, n_runs, n_nodes, max_failures, mtbf_s, process=process,
+            device=dev)
+    else:
+        gaps, failed, fmask = renewal_failure_gaps(
+            key, n_runs, n_nodes, max_failures, mtbf_s, process=process,
+            topology=topology, device=dev)
+        felled = node_topology.survivor_slot_mask(fmask, failed)
+    res = renewal_compose(cfg, gaps, makespan_s, failed_node=failed,
+                          felled=felled, device=dev)
     return _renewal_summary(
+        felled=felled, fmask=fmask,
         valid=res.valid, failed_node=res.failed_node, truncated=res.truncated,
         energy_ref=res.energy_ref, energy_int=res.energy_int,
         saving=res.saving, wait_action=res.decision.wait_action,

@@ -61,6 +61,20 @@
 // instead of once per 32 / N, with no shuffles.  lanes_per_run takes
 // G = N while the launch's groups fit on the card at once, G = 1 beyond.
 //
+// Wide shapes.  renewal_scan_kernel<N, G> keeps every survivor of a lane in
+// registers, so it is instantiated for 1..kMaxN survivors and unrolls its
+// ladder to kMaxF levels.  Past either bound the shape takes
+// renewal_scan_wide_kernel (up to kWideMaxN survivors and kWideMaxF levels):
+// one lane per run, runtime loops over the survivors and the ladder, the
+// per-survivor carry (age, float64 anchor) and the epoch's exec_rem and age
+// in per-thread arrays (local memory), each survivor's period and 1/period
+// in shared memory, and the felled flags as a 64-bit mask.  An epoch takes
+// two passes over the survivors: the sawtooth, the wrap and the cross-node
+// sums and maxima first, then the plan, Algorithm 1 and the re-anchor.  Its
+// float32 operations are the one-lane case's, in the same node order, so it
+// gives the same bits as the plain version too.  The shape alone picks the
+// kernel.
+//
 // Numerics.  Built with -fmad=false and without fast-math: no
 // multiply-add contraction (the Kahan steps and the closed forms
 // q - j*period, exec_rem*beta + age must round as separate operations, or
@@ -92,8 +106,10 @@ namespace {
 
 constexpr int kParams = 17;   // PARAM_COLS in ../renewal_scan.py
 constexpr int kBlock = 128;   // threads per block: 4 warps
-constexpr int kMaxN = 4;      // MAX_N in ../renewal_scan.py
-constexpr int kMaxF = 4;      // MAX_F in ../renewal_scan.py
+constexpr int kMaxN = 4;      // FAST_MAX_N in ../renewal_scan.py
+constexpr int kMaxF = 4;      // FAST_MAX_F in ../renewal_scan.py
+constexpr int kWideMaxN = 64; // MAX_N in ../renewal_scan.py
+constexpr int kWideMaxF = 16; // MAX_F in ../renewal_scan.py
 constexpr unsigned kFullMask = 0xffffffffu;
 // column indices of the packed parameter row
 enum Col {
@@ -553,6 +569,264 @@ renewal_scan_kernel(const float* __restrict__ params,
   }
 }
 
+// The wide shapes' kernel: one lane per run, n survivors and nf ladder
+// levels at run time (see the header).  Every float32 expression is the
+// one-lane case's of renewal_scan_kernel, in its order.
+__global__ void __launch_bounds__(kBlock)
+renewal_scan_wide_kernel(const float* __restrict__ params,
+                         const float* __restrict__ nodes,
+                         const float* __restrict__ ladder,
+                         const float* __restrict__ gaps,
+                         const float* __restrict__ felled,
+                         int n, int nf, int n_epochs, int n_runs, bool comp,
+                         int32_t* __restrict__ valid,
+                         float* __restrict__ fstats,
+                         int32_t* __restrict__ istats) {
+  __shared__ float s_par[kParams];
+  __shared__ float s_age0[kWideMaxN];
+  __shared__ double s_exec0[kWideMaxN], s_period[kWideMaxN], s_inv[kWideMaxN];
+  __shared__ float s_lad[5][kWideMaxF];
+  __shared__ int s_nfail[kBlock];
+  const int p = blockIdx.y;
+  for (int i = threadIdx.x; i < kParams; i += blockDim.x)
+    s_par[i] = params[p * kParams + i];
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float* nd = nodes + (size_t)p * 3 * n;
+    s_age0[i] = nd[i];
+    s_exec0[i] = (double)nd[n + i];
+    s_period[i] = (double)nd[2 * n + i];
+    s_inv[i] = 1.0 / s_period[i];
+  }
+  for (int i = threadIdx.x; i < 5 * nf; i += blockDim.x)
+    s_lad[i / nf][i % nf] = ladder[(size_t)p * 5 * nf + i];
+  __syncthreads();
+
+  const int block_r0 = blockIdx.x * kBlock;
+  const int r = block_r0 + threadIdx.x;
+  const bool has_run = r < n_runs;
+
+  const float interval = s_par[INTERVAL], dur = s_par[DUR];
+  const float t_restart = s_par[T_RESTART];
+  const float t_dr = s_par[T_DOWN] + t_restart;
+  const float makespan = s_par[MAKESPAN];
+  const int wait_mode = (int)s_par[WAIT_MODE];
+  const bool move_ahead = s_par[MOVE_AHEAD] > 0.5f;
+  const float move_frac = s_par[MOVE_FRAC];
+  const float mu1 = s_par[MU1], mu2 = s_par[MU2];
+  const float p_idle_wait = s_par[P_IDLE_WAIT];
+  const float trans_t = s_par[T_GO_SLEEP] + s_par[T_WAKEUP];
+  const float trans_e = s_par[T_GO_SLEEP] * s_par[P_GO_SLEEP]
+                      + s_par[T_WAKEUP] * s_par[P_WAKEUP];
+  const float p_sleep = s_par[P_SLEEP];
+  const float gate_t = mu1 * trans_t;
+  const float* p_comp = s_lad[1];
+  const float* beta = s_lad[2];
+  const float* p_ckpt = s_lad[3];
+  const float* gamma = s_lad[4];
+  const float beta0 = beta[0], gamma0 = gamma[0];
+  const float p_comp0 = p_comp[0], p_ckpt0 = p_ckpt[0];
+  const float dur_fa = dur * gamma0;
+  const bool active = wait_mode == kWaitActive;
+  const float p_awake = active ? p_comp[nf - 1] : p_idle_wait;
+  const float p_ref_wait = active ? p_comp0 : p_idle_wait;
+  const float one_plus = (float)(1.0 + 1e-6);
+  const float feas_abs = (float)1e-3;
+  const float e_resync = (float)(n + 1) * dur_fa * p_ckpt0;
+
+  // the run's carry and the epoch's per-survivor values
+  float age[kWideMaxN], age_f[kWideMaxN];
+  double anchor[kWideMaxN], exec_rem[kWideMaxN];
+  for (int i = 0; i < n; ++i) {
+    age[i] = s_age0[i];
+    anchor[i] = s_exec0[i];
+  }
+  float age_fail = s_par[REEXEC0];
+  float bal = 0.f, bal_c = 0.f, t_anchor = 0.f, t_anchor_c = 0.f;
+  float a_bal = 0.f, a_bal_c = 0.f, a_ref = 0.f, a_ref_c = 0.f;
+  float a_int = 0.f, a_int_c = 0.f, a_sav = 0.f, a_sav_c = 0.f;
+  int nfail = 0, npts = 0, nsleep = 0, nminf = 0, ncomp = 0, ninf = 0;
+  bool alive = has_run;
+
+  int k = 0;
+  for (; k < n_epochs; ++k) {
+    if (__all_sync(kFullMask, !alive)) break;
+    const float delta = alive ? gaps[(size_t)k * n_runs + r] : 0.f;
+    const bool occurs = alive && (bal + delta <= makespan);
+    float x_bal = 0.f, x_ref = 0.f, x_int = 0.f, x_sav = 0.f;
+    float x_clock = 0.f, x_anchor = 0.f;
+    if (occurs) {
+      uint64_t fel = 0u;
+      if (felled != nullptr) {
+        for (int i = 0; i < n; ++i)
+          fel |= (uint64_t)(felled[((size_t)k * n + i) * n_runs + r] > 0.5f) << i;
+      }
+      // pass 1: sawtooth and wrap per survivor; the cross-node sums and
+      // maxima in node order
+      const Sawtooth sf = advance(age_fail, delta, interval, dur);
+      float e_bal = 0.f, reexec_fel = -INFINITY;
+      double p_star64 = -INFINITY;
+      for (int i = 0; i < n; ++i) {
+        const Sawtooth sv = advance(age[i], delta, interval, dur);
+        const double rem = floor_mod(anchor[i] - (double)sv.work, s_period[i],
+                                     s_inv[i]);
+        const double er = rem == 0.0 ? s_period[i] : rem;
+        exec_rem[i] = er;
+        age_f[i] = sv.age;
+        const float e_node = sv.work * p_comp0 + (sv.d_eff - sv.work) * p_ckpt0;
+        e_bal = i == 0 ? e_node : e_bal + e_node;
+        const bool fel_i = (fel >> i) & 1u;
+        if (!fel_i && er > p_star64) p_star64 = er;
+        if (fel_i) reexec_fel = maxf(reexec_fel, sv.age);
+      }
+      const float reexec = maxf(sf.age, reexec_fel);
+      if (!(p_star64 > 0.0)) p_star64 = 0.0;
+      const float p_star = (float)p_star64;
+      const float t_recover = t_dr + reexec;
+      const float t_e = t_recover + p_star;
+      x_bal = (e_bal + (sf.work * p_comp0 + (sf.d_eff - sf.work) * p_ckpt0))
+              + e_resync;
+
+      // pass 2: checkpoint plan, Algorithm 1 and re-anchor per survivor
+      float s_ref = 0.f, s_int = 0.f, s_sav = 0.f;
+      for (int i = 0; i < n; ++i) {
+        const float er = (float)exec_rem[i], af = age_f[i];
+        const float t_failed = t_recover + er;
+        const float n0 = timer_count(er, af, beta0, interval);
+        const float wait_blk = t_failed - (er + n0 * dur);
+        const float last_end = n0 > 0.0f
+            ? (interval - af) + (n0 - 1.0f) * (interval + dur) + dur
+            : -af;
+        const float age_blk = er + n0 * dur - last_end;
+        const bool plan_move = move_ahead && (age_blk > move_frac * interval)
+                               && (wait_blk > dur);
+        const float move = plan_move ? 1.0f : 0.0f;
+
+        const float feas_rhs = t_failed * one_plus + feas_abs;
+        float best_total = 0.f, best_ct = 0.f, ct_ref = 0.f, e_comp_ref = 0.f;
+        int best_level = 0;
+        bool best_sleeps = false, sleeps_ref = false, feasible_any = false;
+        for (int f = 0; f < nf; ++f) {
+          const float n_f = f == 0 ? n0 + move
+                                   : timer_count(er, af, beta[f], interval) + move;
+          const float ckpt_t = n_f * dur * gamma[f];
+          const float ct = er * beta[f] + ckpt_t;
+          const bool feasible = ct <= feas_rhs;
+          const float wt = t_failed - ct;
+          const float e_comp = er * beta[f] * p_comp[f] + ckpt_t * p_ckpt[f];
+          const float e_awake = maxf(wt, 0.0f) * p_awake;
+          const float e_sleep = trans_e + maxf(wt - trans_t, 0.0f) * p_sleep;
+          const bool sleeps = (wt > gate_t) && (e_sleep < mu2 * e_awake);
+          const float total = feasible
+              ? e_comp + (sleeps ? e_sleep : e_awake) : INFINITY;
+          if (f == 0) {
+            ct_ref = ct; e_comp_ref = e_comp; sleeps_ref = sleeps;
+            best_total = total; best_ct = ct; best_sleeps = sleeps;
+            best_level = 0; feasible_any = feasible;
+          } else {
+            if (total < best_total) {
+              best_total = total; best_ct = ct; best_sleeps = sleeps;
+              best_level = f;
+            }
+            feasible_any = feasible_any || feasible;
+          }
+        }
+        const float eni = e_comp_ref + maxf(t_failed - ct_ref, 0.0f) * p_ref_wait;
+        const float e_sel = feasible_any ? best_total : eni;
+        const int level_sel = feasible_any ? best_level : 0;
+        const float comp_time = feasible_any ? best_ct : ct_ref;
+        const bool sleeps = (feasible_any ? best_sleeps : sleeps_ref) && feasible_any;
+        int action = sleeps ? kActionSleep : (active ? kActionMinFreq : 0);
+        if (!feasible_any) action = 0;
+
+        const float trail_ref = maxf(t_e - maxf(t_failed, ct_ref), 0.0f) * p_comp0;
+        const float trail_int = maxf(t_e - maxf(t_failed, comp_time), 0.0f) * p_comp0;
+        const float eni_t = eni + trail_ref;
+        const float ei_t = e_sel + trail_int;
+        const bool v2 = !((fel >> i) & 1u);
+        const float w_ref = v2 ? eni_t : 0.0f;
+        const float w_int = v2 ? ei_t : 0.0f;
+        const float w_sav = v2 ? eni_t - ei_t : 0.0f;
+        s_ref = i == 0 ? w_ref : s_ref + w_ref;
+        s_int = i == 0 ? w_int : s_int + w_int;
+        s_sav = i == 0 ? w_sav : s_sav + w_sav;
+        if (v2) {
+          npts += 1;
+          nsleep += action == kActionSleep;
+          nminf += action == kActionMinFreq;
+          ncomp += level_sel != 0;
+          ninf += !feasible_any;
+        }
+        // re-anchor: next rendezvous strictly past P*
+        const double gap = floor_mod(p_star64 - exec_rem[i], s_period[i],
+                                     s_inv[i]);
+        anchor[i] = gap == 0.0 ? s_period[i] : s_period[i] - gap;
+        age[i] = 0.0f;
+      }
+      const float epoch_failed = (1.0f + (float)__popcll(fel))
+          * (t_restart * p_ckpt0 + (reexec + p_star) * p_comp0);
+      x_ref = s_ref + epoch_failed;
+      x_int = s_int + epoch_failed;
+      x_sav = s_sav;
+      x_clock = sf.d_eff;
+      x_anchor = sf.d_eff + t_e + dur_fa;
+      age_fail = 0.0f;
+      nfail += 1;
+    }
+    kadd(a_bal, a_bal_c, x_bal, comp);
+    kadd(a_ref, a_ref_c, x_ref, comp);
+    kadd(a_int, a_int_c, x_int, comp);
+    kadd(a_sav, a_sav_c, x_sav, comp);
+    kadd(bal, bal_c, x_clock, true);
+    kadd(t_anchor, t_anchor_c, x_anchor, true);
+    alive = occurs;
+  }
+  const int rest = n_epochs - k;
+  kadd_zeros(a_bal, a_bal_c, rest, comp);
+  kadd_zeros(a_ref, a_ref_c, rest, comp);
+  kadd_zeros(a_int, a_int_c, rest, comp);
+  kadd_zeros(a_sav, a_sav_c, rest, comp);
+  kadd_zeros(bal, bal_c, rest, true);
+  kadd_zeros(t_anchor, t_anchor_c, rest, true);
+
+  if (has_run) {
+    const float span = maxf(makespan - bal, 0.0f);
+    float w, ck, tail = 0.f;
+    for (int i = 0; i < n; ++i) {
+      balanced_span(age[i], span, interval, dur, w, ck);
+      const float e_tail = w * p_comp0 + ck * p_ckpt0;
+      tail = i == 0 ? e_tail : tail + e_tail;
+    }
+    balanced_span(age_fail, span, interval, dur, w, ck);
+    tail = tail + (w * p_comp0 + ck * p_ckpt0);
+    kadd(a_bal, a_bal_c, tail, comp);
+
+    const size_t plane = (size_t)gridDim.y * n_runs;
+    const size_t o = (size_t)p * n_runs + r;
+    fstats[0 * plane + o] = a_bal + a_ref;      // energy_ref
+    fstats[1 * plane + o] = a_bal + a_int;      // energy_int
+    fstats[2 * plane + o] = a_sav;              // saving
+    fstats[3 * plane + o] = a_bal;              // balanced_energy
+    fstats[4 * plane + o] = t_anchor + span;    // end_time
+    istats[0 * plane + o] = nfail;
+    istats[1 * plane + o] = (alive && bal < makespan) ? 1 : 0;   // truncated
+    istats[2 * plane + o] = npts;
+    istats[3 * plane + o] = nsleep;
+    istats[4 * plane + o] = nminf;
+    istats[5 * plane + o] = ncomp;
+    istats[6 * plane + o] = ninf;
+    s_nfail[threadIdx.x] = nfail;
+  }
+
+  // the block's valid tile, row by row: valid[p, k, r] = k < n_failures(r)
+  __syncthreads();
+  const int runs = min(kBlock, n_runs - block_r0);
+  int32_t* valid_p = valid + (size_t)p * n_epochs * n_runs + block_r0;
+  for (int i = threadIdx.x; i < n_epochs * runs; i += kBlock) {
+    const int kk = i / runs, j = i - kk * runs;
+    valid_p[(size_t)kk * n_runs + j] = kk < s_nfail[j] ? 1 : 0;
+  }
+}
+
 template <int N, int G>
 int launch(const float* params, const float* nodes, const float* ladder,
            const float* gaps, const float* felled, int n_lanes, int nf,
@@ -599,6 +873,27 @@ const void* kernel_for(int n, bool per_survivor) {
   }
 }
 
+// the shape picks the kernel: renewal_scan_kernel<N, G> within its
+// compile-time bounds, the wide kernel beyond them
+bool fast_shape(int n, int nf) {
+  return n >= 1 && n <= kMaxN && nf >= 1 && nf <= kMaxF;
+}
+
+bool wide_shape(int n, int nf) {
+  return n >= 1 && n <= kWideMaxN && nf >= 1 && nf <= kWideMaxF;
+}
+
+int launch_wide(const float* params, const float* nodes, const float* ladder,
+                const float* gaps, const float* felled, int n_lanes, int n,
+                int nf, int n_epochs, int n_runs, int compensated,
+                int32_t* valid, float* fstats, int32_t* istats, void* stream) {
+  dim3 grid((n_runs + kBlock - 1) / kBlock, n_lanes);
+  renewal_scan_wide_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      params, nodes, ladder, gaps, felled, n, nf, n_epochs, n_runs,
+      compensated != 0, valid, fstats, istats);
+  return (int)cudaGetLastError();
+}
+
 // Lanes per run for a launch of runs_total runs: one lane per survivor
 // while all the groups fit on the card at once (the launch is then
 // latency-bound: the group shortens each run's chain and multiplies the
@@ -608,6 +903,7 @@ const void* kernel_for(int n, bool per_survivor) {
 // choice (and its per-device cache) bears on speed only.
 int lanes_per_run(int n, long long runs_total) {
   static int cached_device = -1, slots[kMaxN + 1] = {};
+  if (n < 1 || n > kMaxN) return 1;        // wide shapes: one lane per run
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return n;
   if (dev != cached_device) {
@@ -658,28 +954,40 @@ extern "C" {
 
 // Launch on `stream` without synchronising; returns the launch's cudaError_t.
 // felled may be null (no shocks).  fstats is (5, P, R) float32 and istats
-// (7, P, R) int32 in the STAT_FIELDS order of ../renewal_scan.py.  The
-// mapping (lanes per run) follows lanes_per_run().
+// (7, P, R) int32 in the STAT_FIELDS order of ../renewal_scan.py.  Shapes
+// within kMaxN survivors and kMaxF levels run renewal_scan_kernel<N, G>
+// with the mapping (lanes per run) of lanes_per_run(); wider shapes, up to
+// kWideMaxN and kWideMaxF, the wide kernel.
 int renewal_scan_launch(const float* params, const float* nodes,
                         const float* ladder, const float* gaps,
                         const float* felled, int n_lanes, int n, int nf,
                         int n_epochs, int n_runs, int compensated,
                         int32_t* valid, float* fstats, int32_t* istats,
                         void* stream) {
-  if (n < 1 || n > kMaxN) return (int)cudaErrorInvalidValue;
+  if (!wide_shape(n, nf)) return (int)cudaErrorInvalidValue;
+  if (!fast_shape(n, nf))
+    return launch_wide(params, nodes, ladder, gaps, felled, n_lanes, n, nf,
+                       n_epochs, n_runs, compensated, valid, fstats, istats,
+                       stream);
   return launch_mapped(params, nodes, ladder, gaps, felled, n_lanes, n, nf,
                        n_epochs, n_runs, compensated, valid, fstats, istats,
                        stream, lanes_per_run(n, (long long)n_lanes * n_runs));
 }
 
 // The same with the lanes per run given (1 or n): for measuring the two
-// mappings against each other.
+// mappings against each other.  Wide shapes take only lanes = 1.
 int renewal_scan_launch_lanes(const float* params, const float* nodes,
                               const float* ladder, const float* gaps,
                               const float* felled, int n_lanes, int n, int nf,
                               int n_epochs, int n_runs, int compensated,
                               int32_t* valid, float* fstats, int32_t* istats,
                               void* stream, int lanes) {
+  if (!fast_shape(n, nf)) {
+    if (!wide_shape(n, nf) || lanes != 1) return (int)cudaErrorInvalidValue;
+    return launch_wide(params, nodes, ladder, gaps, felled, n_lanes, n, nf,
+                       n_epochs, n_runs, compensated, valid, fstats, istats,
+                       stream);
+  }
   return launch_mapped(params, nodes, ladder, gaps, felled, n_lanes, n, nf,
                        n_epochs, n_runs, compensated, valid, fstats, istats,
                        stream, lanes);
@@ -688,11 +996,12 @@ int renewal_scan_launch_lanes(const float* params, const float* nodes,
 // Resident blocks per SM of the kernel for N survivors and `lanes` lanes
 // per run (1 or N), as CUDA's occupancy calculator derives them from its
 // registers and static shared memory, with its threads per block and the
-// runs a block holds.
+// runs a block holds.  N past kMaxN (lanes = 1) is the wide kernel.
 int renewal_scan_occupancy(int n, int lanes, int* blocks, int* threads,
                            int* runs_per_block) {
   if (lanes != 1 && lanes != n) return (int)cudaErrorInvalidValue;
-  const void* fn = kernel_for(n, lanes == n);
+  const void* fn = n > kMaxN && n <= kWideMaxN && lanes == 1
+      ? (const void*)renewal_scan_wide_kernel : kernel_for(n, lanes == n);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   *threads = kBlock;
   *runs_per_block = (32 / lanes) * (kBlock / 32);
@@ -700,9 +1009,10 @@ int renewal_scan_occupancy(int n, int lanes, int* blocks, int* threads,
 }
 
 // The lanes per run renewal_scan_launch takes for n_lanes x n_runs runs of
-// N survivors on the current device.
+// N survivors on the current device, at ladder depths up to kMaxF (the wide
+// kernel, past kMaxN survivors or kMaxF levels, takes one).
 int renewal_scan_lanes_per_run(int n, int n_lanes, int n_runs) {
-  if (n < 1 || n > kMaxN) return -1;
+  if (n < 1 || n > kWideMaxN) return -1;
   return lanes_per_run(n, (long long)n_lanes * n_runs);
 }
 

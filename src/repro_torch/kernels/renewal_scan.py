@@ -31,7 +31,12 @@ Two implementations of one function live here:
     fast floor-mod; gaps are loaded one epoch ahead; a warp leaves the
     epoch loop once all its runs are dead, and ``valid`` is written once
     per block after the scan (design notes and the arguments for
-    bit-equality in the source).
+    bit-equality in the source).  That kernel holds a lane's survivors in
+    registers, so it is compiled for up to ``FAST_MAX_N`` survivors and
+    ``FAST_MAX_F`` ladder levels; wider shapes (up to ``MAX_N`` and
+    ``MAX_F``) take a second kernel with one lane per run and runtime
+    loops over survivors and levels.  The shape alone picks the kernel, and
+    both give the plain version's bits.
 
 One deliberate difference from the TPU kernel: the rendezvous anchors and
 their wrap are float64 (the rest is float32).  In float32 the rounding of
@@ -60,7 +65,8 @@ from repro_torch.kernels import _build
 
 __all__ = ["renewal_scan", "renewal_scan_reference", "pack_lane_params",
            "N_PARAMS", "PARAM_COLS", "STAT_FIELDS", "LAUNCHES",
-           "reset_launch_counts", "MAX_N", "MAX_F"]
+           "reset_launch_counts", "MAX_N", "MAX_F", "FAST_MAX_N",
+           "FAST_MAX_F", "kernel_name"]
 
 # column map of the packed per-lane scalar row
 PARAM_COLS = (
@@ -82,12 +88,16 @@ STAT_FIELDS = (
 )
 _N_FSTATS = sum(dt == torch.float32 for _, dt in STAT_FIELDS)
 
-# compile-time bounds of the CUDA kernel (kMaxN, kMaxF in
-# csrc/renewal_scan.cu): it is instantiated for 1..kMaxN survivors and
-# unrolls its ladder loop to kMaxF levels; every configuration on the path
-# has 3 survivors and 4 ladder levels
-MAX_N = 4
-MAX_F = 4
+# bounds of the CUDA kernels (csrc/renewal_scan.cu): renewal_scan_kernel
+# <N, G> is instantiated for 1..kMaxN survivors and unrolls its ladder loop
+# to kMaxF levels (the Table-4 path has 3 survivors and 4 levels);
+# renewal_scan_wide_kernel takes the shapes beyond, up to kWideMaxN
+# survivors and kWideMaxF levels (its per-thread arrays and its 64-bit
+# felled mask).  Past MAX_N or MAX_F the wrapper raises.
+FAST_MAX_N = 4
+FAST_MAX_F = 4
+MAX_N = 64
+MAX_F = 16
 
 # launches of the CUDA kernel (not of the plain version), per kernel name
 LAUNCHES = {"renewal_scan": 0}
@@ -99,6 +109,15 @@ LIBRARY = ("renewal_scan", "renewal_scan.cu", _build.EXACT_FLAGS)
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def kernel_name(n: int, n_levels: int, lanes: int = 1) -> str:
+    """The CUDA kernel a shape launches: ``renewal_scan_kernel<N,G>``
+    (``lanes`` = G lanes per run) within ``FAST_MAX_N``/``FAST_MAX_F``,
+    ``renewal_scan_wide_kernel`` beyond."""
+    if n <= FAST_MAX_N and n_levels <= FAST_MAX_F:
+        return f"renewal_scan_kernel<{n},{lanes}>"
+    return "renewal_scan_wide_kernel"
 
 
 def pack_lane_params(*, interval, dur, reexec0, t_down, t_restart, mu1, mu2,
@@ -349,8 +368,10 @@ def _launch_cuda(params, nodes, ladder, gaps, felled, compensated: bool,
     """Launch the CUDA kernel on the operands' card (no synchronisation).
     ``lib`` is this package's build of ``csrc/renewal_scan.cu`` unless a
     caller passes another build of the same C interface to compare.  The
-    kernel picks its lanes per run (1, or one per survivor) from the launch
-    size; ``lanes`` forces one of the two, to compare them."""
+    shape picks the kernel; within ``FAST_MAX_N``/``FAST_MAX_F`` the kernel
+    picks its lanes per run (1, or one per survivor) from the launch size,
+    and ``lanes`` forces one of the two, to compare them (the wide kernel
+    takes only 1)."""
     tensors = [params, nodes, ladder, gaps] + ([] if felled is None else [felled])
     dev = params.device
     for t in tensors:
@@ -366,15 +387,19 @@ def _launch_cuda(params, nodes, ladder, gaps, felled, compensated: bool,
     n_epochs, n_runs = gaps.shape
     if not 1 <= n <= MAX_N or not 1 <= n_levels <= MAX_F:
         raise ValueError(
-            f"the CUDA renewal kernel supports 1..{MAX_N} survivors and "
-            f"1..{MAX_F} ladder levels; got N={n}, F={n_levels}")
+            f"the CUDA renewal kernels support 1..{MAX_N} survivors and "
+            f"1..{MAX_F} ladder levels (MAX_N, MAX_F); got N={n}, "
+            f"F={n_levels}")
     if n_lanes < 1 or n_runs < 1 or n_epochs < 1:
         raise ValueError("renewal_scan needs P, K, R >= 1")
     if n_lanes > 65535:
         raise ValueError("renewal_scan supports at most 65535 lanes per launch")
 
-    if lanes is not None and lanes not in (1, n):
-        raise ValueError(f"lanes per run must be 1 or N={n}; got {lanes}")
+    wide = n > FAST_MAX_N or n_levels > FAST_MAX_F
+    if lanes is not None and lanes not in ((1,) if wide else (1, n)):
+        raise ValueError(f"lanes per run must be 1 or N={n} (1 past "
+                         f"{FAST_MAX_N} survivors or {FAST_MAX_F} levels); "
+                         f"got {lanes}")
     if lib is None:
         lib = _build.load_library(*LIBRARY)
     fn = lib.renewal_scan_launch if lanes is None else lib.renewal_scan_launch_lanes

@@ -4,8 +4,9 @@
 neither ``jax`` nor any part of the reference package ``repro``; every
 module imports with ``jax`` made unimportable, and importing them builds no
 kernel.  The entry points that import lazily (the event oracle, the sweep,
-the Monte-Carlo, the planners, both renewal engines) run with ``jax`` and
-``repro`` unimportable too.
+the Monte-Carlo, the planners, both renewal engines, the correlated
+``topology=`` sampler, the failure processes and the trace export) run
+with ``jax`` and ``repro`` unimportable too.
 """
 import ast
 import os
@@ -64,7 +65,8 @@ def test_every_module_imports_without_jax():
                          text=True, env=env, cwd=str(ROOT), timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
-    assert len(mods) >= 13
+    assert len(mods) >= 15
+    assert {"repro_torch.core.topology", "repro_torch.core.trace"} <= set(mods)
 
 
 def test_entry_points_run_without_jax():
@@ -73,7 +75,9 @@ def test_entry_points_run_without_jax():
         sys.modules["jax"] = None
         sys.modules["repro"] = None
         import numpy as np
-        from repro_torch.core import optimize, planning, prng, scenarios, simulator, sweep
+        from repro_torch.core import (failures, optimize, planning, prng,
+                                      scenarios, simulator, sweep, topology,
+                                      trace)
         cfgs = list(scenarios.paper_scenarios().values())
         rows, _, _ = simulator.compare(cfgs[0], device="cpu")
         run = simulator.simulate_run(cfgs[1], [4000.0, 9000.0], 3e4, device="cpu")
@@ -93,6 +97,15 @@ def test_entry_points_run_without_jax():
             optimize.policy_grid(ckpt_interval=[3600.0, 7200.0]),
             prng.PRNGKey(2), work_s=1e5, n_runs=8, max_failures=4,
             mtbf_s=1e4, device="cpu")
+        topo = topology.rack_topology(4, 4, shock_mtbs_s=2e5, p_kill=0.9)
+        for engine in ("host", "device", "kernel"):
+            sweep.renewal_monte_carlo(cfgs[3], prng.PRNGKey(3), n_runs=8,
+                                      max_failures=4, topology=topo,
+                                      process=failures.Gamma.from_mtbf(0.5, 3e5),
+                                      engine=engine, device="cpu")
+        failures.fit_weibull([1.0, 2.0, 5.0], censored=[3.0])
+        prv = trace.to_prv(simulator.simulate(cfgs[0], True, device="cpu"))
+        assert prv.startswith("#Paraver")
         assert len(rows) == 3 and run.n_failures == 2 and mc.n_samples == 64
         assert tuple(res.decision.level.shape) == (6, 2, 8, 3)
         assert "jax" not in [k for k, v in sys.modules.items() if v is not None]

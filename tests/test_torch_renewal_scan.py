@@ -7,10 +7,17 @@ integer stats exact; the float32 energies and times within 1e-5 relative;
 the saving (a difference of two whole-run energies) within 1e-5 of the
 reference energy.  The port keeps the rendezvous anchors in float64 where
 the reference rounds them to float32 (see kernels/renewal_scan.py), so the
-two need not be bit-equal.  The CUDA kernel itself is held against this
-plain version on the card (``requires_cuda``, at every survivor count and
-ladder depth the kernel takes; ``chip_smoke.py`` also does it at the main
-path's shapes).  The kernel's two numerical shortcuts, its fast floor-mod
+two need not be bit-equal.  Past the fast kernel's 4 survivors and 4
+ladder levels (the fleet preset's 7 survivors, 16 survivors with 8 levels)
+the same bars hold on every scenario but the first, whose 1800 s
+checkpoint interval puts runs on exact rendezvous wraps: there the
+reference's float32 anchors land a period away (ROADMAP.md, Queue 3,
+item 3), which at 8 levels moves some level choices, so that scenario is
+held to the failure and point counts exactly and to 1e-4 on its floats.
+The CUDA kernels themselves are held against this plain version on the
+card (``requires_cuda``: every survivor count and ladder depth of the fast
+kernel, and wide shapes up to the caps; ``chip_smoke.py`` also does it at
+the paths' shapes).  The kernel's two numerical shortcuts, its fast floor-mod
 and its early stop of the zero Kahan steps, are held here against what they
 replace through Python twins of the device code.
 """
@@ -139,23 +146,27 @@ def test_dispatch_rejects_bad_operands(packed):
 
 
 def test_kernel_bounds_match_source():
-    """The wrapper's MAX_N/MAX_F are the kernel's compile-time bounds."""
+    """The wrapper's bounds are the kernels' compile-time bounds: the fast
+    kernel's FAST_MAX_N/FAST_MAX_F, the wide kernel's MAX_N/MAX_F."""
     import pathlib
     import re
 
     src = (pathlib.Path(rs.__file__).parent / "csrc" / "renewal_scan.cu").read_text()
     bound = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
-    assert (bound("kMaxN"), bound("kMaxF")) == (rs.MAX_N, rs.MAX_F)
+    assert (bound("kMaxN"), bound("kMaxF")) == (rs.FAST_MAX_N, rs.FAST_MAX_F)
+    assert (bound("kWideMaxN"), bound("kWideMaxF")) == (rs.MAX_N, rs.MAX_F)
+    assert rs.MAX_N >= 32 and rs.MAX_F >= 8
 
 
 @pytest.mark.parametrize("n,nf", [(rs.MAX_N + 1, rs.MAX_F),
                                   (rs.MAX_N, rs.MAX_F + 1)])
 def test_launch_rejects_shapes_beyond_kernel_bounds(n, nf):
-    """Survivors or ladder levels past the kernel's register arrays raise
-    before anything is built or launched."""
+    """Survivors or ladder levels past the wide kernel's caps raise, naming
+    the caps, before anything is built or launched."""
     ops = (torch.zeros(1, rs.N_PARAMS), torch.zeros(1, 3, n),
            torch.zeros(1, 5, nf), torch.ones(K, 8))
-    with pytest.raises(ValueError, match="survivors"):
+    with pytest.raises(ValueError, match=rf"1\.\.{rs.MAX_N} survivors and "
+                                         rf"1\.\.{rs.MAX_F} ladder levels"):
         rs._launch_cuda(*ops, None, True)
 
 
@@ -168,19 +179,90 @@ def test_launch_rejects_a_mapping_the_kernel_lacks():
         rs._launch_cuda(*ops, None, True, lanes=2)
 
 
+@pytest.mark.parametrize("n,nf", [(5, 4), (3, 8)])
+def test_wide_kernel_takes_one_lane_per_run(n, nf):
+    """Past the fast kernel's bounds the wide kernel runs, one lane per
+    run: a group of N lanes raises before anything is built or launched."""
+    ops = (torch.zeros(1, rs.N_PARAMS), torch.zeros(1, 3, n),
+           torch.zeros(1, 5, nf), torch.ones(K, 8))
+    with pytest.raises(ValueError, match="lanes per run"):
+        rs._launch_cuda(*ops, None, True, lanes=n)
+
+
+def test_kernel_name_follows_the_shape():
+    assert rs.kernel_name(3, 4, 3) == "renewal_scan_kernel<3,3>"
+    assert rs.kernel_name(4, 4) == "renewal_scan_kernel<4,1>"
+    for n, nf in ((5, 4), (3, 5), (rs.MAX_N, rs.MAX_F)):
+        assert rs.kernel_name(n, nf) == "renewal_scan_wide_kernel"
+
+
+def _widen_ladder(ladder, nf: int):
+    """``nf`` ladder levels from a packed (P, 5, F) ladder: the first ``nf``
+    levels, or past F levels spaced evenly between the first and the last
+    by linear interpolation of every row (level 0 stays the reference)."""
+    f = ladder.shape[2]
+    if nf <= f:
+        return ladder[:, :, :nf]
+    lad = np.asarray(to_np(ladder), np.float64)
+    pos = np.linspace(0.0, f - 1.0, nf)
+    out = np.stack([[np.interp(pos, np.arange(f), row) for row in lane]
+                    for lane in lad]).astype(np.float32)
+    return torch.as_tensor(out) if isinstance(ladder, torch.Tensor) else out
+
+
 def _with_shape(ops, n: int, nf: int):
     """Packed operands at ``n`` survivors and ``nf`` ladder levels: node
     columns taken in turn (a fourth survivor repeats the first), ladder
-    levels sliced from level 0."""
+    levels as ``_widen_ladder``."""
     params, nodes, ladder = ops
     cols = [i % nodes.shape[2] for i in range(n)]
-    return (params, nodes[:, :, cols].contiguous(),
-            ladder[:, :, :nf].contiguous())
+    lad = _widen_ladder(ladder, nf)
+    if isinstance(nodes, torch.Tensor):
+        return (params, nodes[:, :, cols].contiguous(),
+                torch.as_tensor(lad).to(ladder.device).contiguous())
+    return params, np.ascontiguousarray(nodes[:, :, cols]), \
+        np.ascontiguousarray(lad)
+
+
+@pytest.mark.parametrize("n,nf", [(7, 4), (16, 8)])
+def test_plain_version_matches_pallas_wide(ref, packed, n, nf):
+    """The plain version at the fleet preset's 7 survivors and at 16
+    survivors x 8 levels against the reference's Pallas kernel in interpret
+    mode, with shocks, at K = 8 and R = 40 (see the module docstring for
+    the first scenario's bars)."""
+    ops = _with_shape(packed[0], n, nf)
+    rng = np.random.default_rng(n)
+    gaps = rng.exponential(14 * 24 * 3600.0 / (n + 1), (8, 40)).astype(np.float32)
+    felled = (rng.random((8, n, 40)) < 0.2).astype(np.float32)
+    theirs = ref.renewal_scan.renewal_scan_pallas(
+        *ops, gaps, felled, block_r=32, interpret=True)
+    ours = rs.renewal_scan(*(torch.from_numpy(a) for a in ops),
+                           torch.from_numpy(gaps), torch.from_numpy(felled))
+    theirs = {k: np.asarray(v) for k, v in theirs.items()}
+    ours = {k: to_np(v) for k, v in ours.items()}
+    for name in INT_STATS:
+        np.testing.assert_array_equal(ours[name][1:], theirs[name][1:],
+                                      err_msg=name)
+    for name in ("valid", "n_failures", "truncated", "n_points"):
+        np.testing.assert_array_equal(ours[name], theirs[name], err_msg=name)
+    for name in FLOAT_STATS:
+        np.testing.assert_allclose(ours[name][1:], theirs[name][1:],
+                                   rtol=1e-5, err_msg=name)
+        np.testing.assert_allclose(ours[name], theirs[name], rtol=1e-4,
+                                   err_msg=name)
+    sav_err = np.abs(ours["saving"].astype(np.float64) - theirs["saving"])
+    assert np.all(sav_err[1:] <= 1e-5 * theirs["energy_ref"][1:])
+    assert int(ours["valid"].sum()) > 0
+
+
+WIDE_SHAPES = [(5, 4), (7, 4), (3, 8), (4, 5), (16, 8), (32, 8),
+               (rs.MAX_N, rs.MAX_F)]
 
 
 @requires_cuda
-@pytest.mark.parametrize("n,nf", [(n, nf) for n in range(1, rs.MAX_N + 1)
-                                  for nf in range(1, rs.MAX_F + 1)])
+@pytest.mark.parametrize("n,nf", [(n, nf) for n in range(1, rs.FAST_MAX_N + 1)
+                                  for nf in range(1, rs.FAST_MAX_F + 1)]
+                         + WIDE_SHAPES)
 @pytest.mark.parametrize("k,r", [(1, 1), (1, 31), (1, 1000),
                                  (64, 1), (64, 31), (64, 1000)])
 def test_cuda_kernel_matches_plain_version(n, nf, k, r):
@@ -188,8 +270,9 @@ def test_cuda_kernel_matches_plain_version(n, nf, k, r):
     own packing of the Table-4 scenarios (no JAX on the GPU machine) cut or
     widened to N survivors and F ladder levels, with and without shocks,
     compensated and not: every output bit-equal, one counted launch per
-    call.  R = 1 and 31 leave warps and blocks part-filled.  Both mappings
-    of runs to lanes (one lane per run, one per survivor) are forced too."""
+    call.  R = 1 and 31 leave warps and blocks part-filled.  Within the
+    fast kernel's bounds both mappings of runs to lanes (one lane per run,
+    one per survivor) are forced too; past them the wide kernel runs."""
     skip_without_cuda()
     from repro_torch.core import scenarios, sweep
 
@@ -209,8 +292,9 @@ def test_cuda_kernel_matches_plain_version(n, nf, k, r):
             want = rs.renewal_scan_reference(*ops, gaps, fel, compensated=comp)
             torch.cuda.synchronize()
             assert rs.LAUNCHES["renewal_scan"] == before + 1
+            fast = n <= rs.FAST_MAX_N and nf <= rs.FAST_MAX_F
             outs = [got] + [rs._launch_cuda(*ops, gaps, fel, comp, lanes=lanes)
-                            for lanes in sorted({1, n})]
+                            for lanes in sorted({1, n} if fast else {1})]
             torch.cuda.synchronize()
             for out in outs:
                 for name, w in want.items():

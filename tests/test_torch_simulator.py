@@ -23,6 +23,7 @@ from repro_torch.core import failures as F
 from repro_torch.core import prng
 from repro_torch.core import scenarios as SC
 from repro_torch.core import simulator as SIM
+from repro_torch.core import topology as T
 
 TOL = 1e-6
 SCENARIOS = sorted(SC.paper_scenarios())
@@ -140,8 +141,19 @@ def test_simulate_run_samples_the_renewal_engines_history():
         SIM.simulate_run(cfg, gaps[0].numpy(), 6e4, process=proc, device="cpu")
     with pytest.raises(ValueError, match="requires a FailureProcess"):
         SIM.simulate_run(cfg, None, 6e4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SIM.simulate_run(cfg, None, 6e4, topology=object(), device="cpu")
+    # a topology draws the history and the felled sets itself (the
+    # correlated sampler of core.topology), never beside explicit gaps
+    topo = T.rack_topology(4, 4, shock_mtbs_s=2e4, p_kill=0.9)
+    shocked = SIM.simulate_run(cfg, None, 60000.0, process=proc, key=key,
+                               topology=topo, max_failures=12, device="cpu")
+    g, fm, pri = T.correlated_renewal_gaps(topo, proc, key, 1, 4, 12, "cpu")
+    again = SIM.simulate_run(cfg, g[0], 60000.0,
+                             felled=T.survivor_slot_mask(fm, pri)[0],
+                             device="cpu")
+    assert shocked.n_failures == again.n_failures > 1
+    assert shocked.energy_int == again.energy_int
+    with pytest.raises(ValueError, match="topology needs gaps=None"):
+        SIM.simulate_run(cfg, gaps[0].numpy(), 6e4, topology=topo, device="cpu")
 
 
 @pytest.mark.parametrize("name", SCENARIOS)

@@ -273,15 +273,20 @@ def test_policy_table_helpers_match_reference(ref):
 
 
 def test_next_slice_paths_raise():
-    """What is still not ported raises, naming ROADMAP.md (the scan engine,
-    which raised here before, is held by tests/test_torch_renewal_f64.py)."""
+    """What is still not ported raises, naming ROADMAP.md: the fleet
+    clusters= axis.  The scan engine and the correlated topology= sampler,
+    which raised here before, run (held by tests/test_torch_renewal_f64.py
+    and tests/test_torch_topology.py)."""
+    from repro_torch.core import topology as T
+
     cfgs = list(SC.paper_scenarios().values())
     key = prng.PRNGKey(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        S.renewal_monte_carlo_scenarios(cfgs, key, topology=object(),
-                                        device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        S.renewal_monte_carlo(cfgs[0], key, topology=object(), device="cpu")
+    topo = T.rack_topology(4, 2, shock_mtbs_s=1e5, p_kill=0.5)
+    out = S.renewal_monte_carlo_scenarios(cfgs, key, n_runs=4, max_failures=3,
+                                          topology=topo, device="cpu")
+    assert set(out) == {c.name for c in cfgs}
+    assert S.renewal_monte_carlo(cfgs[0], key, n_runs=4, max_failures=3,
+                                 topology=topo, device="cpu").n_runs == 4
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         O.evaluate_policy_grid(None, O.policy_grid(ckpt_interval=[3600.0]),
                                key, work_s=1e5, mtbf_s=1e4,

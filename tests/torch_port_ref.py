@@ -40,7 +40,7 @@ def load_reference():
     from repro import configs, models
     from repro.core import (characterization, energy_model, failures,
                             optimize, planning, scenarios, simulator,
-                            strategies, sweep)
+                            strategies, sweep, topology, trace)
     from repro.kernels import flash_attention, ops, renewal_scan, ssd_scan
     from repro.launch import batching, steps
 
@@ -48,7 +48,7 @@ def load_reference():
         jax=jax, characterization=characterization,
         energy_model=energy_model, failures=failures, optimize=optimize,
         planning=planning, scenarios=scenarios, simulator=simulator,
-        strategies=strategies,
+        strategies=strategies, topology=topology, trace=trace,
         sweep=sweep, renewal_scan=renewal_scan, kernel_ops=ops,
         flash_attention=flash_attention, ssd_scan=ssd_scan, models=models,
         configs=configs, steps=steps, batching=batching)
