@@ -28,6 +28,14 @@ same operands:
   scenario against the CPU (``[monte-carlo]``); the scan engine at the
   main path's size and on the 42-policy grid against the float64 oracle,
   the CPU and the kernel engine (``[renewal-f64]``);
+* the operator stack, plain PyTorch on the card but for one kernel launch:
+  ``optimize_policy`` on the 42-policy grid at 4096 runs x 64 epochs on
+  the scan and the kernel (one launch), CEM at its defaults and the
+  equal-MTBF process panel (``[optimize]``); the fleet advisor over 256
+  clusters, one bucket and four, against standalone calls and the
+  per-cluster loop (``[fleet]``); the ``fleet`` and ``policy_grid``
+  campaign presets against direct dispatches, and the ``smoke`` preset cut
+  and resumed through the campaign CLI (``[campaign]``);
 * Zamba2-7B serving at its published widths with seeded weights: a bf16
   prefill of 2 x 4096 tokens (13 ``flash_attention`` and 81 ``ssd_scan``
   launches), a float32 prefill of 2 x 512 tokens against the same tokens
@@ -124,6 +132,13 @@ TOL_F64 = 1e-9               # the float64 scan vs the float64 host oracle
 # checkpoint intervals of the 42-policy grid at which the float32 kernel
 # meets exact ties the float64 engines keep (ROADMAP.md Queue 3, item 4)
 KERNEL_TIE_INTERVALS_S = (2400.0, 4800.0, 9600.0)
+
+# the operator stack: the reference benchmark's fleet (256 clusters, 32
+# runs x 16 failures) and the campaign chaos cut's seed
+FLEET_CLUSTERS = 256
+FLEET_RUNS = 32
+FLEET_FAILURES = 16
+CAMPAIGN_CUT_SEED = 5
 
 # the LM serving path: zamba2-7b at its published widths
 LM_ARCH = "zamba2-7b"
@@ -1616,6 +1631,333 @@ def lm_path(card_line: str, fa, ssd) -> list:
     ]
 
 
+# ---------------------------------------------------------------------------
+# the operator stack: policy optimisation, the fleet advisor, campaigns
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def stage_clock(parts):
+    """Stands in for each ``(label, module, name)`` function while a call
+    runs, synchronising around every call of it: yields ``{label: [ms,
+    calls]}``, the host milliseconds spent inside each part."""
+    acc = {label: [0.0, 0] for label, _, _ in parts}
+    saved = []
+    for label, module, name in parts:
+        fn = getattr(module, name)
+        saved.append((module, name, fn))
+
+        def wrapped(*args, _fn=fn, _cell=acc[label], **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*args, **kw)
+            torch.cuda.synchronize()
+            _cell[0] += (time.perf_counter() - t0) * 1e3
+            _cell[1] += 1
+            return out
+
+        setattr(module, name, wrapped)
+    try:
+        yield acc
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def entry_point_timing(fn, reps: int, parts=()) -> dict:
+    """Wall milliseconds of an entry point (median of ``reps`` calls after
+    a warm one); then one call under ``torch.profiler`` for its CUDA
+    launches and device busy share, with the renewal kernel's launches
+    counted; then one call with ``parts`` (and the float64 scan,
+    ``sweep._renewal_scan``) clocked, for each part's share of that
+    call's wall time."""
+    from repro_torch.core import sweep
+    from repro_torch.kernels import renewal_scan as rs
+
+    _, ms = wall_ms_median(fn, reps)
+    rs.reset_launch_counts()
+    prof = device_profile(fn)
+    measured = prof["device_ms"] is not None
+    out = {"wall_ms_median": f"{ms:.3f}",
+           "device_launches": prof["launches"] if measured else "not measured",
+           "busy_share": (f"{prof['busy_share']:.4f}" if measured
+                          else "not measured"),
+           "renewal_scan_launches": rs.LAUNCHES["renewal_scan"]}
+    with stage_clock((("scan", sweep, "_renewal_scan"),) + tuple(parts)) as acc:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        clocked_ms = (time.perf_counter() - t0) * 1e3
+    out["clocked_wall_ms"] = f"{clocked_ms:.3f}"
+    for label, (part_ms, calls) in acc.items():
+        out[f"{label}_ms"] = f"{part_ms:.3f}"
+        out[f"{label}_calls"] = calls
+        out[f"{label}_share"] = f"{part_ms / clocked_ms:.4f}"
+    return out
+
+
+def rows_equal(got, want, fields=("energy_ref", "energy_int", "saving",
+                                  "end_time", "n_failures",
+                                  "mean_energy_j", "mean_makespan_s")) -> bool:
+    return all(np.array_equal(getattr(got, f), getattr(want, f))
+               for f in fields)
+
+
+def optimize_phase(card_line: str, rs, sweep, optimize, grid_cfg, table,
+                   makespans, key) -> tuple:
+    """``[optimize]``: the operator entry points on the reference
+    benchmark's problem (the 4 h-rendezvous workload, the 42-policy table,
+    2 d of work, 8 h MTBF) at the policy grid's 4096 runs x 64 epochs: the
+    grid stage on the scan and as one renewal_scan launch, each spot-checked
+    lane bit-equal to a standalone ``renewal_monte_carlo_device`` call on
+    the card, the kernel grid within TOL_ORACLE of the scan's (tied
+    intervals as in ``[renewal-f64]``); CEM at its defaults on the scan,
+    monotone and no worse than its seed; the process panel at equal MTBF.
+    Returns the kernel launch's (max_abs_err, max_rel_err) against its
+    plain version."""
+    from repro_torch.core.scenarios import apply_policy
+
+    kw = dict(table=table, work_s=GRID_WORK_S, mtbf_s=GRID_MTBF_S,
+              n_runs=FULL_RUNS, max_failures=FULL_EPOCHS)
+    scan = optimize.optimize_policy(grid_cfg, key, **kw)
+    kern, launches, (call,) = drive(
+        rs, lambda: optimize.optimize_policy(grid_cfg, key, engine="kernel",
+                                             **kw))
+    if launches != 1:
+        raise Failed(f"optimize: {launches} renewal_scan launches in the "
+                     "kernel grid stage, expected 1")
+    k_abs, k_rel = compare_outputs(
+        call[2], rs.renewal_scan_reference(*call[0], **call[1]))
+    spot = (0, 13, 28, len(table) - 1)
+    for engine, opt in (("scan", scan), ("kernel", kern)):
+        for p in spot:
+            st = sweep.renewal_monte_carlo_device(
+                apply_policy(grid_cfg, **table.policy(p)), key,
+                n_runs=FULL_RUNS, max_failures=FULL_EPOCHS,
+                makespan_s=float(makespans[p]), mtbf_s=GRID_MTBF_S,
+                stats=True, engine=engine, device="cuda")
+            for f in ("energy_ref", "energy_int", "end_time", "n_failures"):
+                if not np.array_equal(getattr(st, f)[0].cpu().numpy(),
+                                      getattr(opt.grid, f)[p]):
+                    raise Failed(f"optimize {engine}: policy {p} {f} differs "
+                                 "from a standalone call")
+    rel = np.abs(kern.grid.mean_energy_j / scan.grid.mean_energy_j - 1)
+    tie = np.isin(np.round(table.ckpt_interval, 6), KERNEL_TIE_INTERVALS_S)
+    if rel[~tie].max() > TOL_ORACLE:
+        raise Failed(f"optimize: kernel grid means {rel[~tie].max():.3e} "
+                     f"from the scan's > {TOL_ORACLE}")
+    for engine, opt in (("scan", scan), ("kernel", kern)):
+        line("optimize", stage="grid", engine=engine, card=repr(card_line),
+             policies=len(table), runs=FULL_RUNS, epochs=FULL_EPOCHS,
+             best=opt.grid.best, knee_interval=opt.knee["ckpt_interval"],
+             pareto=len(opt.pareto),
+             best_mean_energy_j=f"{opt.best['mean_energy_j']:.6e}",
+             lanes_bit_equal_to_standalone="/".join(map(str, spot)),
+             **entry_point_timing(lambda e=engine: optimize.optimize_policy(
+                 grid_cfg, key, engine=e, **kw), reps=3))
+    line("optimize", check="kernel grid vs scan grid", launches=launches,
+         kernel_vs_plain="ints exact", max_abs_err=f"{k_abs:.6g}",
+         max_mean_rel_untied=f"{rel[~tie].max():.3e}",
+         max_mean_rel_tied=f"{rel[tie].max():.3e}", bar=TOL_ORACLE)
+
+    refined = optimize.optimize_policy(grid_cfg, key, refine=True, **kw)
+    scores = [h["best_score"] for h in refined.cem.iterations]
+    if any(b > a for a, b in zip(scores, scores[1:])):
+        raise Failed(f"optimize: CEM best scores not monotone: {scores}")
+    if refined.best["mean_energy_j"] > scan.best["mean_energy_j"]:
+        raise Failed("optimize: CEM ends worse than its seed")
+    line("optimize", stage="cem", engine="scan", card=repr(card_line),
+         iterations=len(scores), population=24,
+         evaluations=refined.cem.n_evaluations,
+         seed_interval=scan.best["ckpt_interval"],
+         best_interval=f"{refined.best['ckpt_interval']:.3f}",
+         best_mu1=f"{refined.best['mu1']:.4f}",
+         seed_mean_energy_j=f"{scan.best['mean_energy_j']:.6e}",
+         best_mean_energy_j=f"{refined.best['mean_energy_j']:.6e}",
+         monotone=True,
+         **entry_point_timing(lambda: optimize.optimize_policy(
+             grid_cfg, key, refine=True, **kw), reps=2))
+
+    panel_call = lambda: optimize.optimize_across_processes(
+        grid_cfg, key, **kw)
+    panel = panel_call()
+    for name, opt in panel.items():
+        if not np.all(np.isfinite(opt.grid.mean_energy_j)):
+            raise Failed(f"optimize panel {name}: non-finite energies")
+        line("optimize", stage="panel", process=name,
+             label=repr(opt.process_label), best=opt.grid.best,
+             best_interval=opt.best["ckpt_interval"],
+             mean_failures=f"{opt.grid.mean_failures.mean():.4f}",
+             best_mean_energy_j=f"{opt.best['mean_energy_j']:.6e}")
+    line("optimize", stage="panel", card=repr(card_line),
+         processes=len(panel), **entry_point_timing(panel_call, reps=2))
+    return k_abs, k_rel
+
+
+def fleet_phase(card_line: str, rs, sweep, optimize, fleet, key) -> None:
+    """``[fleet]``: the reference benchmark's fleet (256 exponential
+    clusters of 4 nodes, one bucket) and the mixed fleet (4 and 8 nodes,
+    half Weibull: four buckets), 14 policies, 32 runs x 16 failures.  Holds
+    8 clusters of each bit-equal to standalone ``optimize_policy`` calls on
+    the card, padding inert, submit order, cache hits with no new traces on
+    a second ``advise``, ``shard=True`` equal to the unsharded path; times
+    the batched advisor against the per-cluster loop."""
+    table = optimize.policy_grid(
+        ckpt_interval=np.geomspace(2400.0, 19200.0, 7), mu1=[6.0],
+        wait_mode=[0, 1])
+    kw = dict(n_runs=FLEET_RUNS, max_failures=FLEET_FAILURES)
+    advisor_of = lambda **a: fleet.FleetAdvisor(table, key=key, device="cuda",
+                                                **kw, **a)
+    for label, profiles in (
+            ("single-bucket", fleet.synthetic_fleet(
+                FLEET_CLUSTERS, seed=0, node_buckets=(4,), weibull_frac=0.0)),
+            ("mixed", fleet.synthetic_fleet(FLEET_CLUSTERS, seed=0))):
+        advisor = advisor_of()
+        rs.reset_launch_counts()
+        out = advisor.advise(profiles)
+        if rs.LAUNCHES["renewal_scan"]:
+            raise Failed("fleet: the cluster axis launched renewal_scan")
+        first = advisor.cache_stats()
+        again = advisor.advise(profiles)
+        second = advisor.cache_stats()
+        n_buckets = len({p.bucket_key() for p in profiles})
+        if (second.traces != first.traces
+                or second.hits != first.hits + n_buckets
+                or first.misses != n_buckets):
+            raise Failed(f"fleet {label}: cache {first} then {second}")
+        picks = np.linspace(0, len(profiles) - 1, 8).round().astype(int)
+        for c in picks:
+            p = profiles[c]
+            solo = optimize.optimize_policy(
+                p.scenario(), key, table=table, process=p.failure_process(),
+                work_s=p.work_s, device="cuda", **kw)
+            if not (rows_equal(out[c].optimum.grid, solo.grid)
+                    and out[c].best == solo.best and out[c].knee == solo.knee):
+                raise Failed(f"fleet {label}: cluster {c} differs from a "
+                             "standalone optimize_policy call")
+        if not all(rows_equal(a.optimum.grid, b.optimum.grid)
+                   for a, b in zip(out, again)):
+            raise Failed(f"fleet {label}: a second advise differs")
+        # padding: the first n - 6 clusters pad up to the same bucket
+        cut = profiles[:len(profiles) - 6]
+        padded = advisor_of(buckets=(len(profiles),)).advise(cut)
+        if not all(rows_equal(a.optimum.grid, b.optimum.grid)
+                   for a, b in zip(padded, out)):
+            raise Failed(f"fleet {label}: padded lanes moved real rows")
+        # submit order: a shuffled stream comes back in its own order
+        order = np.random.default_rng(1).permutation(len(profiles))
+        shuffled = advisor_of().advise([profiles[i] for i in order])
+        if [a.request_id for a in shuffled] != list(range(len(profiles))) \
+                or not all(a.profile is profiles[i] and rows_equal(
+                    a.optimum.grid, out[i].optimum.grid)
+                    for a, i in zip(shuffled, order)):
+            raise Failed(f"fleet {label}: answers out of submit order")
+        sharded = advisor_of(shard=True).advise(profiles)
+        if not all(rows_equal(a.optimum.grid, b.optimum.grid)
+                   and a.best == b.best for a, b in zip(sharded, out)):
+            raise Failed(f"fleet {label}: shard=True differs")
+        timing = entry_point_timing(
+            lambda: advisor.advise(profiles), reps=3,
+            parts=(("stack", optimize, "fleet_policy_inputs"),
+                   ("fleet_core", sweep, "_renewal_fleet_mc_core"),
+                   ("reduce", optimize, "_policy_eval_from_stats"),
+                   ("front", optimize, "_optimum_from_grid")))
+        t0 = time.perf_counter()
+        for p in profiles:
+            optimize.optimize_policy(
+                p.scenario(), key, table=table, process=p.failure_process(),
+                work_s=p.work_s, device="cuda", **kw)
+        torch.cuda.synchronize()
+        loop_ms = (time.perf_counter() - t0) * 1e3
+        batched_ms = float(timing["wall_ms_median"])
+        line("fleet", fleet=label, card=repr(card_line),
+             clusters=len(profiles), buckets=n_buckets, policies=len(table),
+             runs=FLEET_RUNS, failures=FLEET_FAILURES,
+             checked_clusters="/".join(map(str, picks)),
+             standalone="bit-equal", padding="inert", submit_order="kept",
+             shard="bit-equal", cache_second_advise=(
+                 f"hits+{second.hits - first.hits},traces+0"),
+             advisories_per_s=f"{len(profiles) / (batched_ms * 1e-3):.2f}",
+             loop_wall_ms=f"{loop_ms:.3f}",
+             loop_advisories_per_s=f"{len(profiles) / (loop_ms * 1e-3):.2f}",
+             speedup=f"{loop_ms / batched_ms:.3f}", **timing)
+
+
+def campaign_phase(card_line: str, sweep, prng) -> None:
+    """``[campaign]``: the ``fleet`` and ``policy_grid`` presets into a
+    store on the card, each cell's record equal to a direct
+    ``renewal_monte_carlo_policies`` dispatch of that cell; ``smoke`` cut
+    by ``--limit-seed`` and resumed by ``--expect-skipped-seed`` through
+    the CLI, store-diff-identical to an uninterrupted run, a rerun
+    computing zero cells; a small ``chunk_budget_mb`` giving the same
+    records."""
+    import shutil
+
+    from repro_torch.campaign import __main__ as cli
+    from repro_torch.campaign import presets, runner, spec, store
+
+    root = ROOT / "build" / "campaign_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        for name in ("fleet", "policy_grid"):
+            camp = presets.PRESETS[name]()
+            rep = runner.run_campaign(camp, store.ResultStore(root / name),
+                                      device="cuda")
+            if rep.n_computed != len(camp):
+                raise Failed(f"campaign {name}: {rep.n_computed} of "
+                             f"{len(camp)} cells computed")
+            for cell, rec in zip(camp.cells, rep.records):
+                exp = spec.resolve(cell.config)
+                _, st = sweep._renewal_device_inputs([exp.cfg], torch.float64,
+                                                     "cuda")
+                stats = sweep._stats_to_host(sweep.renewal_monte_carlo_policies(
+                    st, prng.PRNGKey(exp.seed), makespan_s=np.asarray(
+                        [exp.makespan_s]), n_runs=exp.n_runs,
+                    max_failures=exp.max_failures, process=exp.process,
+                    topology=exp.topology, stats=True))
+                want = runner.summary_to_result(
+                    sweep._summarize_device_scenario(
+                        stats, 0, n_runs=exp.n_runs,
+                        makespan_s=exp.makespan_s, mtbf_s=float(np.mean(
+                            exp.process.mean_s())),
+                        max_failures=exp.max_failures))
+                want["mean_makespan_s"] = float(stats["end_time"][0].mean())
+                if store.canonical_json(rec["result"]) != \
+                        store.canonical_json(want):
+                    raise Failed(f"campaign {name}: {cell.cell_id()} differs "
+                                 "from a direct dispatch")
+            extra = {}
+            if name == "fleet":
+                runner.run_campaign(camp, store.ResultStore(root / "chunked"),
+                                    chunk_budget_mb=1e-6, device="cuda")
+                diffs = store.diff_stores(root / name, root / "chunked")
+                if diffs:
+                    raise Failed(f"campaign chunking: {diffs[:3]}")
+                extra = {"one_lane_chunks": "store-diff-identical"}
+            line("campaign", preset=name, card=repr(card_line),
+                 cells=len(camp), runs=camp.cells[0].config["run"]["n_runs"],
+                 failures=camp.cells[0].config["run"]["max_failures"],
+                 dispatches=rep.n_chunks, direct_dispatch="equal", **extra,
+                 **entry_point_timing(lambda c=camp: runner.run_campaign(
+                     c, None, device="cuda"), reps=2))
+        cut, full = str(root / "cut"), str(root / "full")
+        run = ["run", "--preset", "smoke", "--device", "cuda"]
+        for argv in (run + ["--store", cut, "--limit-seed", str(CAMPAIGN_CUT_SEED)],
+                     run + ["--store", cut, "--expect-skipped-seed",
+                            str(CAMPAIGN_CUT_SEED)],
+                     run + ["--store", full],
+                     ["diff", cut, full],
+                     run + ["--store", full, "--expect-skipped", "4"]):
+            if cli.main(argv) != 0:
+                raise Failed(f"campaign CLI: {' '.join(argv)} failed")
+        line("campaign", preset="smoke", cli="cut, resume, diff, rerun",
+             cut_after=cli._seeded_cut(CAMPAIGN_CUT_SEED, 4),
+             resumed="store-diff-identical", rerun_computed=0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -1931,6 +2273,15 @@ def main() -> int:
     renewal_f64_phase(card_line, sweep, optimize, scen, key, n_nodes, summaries,
                       res, grid_cfg, table, makespans)
     line("single-failure-done", seconds=f"{time.perf_counter() - t_start:.1f}")
+
+    from repro_torch import fleet
+
+    o_abs, o_rel = optimize_phase(card_line, rs, sweep, optimize, grid_cfg,
+                                  table, makespans, key)
+    worst_abs, worst_rel = max(worst_abs, o_abs), max(worst_rel, o_rel)
+    fleet_phase(card_line, rs, sweep, optimize, fleet, key)
+    campaign_phase(card_line, sweep, prng)
+    line("operator-done", seconds=f"{time.perf_counter() - t_start:.1f}")
 
     renewal_record = {
         "name": "renewal_scan",

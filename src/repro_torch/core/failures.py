@@ -43,6 +43,8 @@ __all__ = [
     "as_process",
     "stack_processes",
     "sample_renewal_gaps",
+    "fleet_size",
+    "sample_fleet_renewal_gaps",
     "renewal_gaps",
     "failure_clock_ages",
     "ks_statistic",
@@ -403,6 +405,24 @@ def stack_processes(processes) -> FailureProcess:
             f"shapes across clusters): {e}") from e
 
 
+def _competing_risks(residual, v: torch.Tensor, ages: torch.Tensor):
+    """The conditional-residual recursion over ``v`` (K, R, N) uniforms
+    from zero clock ``ages`` ((R, N), or (C, R, N) for cluster lanes):
+    each epoch's gap is the minimum residual over nodes and the failing
+    node the argmin; survivors' clocks advance by the gap, the failed
+    clock resets.  Returns gaps and failing nodes, epochs last."""
+    node = torch.arange(v.shape[-1], device=v.device)
+    gaps, failed = [], []
+    for k in range(v.shape[0]):
+        t = residual(v[k], ages)                             # (..., R, N)
+        gap = torch.amin(t, dim=-1)
+        f = torch.argmin(t, dim=-1)
+        ages = torch.where(node == f[..., None], 0.0, ages + gap[..., None])
+        gaps.append(gap)
+        failed.append(f)
+    return torch.stack(gaps, dim=-1), torch.stack(failed, dim=-1)
+
+
 def sample_renewal_gaps(process: FailureProcess, key, n_runs: int,
                         max_failures: int, n_nodes: int, device="cuda"):
     """Renewal-epoch gaps under the quiesce policy: ``(gaps, failed_node)``
@@ -418,19 +438,67 @@ def sample_renewal_gaps(process: FailureProcess, key, n_runs: int,
         draws = prng.exponential(key, (n_runs, max_failures, n_nodes), dev) \
             * _t32(process.mtbf_s, torch.empty(0, device=dev))
         return torch.amin(draws, dim=-1), torch.argmin(draws, dim=-1)
-
     v = prng.uniform(key, (max_failures, n_runs, n_nodes), dev)
     ages = torch.zeros((n_runs, n_nodes), dtype=torch.float32, device=dev)
-    node = torch.arange(n_nodes, device=dev)
-    gaps, failed = [], []
-    for k in range(max_failures):
-        t = process.residual(v[k], ages)                     # (R, N)
-        gap = torch.amin(t, dim=-1)
-        f = torch.argmin(t, dim=-1)
-        ages = torch.where(node == f[:, None], 0.0, ages + gap[:, None])
-        gaps.append(gap)
-        failed.append(f)
-    return torch.stack(gaps, dim=1), torch.stack(failed, dim=1)
+    return _competing_risks(process.residual, v, ages)
+
+
+def fleet_size(process: FailureProcess) -> int:
+    """The cluster count ``C`` of a process stacked over cluster lanes
+    (``stack_processes``): every parameter leaf has leading axis C.
+    Raises ValueError for a process that is not such a stack."""
+    leaves = [np.asarray(getattr(process, f.name))
+              for f in dataclasses.fields(process)]
+    sizes = {a.shape[0] if a.ndim else None for a in leaves}
+    if len(sizes) != 1 or None in sizes:
+        raise ValueError("a process stacked over cluster lanes needs a "
+                         "leading cluster axis on every parameter "
+                         "(failures.stack_processes)")
+    return sizes.pop()
+
+
+def _fleet_residual(process: FailureProcess, n_clusters: int):
+    """``residual(v, ages)`` of a cluster-stacked process for (R, N) draws
+    against (C, R, N) clock ages: each cluster lane transforms the shared
+    draws through its own parameters, element for element what the
+    standalone process computes."""
+    if isinstance(process, EmpiricalTrace):
+        # a stack of 1-D traces is (C, L): one gather row per cluster
+        def residual(v, age):
+            rows = lambda x: x.reshape(n_clusters, -1)
+            out = EmpiricalTrace._residual_rows(
+                _t32(process.gaps, v), rows(v.expand(age.shape)),
+                rows(age).contiguous())
+            return out.reshape(age.shape)
+        return residual
+    lanes = lambda a: a.reshape((n_clusters,) + (1,) * (3 - a.ndim)
+                                + a.shape[1:])
+    view = type(process)(**{f.name: lanes(np.asarray(getattr(process, f.name)))
+                            for f in dataclasses.fields(process)})
+    return view.residual
+
+
+def sample_fleet_renewal_gaps(process: FailureProcess, key, n_runs: int,
+                              max_failures: int, n_nodes: int,
+                              device="cuda"):
+    """``sample_renewal_gaps`` for a process stacked over C cluster lanes:
+    ``(gaps, failed_node)`` of shape ``(C, n_runs, max_failures)``.  Every
+    lane transforms the same raw draws (the same ``key``) through its own
+    parameters in one batched pass, so lane ``c`` holds exactly the
+    histories ``sample_renewal_gaps`` draws for cluster ``c`` alone."""
+    dev = resolve_device(device)
+    n_clusters = fleet_size(process)
+    if isinstance(process, Exponential):
+        mtbf = process.mtbf_s
+        mtbf = mtbf.reshape((n_clusters,) + (1,) * (4 - mtbf.ndim)
+                            + mtbf.shape[1:])
+        draws = prng.exponential(key, (n_runs, max_failures, n_nodes), dev) \
+            * _t32(mtbf, torch.empty(0, device=dev))
+        return torch.amin(draws, dim=-1), torch.argmin(draws, dim=-1)
+    v = prng.uniform(key, (max_failures, n_runs, n_nodes), dev)
+    ages = torch.zeros((n_clusters, n_runs, n_nodes), dtype=torch.float32,
+                       device=dev)
+    return _competing_risks(_fleet_residual(process, n_clusters), v, ages)
 
 
 def renewal_gaps(process: FailureProcess, key, n_runs: int, n_nodes: int,

@@ -1,41 +1,63 @@
-"""Policy grids: which knobs should an operator pick?
+"""Policy optimisation: which knobs should an operator pick?
 
-Counterpart of the grid half of ``repro.core.optimize``: a flat table of
-operator-tunable knobs (checkpoint interval x mu1 x mu2 x wait mode x
-move-ahead fraction) evaluated in one call of the renewal engines (the
-float64 scan by default, or the CUDA kernel) with common random numbers
-(one sampling pass shared by every policy lane), compared at equal useful
-work (``wall_makespan``), and reduced to a Pareto front of expected energy
-vs expected makespan with its knee.  ``cem_refine``, ``optimize_policy``,
-``optimize_across_processes`` and the fleet ``clusters=`` axis are not
-ported yet (ROADMAP.md, Queue 1).
+Counterpart of ``repro.core.optimize``: a flat table of operator-tunable
+knobs (checkpoint interval x mu1 x mu2 x wait mode x move-ahead fraction)
+evaluated in one call of the renewal engines (the float64 scan by default,
+or the CUDA kernel) with common random numbers (one sampling pass shared by
+every policy lane), compared at equal useful work (``wall_makespan``), and
+reduced to a Pareto front of expected energy vs expected makespan with its
+knee.  On top of the grid evaluator:
+
+  * ``cem_refine`` — a cross-entropy-method loop over the continuous knobs,
+    seeded at the grid optimum, with the incumbent re-injected into every
+    population so the best-so-far score is monotone under CRN;
+  * ``optimize_policy`` / ``optimize_across_processes`` — the operator
+    entry points; the latter re-runs the search under exponential, Weibull
+    and trace processes at equal MTBF;
+  * the fleet ``clusters=`` axis of ``evaluate_policy_grid`` and
+    ``optimize_policy`` — one grid for many clusters in one scan over the
+    ``(C, P)`` lanes, each cluster's rows bit-identical to a standalone
+    call at the same key.
 
 Host-side reductions are numpy float64 on the lean per-run statistics.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core import energy_model as em
-from repro_torch.core import failures, sweep
+from repro_torch.core import failures, prng, sweep
 from repro_torch.core.simulator import ScenarioConfig
 
 __all__ = [
     "PolicyTable",
     "PolicyEvalResult",
+    "CEMResult",
+    "PolicyOptimum",
+    "ClusterSpec",
     "policy_grid",
+    "default_policy_table",
     "interval_floor",
     "wall_makespan",
     "policy_inputs",
+    "fleet_policy_inputs",
     "evaluate_policy_grid",
     "pareto_front",
     "knee_point",
+    "cem_refine",
+    "optimize_policy",
+    "equal_mtbf_processes",
+    "optimize_across_processes",
 ]
+
+# the continuous knobs cem_refine may search over (wait_mode is discrete:
+# fixed per CEM run, covered by the grid stage)
+CEM_KNOBS = ("ckpt_interval", "mu1", "mu2", "move_ahead_frac")
 
 
 # ---------------------------------------------------------------------------
@@ -132,9 +154,27 @@ def interval_floor(cfg: ScenarioConfig) -> float:
     """The smallest searchable checkpoint interval for ``cfg``: the
     sawtooth precondition (no overdue timer at the start — ``sweep_inputs``
     rejects intervals below any starting ``ckpt_age`` / ``t_reexec``) with
-    a 1 % margin, as ``policy_inputs`` validates it."""
+    a 1 % margin: what ``policy_inputs`` validates, ``default_policy_table``
+    floors its grid at and ``cem_refine`` clips its box to."""
     return 1.01 * max([s.ckpt_age for s in cfg.survivors]
                       + [cfg.t_reexec, 1.0])
+
+
+def default_policy_table(cfg: ScenarioConfig, mtbf_s: float) -> PolicyTable:
+    """A sensible operator grid around the Young anchor: intervals
+    ``sqrt(2 * t_ckpt * mtbf)`` x geomspace(0.25, 4, 7), floored at
+    ``interval_floor``; mu1 {3.8, 6, 9} (the Table-4 band plus one value
+    outside it); both wait modes."""
+    young = float(np.sqrt(2.0 * cfg.ckpt_duration * mtbf_s))
+    lo = interval_floor(cfg)
+    intervals = np.unique(np.maximum(young * np.geomspace(0.25, 4.0, 7), lo))
+    return policy_grid(
+        ckpt_interval=intervals,
+        mu1=[3.8, 6.0, 9.0],
+        mu2=[1.0],
+        wait_mode=[em.WaitMode.ACTIVE, em.WaitMode.IDLE],
+        move_ahead_frac=[0.5],
+    )
 
 
 def wall_makespan(work_s, ckpt_interval_s, ckpt_duration_s):
@@ -198,6 +238,90 @@ def policy_inputs(cfg: ScenarioConfig, table: PolicyTable,
         sleep=em.SleepArrays(**{f: bc(getattr(base.sleep, f))
                                 for f in sweep._SLEEP}),
         peer=base.peer)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterSpec:
+    """One fleet member: a cluster's scenario plus its failure law.
+
+    ``process=None`` falls back to the call-level ``process``/``mtbf_s``;
+    ``work_s`` (optional) overrides the call-level useful work for this
+    cluster.  ``repro_torch.fleet.ClusterProfile.spec()`` builds these;
+    ``evaluate_policy_grid``/``optimize_policy`` also accept bare
+    ``(cfg, process)`` tuples and bare configs.
+    """
+
+    cfg: ScenarioConfig
+    process: Optional[failures.FailureProcess] = None
+    work_s: Optional[float] = None
+
+
+def _as_cluster_spec(c) -> ClusterSpec:
+    if isinstance(c, ClusterSpec):
+        return c
+    if isinstance(c, ScenarioConfig):
+        return ClusterSpec(c)
+    cfg, proc = c
+    return ClusterSpec(cfg, proc)
+
+
+def _np_policy_inputs(cfg: ScenarioConfig, table: PolicyTable) -> sweep.SweepInputs:
+    """Host-numpy twin of ``policy_inputs``: ``SweepInputs`` of numpy
+    arrays holding the same float64 values, no device traffic.  The fleet
+    stacker calls this once per cluster and ships each stacked leaf in one
+    transfer."""
+    _check_grid(cfg, table)
+    n_policies = len(table)
+    f8 = lambda x: np.asarray(x, np.float64)
+    bc = lambda a: np.broadcast_to(f8(a), (n_policies,) + np.shape(f8(a)))
+    pt, sl = cfg.profile.power_table, cfg.profile.sleep
+    return sweep.SweepInputs(
+        exec_rem0=bc([s.exec_to_rendezvous for s in cfg.survivors]),
+        period=bc([s.rendezvous_period for s in cfg.survivors]),
+        age0=bc([s.ckpt_age for s in cfg.survivors]),
+        reexec0=bc(cfg.t_reexec),
+        t_down=bc(cfg.t_down),
+        t_restart=bc(cfg.t_restart),
+        interval=f8(table.ckpt_interval),
+        dur=bc(cfg.ckpt_duration),
+        move_ahead=np.broadcast_to(np.asarray(bool(cfg.move_ahead)),
+                                   (n_policies,)),
+        move_frac=f8(table.move_ahead_frac),
+        wait_mode=np.asarray(table.wait_mode, np.int32),
+        mu1=f8(table.mu1),
+        mu2=f8(table.mu2),
+        p_idle_wait=bc(cfg.profile.p_idle_wait),
+        ladder=em.LadderArrays(**{f: bc(getattr(pt, f))
+                                  for f in sweep._LADDER}),
+        sleep=em.SleepArrays(**{f: bc(getattr(sl, f)) for f in sweep._SLEEP}),
+        peer=tuple(s.peer for s in cfg.survivors),
+    )
+
+
+def fleet_policy_inputs(cfgs: Sequence[ScenarioConfig], table: PolicyTable,
+                        device="cuda") -> sweep.SweepInputs:
+    """Stack MANY scenarios x one policy table into ``(C, P)`` float64
+    ``SweepInputs`` on ``device``: each cluster's slice carries exactly the
+    values ``policy_inputs(cfg_c, table)`` builds, assembled on the host
+    and shipped in one transfer per leaf.  The clusters must share survivor
+    count, ladder size and blocking topology — the static-shape bucket key
+    the fleet advisor groups requests by."""
+    dev = resolve_device(device)
+    cfg_list = list(cfgs)
+    if not cfg_list:
+        raise ValueError("no clusters to stack")
+    per = [_np_policy_inputs(cfg, table) for cfg in cfg_list]
+    shapes = {p.exec_rem0.shape for p in per}
+    ladders = {p.ladder.freq_ghz.shape for p in per}
+    peers = {p.peer for p in per}
+    if len(shapes) != 1 or len(ladders) != 1 or len(peers) != 1:
+        raise ValueError(
+            "fleet clusters must share survivor count, ladder size, and "
+            f"blocking topology (got {shapes}, {ladders}, {peers}); "
+            "group heterogeneous node counts into shape buckets "
+            "(repro_torch.fleet.FleetAdvisor)")
+    return sweep._map_leaves(
+        lambda xs: torch.as_tensor(np.stack(xs), device=dev), per)
 
 
 # ---------------------------------------------------------------------------
@@ -291,6 +415,46 @@ def _policy_eval_from_stats(table: PolicyTable, scenario_name: str,
     )
 
 
+def _evaluate_policy_grid_fleet(clusters, table: PolicyTable, key, *, work_s,
+                                makespan_s, n_runs: int, max_failures: int,
+                                mtbf_s, process, engine: str,
+                                device) -> list:
+    """The ``clusters=`` arm of ``evaluate_policy_grid``: one ``(C, P)``
+    scan, split back into per-cluster results."""
+    specs = [_as_cluster_spec(c) for c in clusters]
+    procs = [failures.as_process(
+        s.process if s.process is not None else process, mtbf_s)
+        for s in specs]
+    stacked_proc = failures.stack_processes(procs)
+    if (work_s is None) == (makespan_s is None):
+        raise ValueError("give exactly one of work_s or makespan_s")
+    works, rows = [], []
+    for s in specs:
+        if work_s is not None:
+            w = float(work_s if s.work_s is None else s.work_s)
+            rows.append(wall_makespan(w, table.ckpt_interval,
+                                      s.cfg.ckpt_duration))
+            works.append(w)
+        else:
+            if s.work_s is not None:
+                raise ValueError(
+                    "per-cluster work_s overrides need the work_s calling "
+                    "convention, not makespan_s")
+            rows.append(np.full(len(table), float(makespan_s), np.float64))
+            works.append(None)
+    makespans = np.stack(rows)                              # (C, P)
+    stacked = fleet_policy_inputs([s.cfg for s in specs], table, device)
+    stats = sweep._stats_to_host(sweep.renewal_monte_carlo_policies(
+        stacked, key, makespan_s=makespans, n_runs=n_runs,
+        max_failures=max_failures, process=stacked_proc, stats=True,
+        engine=engine))
+    return [_policy_eval_from_stats(
+        table, s.cfg.name, {k: v[c] for k, v in stats.items()}, makespans[c],
+        works[c], float(np.mean(proc_c.mean_s())), proc_c.label(), n_runs,
+        max_failures)
+        for c, (s, proc_c) in enumerate(zip(specs, procs))]
+
+
 def evaluate_policy_grid(cfg: Optional[ScenarioConfig], table: PolicyTable,
                          key, *, work_s: Optional[float] = None,
                          makespan_s: Optional[float] = None,
@@ -312,9 +476,27 @@ def evaluate_policy_grid(cfg: Optional[ScenarioConfig], table: PolicyTable,
     (common random numbers).  Deterministic for a fixed ``key``; within the
     port every lane is bit-identical to a standalone call on that policy
     alone.
+
+    ``clusters=`` (with ``cfg=None``) evaluates the same grid for a fleet
+    in one ``(C, P)`` scan: a sequence of ``ClusterSpec`` / ``(cfg,
+    process)`` pairs / configs sharing survivor count and ladder size and
+    one process family, each cluster sampling its own histories at the same
+    key.  Returns a LIST of per-cluster results, each bit-identical to a
+    standalone call on that cluster; scan engine only, no topology.
     """
     if clusters is not None:
-        raise sweep._not_ported("the fleet clusters= axis")
+        if cfg is not None:
+            raise ValueError(
+                "pass cfg=None with clusters=: each ClusterSpec carries "
+                "its own scenario")
+        if topology is not None:
+            raise ValueError(
+                "cluster-stacked dispatch samples iid per cluster; "
+                "correlated topologies are a single-cluster feature")
+        return _evaluate_policy_grid_fleet(
+            clusters, table, key, work_s=work_s, makespan_s=makespan_s,
+            n_runs=n_runs, max_failures=max_failures, mtbf_s=mtbf_s,
+            process=process, engine=engine, device=device)
     if (work_s is None) == (makespan_s is None):
         raise ValueError("give exactly one of work_s or makespan_s")
     proc = failures.as_process(process, mtbf_s)
@@ -385,3 +567,270 @@ def knee_point(energy, makespan, front: Optional[np.ndarray] = None) -> int:
         if dist.max() > 1e-12:
             return int(front[int(np.argmax(dist))])
     return int(front[int(np.argmin(np.hypot(e_n, m_n)))])
+
+
+# ---------------------------------------------------------------------------
+# cross-entropy refinement of the continuous knobs
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CEMResult:
+    """Outcome of ``cem_refine``: the refined policy and the schedule it
+    followed.  ``iterations`` rows carry the per-iteration sampling mean /
+    std per knob and the iteration's best score; ``best`` is the incumbent
+    after the last iteration — never worse than the seed under CRN."""
+
+    best: dict                  # knobs + mean_energy_j / mean_makespan_s
+    seed_policy: dict
+    iterations: tuple           # per-iteration dicts
+    n_evaluations: int
+
+
+def cem_refine(cfg: ScenarioConfig, key, *, init: dict, bounds: dict,
+               work_s: Optional[float] = None,
+               makespan_s: Optional[float] = None, n_iters: int = 5,
+               population: int = 24, elite_frac: float = 0.25,
+               smoothing: float = 0.7, init_std_frac: float = 0.25,
+               makespan_weight: float = 0.0, n_runs: int = 128,
+               max_failures: int = 32, mtbf_s: Optional[float] = None,
+               process: Optional[failures.FailureProcess] = None,
+               topology=None, seed: int = 0,
+               warm: Optional["CEMResult"] = None,
+               device="cuda") -> CEMResult:
+    """Cross-entropy refinement of the continuous knobs around a seed.
+
+    ``init`` is a full policy dict (a ``PolicyEvalResult.policy`` row,
+    typically the grid optimum); ``bounds`` maps a subset of ``CEM_KNOBS``
+    to (lo, hi) boxes — knobs without bounds stay at ``init``, and
+    ``wait_mode`` is always fixed.  Each iteration samples a Gaussian
+    population (numpy ``default_rng(seed)``, so the same seed draws the
+    reference's population), clips it to the bounds, appends the incumbent,
+    evaluates the whole population in ONE scan call under the SAME ``key``
+    (CRN: the incumbent re-scores identically), then moves mean/std toward
+    the elite fraction with exponential ``smoothing``.  Score =
+    ``mean_energy_j + makespan_weight * mean_makespan_s``; the reported best
+    never regresses.  The interval box is floored at ``interval_floor``.
+
+    ``warm`` resumes the Gaussian from a previous ``CEMResult``: mean/std
+    start at its last posterior (clipped to the current bounds, std floored
+    at 2 % of each box); the incumbent re-injection still uses ``init``.
+    """
+    missing = [k for k in bounds if k not in CEM_KNOBS]
+    if missing:
+        raise ValueError(f"not continuous CEM knobs: {missing} "
+                         f"(allowed: {CEM_KNOBS})")
+    if not bounds:
+        raise ValueError("bounds must name at least one knob to refine")
+    if "ckpt_interval" in bounds:
+        # a Gaussian draw below the sawtooth floor would otherwise abort
+        # the refinement mid-loop via policy_inputs' ValueError
+        lo, hi = bounds["ckpt_interval"]
+        floor = interval_floor(cfg)
+        if hi <= floor:
+            raise ValueError(
+                f"ckpt_interval bounds ({lo}, {hi}) lie below the scenario's "
+                f"starting ckpt_age/t_reexec floor {floor:.1f}")
+        bounds = dict(bounds, ckpt_interval=(max(lo, floor), hi))
+    knobs = tuple(k for k in CEM_KNOBS if k in bounds)
+    mean = {k: float(init[k]) for k in knobs}
+    std = {k: init_std_frac * (bounds[k][1] - bounds[k][0]) for k in knobs}
+    if warm is not None and warm.iterations:
+        prev = warm.iterations[-1]
+        for k in knobs:
+            if k in prev["mean"]:
+                lo, hi = bounds[k]
+                mean[k] = float(np.clip(prev["mean"][k], lo, hi))
+                std[k] = max(float(prev["std"][k]), 0.02 * (hi - lo))
+    rng = np.random.default_rng(seed)
+    eval_kw = dict(work_s=work_s, makespan_s=makespan_s, n_runs=n_runs,
+                   max_failures=max_failures, mtbf_s=mtbf_s, process=process,
+                   topology=topology, device=device)
+
+    score_of = lambda res: res.mean_energy_j + makespan_weight * res.mean_makespan_s
+    incumbent = dict(init)
+    best_score = None
+    history = []
+    n_evals = 0
+    for _ in range(n_iters):
+        cols = {}
+        for k in CEM_KNOBS:
+            if k in knobs:
+                lo, hi = bounds[k]
+                draw = mean[k] + std[k] * rng.standard_normal(population)
+                cols[k] = np.append(np.clip(draw, lo, hi), incumbent[k])
+            else:
+                cols[k] = np.full(population + 1, float(init[k]))
+        tab = PolicyTable(wait_mode=np.full(population + 1,
+                                            int(init["wait_mode"]), np.int32),
+                          **cols)
+        res = evaluate_policy_grid(cfg, tab, key, **eval_kw)
+        n_evals += len(tab)
+        score = score_of(res)
+        order = np.argsort(score, kind="stable")
+        n_elite = max(2, int(round(elite_frac * len(tab))))
+        elite = order[:n_elite]
+        for k in knobs:
+            col = cols[k]
+            mean[k] = smoothing * float(col[elite].mean()) \
+                + (1.0 - smoothing) * mean[k]
+            std[k] = smoothing * float(col[elite].std()) \
+                + (1.0 - smoothing) * std[k]
+        b = int(order[0])
+        # CRN: the incumbent row re-scores bit-identically, so score[b] <=
+        # the incumbent's score by construction — best-so-far is monotone
+        if best_score is None or score[b] <= best_score:
+            best_score = float(score[b])
+            incumbent = res.policy(b)
+        history.append({
+            "mean": dict(mean), "std": dict(std),
+            "best_score": float(score[b]),
+            "best_energy_j": float(res.mean_energy_j[b]),
+            "best_makespan_s": float(res.mean_makespan_s[b]),
+        })
+    return CEMResult(best=incumbent, seed_policy=dict(init),
+                     iterations=tuple(history), n_evaluations=n_evals)
+
+
+# ---------------------------------------------------------------------------
+# operator entry points
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PolicyOptimum:
+    """One scenario x one failure process, optimized: ``best`` is the
+    minimum-expected-energy policy (CEM-refined when ``refine=True``, else
+    the grid argmin), ``pareto`` indexes the grid's non-dominated (energy,
+    makespan) set energy-ascending, ``knee`` is the frontier's knee policy
+    and ``grid`` the full evaluation."""
+
+    scenario: str
+    process_label: str
+    mtbf_s: float
+    grid: PolicyEvalResult
+    best: dict
+    pareto: np.ndarray
+    knee: dict
+    cem: Optional[CEMResult]
+
+
+def _optimum_from_grid(res: PolicyEvalResult) -> PolicyOptimum:
+    """Fold a grid evaluation into its ``PolicyOptimum`` (argmin + Pareto
+    frontier + knee), without a CEM stage."""
+    front = pareto_front(res.mean_energy_j, res.mean_makespan_s)
+    knee = res.policy(knee_point(res.mean_energy_j, res.mean_makespan_s,
+                                 front))
+    return PolicyOptimum(scenario=res.scenario,
+                         process_label=res.process_label, mtbf_s=res.mtbf_s,
+                         grid=res, best=res.policy(res.best), pareto=front,
+                         knee=knee, cem=None)
+
+
+def optimize_policy(cfg: Optional[ScenarioConfig], key=None, *,
+                    table: Optional[PolicyTable] = None,
+                    work_s: float = 30 * 24 * 3600.0,
+                    mtbf_s: Optional[float] = None,
+                    process: Optional[failures.FailureProcess] = None,
+                    n_runs: int = 128, max_failures: int = 32,
+                    refine: bool = False, cem_kw: Optional[dict] = None,
+                    topology=None, clusters=None, engine: str = "scan",
+                    device="cuda"):
+    """Tune the policy knobs for one scenario under one failure process.
+
+    Evaluates ``table`` (default: ``default_policy_table`` around the Young
+    anchor) at equal useful work ``work_s`` in one engine call, extracts
+    the energy/makespan Pareto frontier and its knee, and (``refine=True``)
+    runs ``cem_refine`` on the continuous knobs seeded at the grid argmin,
+    its bounds by default the grid's own knob ranges.  ``key`` defaults to
+    ``prng.PRNGKey(0)``; ``process=None`` is the paper's exponential at
+    per-node ``mtbf_s`` (default 14 days).  ``engine="kernel"`` runs the
+    grid stage as one launch of the CUDA kernel; the CEM stage stays on the
+    scan, as in the reference.
+
+    ``clusters=`` (``cfg=None``) tunes a whole fleet in one ``(C, P)``
+    scan and returns a LIST of per-cluster ``PolicyOptimum`` bit-identical
+    to standalone calls per cluster at the same key.  The table is shared
+    (default: ``default_policy_table`` of the first cluster at its process
+    MTBF); ``refine=True`` is a single-cluster feature and raises.
+    """
+    if key is None:
+        key = prng.PRNGKey(0)
+    if clusters is not None:
+        if cfg is not None:
+            raise ValueError("pass cfg=None with clusters=: each "
+                             "ClusterSpec carries its own scenario")
+        if refine:
+            raise ValueError(
+                "refine=True is a single-cluster feature; CEM-refine the "
+                "per-cluster grid optima individually if needed")
+        specs = [_as_cluster_spec(c) for c in clusters]
+        if not specs:
+            raise ValueError("no clusters to optimize")
+        if table is None:
+            p0 = failures.as_process(
+                specs[0].process if specs[0].process is not None else process,
+                14 * 24 * 3600.0 if mtbf_s is None else mtbf_s)
+            table = default_policy_table(specs[0].cfg,
+                                         float(np.mean(p0.mean_s())))
+        results = evaluate_policy_grid(
+            None, table, key, work_s=work_s, n_runs=n_runs,
+            max_failures=max_failures, mtbf_s=mtbf_s, process=process,
+            topology=topology, clusters=specs, engine=engine, device=device)
+        return [_optimum_from_grid(res) for res in results]
+    proc = failures.as_process(process, 14 * 24 * 3600.0 if mtbf_s is None
+                               else mtbf_s)
+    if table is None:
+        table = default_policy_table(cfg, float(np.mean(proc.mean_s())))
+    res = evaluate_policy_grid(
+        cfg, table, key, work_s=work_s, n_runs=n_runs,
+        max_failures=max_failures, process=proc, topology=topology,
+        engine=engine, device=device)
+    opt = _optimum_from_grid(res)
+    if not refine:
+        return opt
+    kw = dict(cem_kw or {})
+    bounds = kw.pop("bounds", None)
+    if bounds is None:
+        span = lambda c: (float(np.min(c)), float(np.max(c)))
+        bounds = {"ckpt_interval": span(table.ckpt_interval),
+                  "mu1": span(table.mu1)}
+        bounds = {k: v for k, v in bounds.items() if v[0] < v[1]}
+        if not bounds:
+            bounds = {"ckpt_interval": (0.5 * opt.best["ckpt_interval"],
+                                        2.0 * opt.best["ckpt_interval"])}
+    cem_args = dict(work_s=work_s, n_runs=n_runs, max_failures=max_failures,
+                    process=proc, topology=topology, device=device)
+    cem_args.update(kw)     # cem_kw overrides the grid-stage defaults
+    cem = cem_refine(cfg, key, init=opt.best, bounds=bounds, **cem_args)
+    return dataclasses.replace(opt, best=cem.best, cem=cem)
+
+
+def equal_mtbf_processes(mtbf_s: float, *, weibull_k: float = 0.7,
+                         trace_n: int = 512, trace_seed: int = 0) -> dict:
+    """The standard process panel at equal per-node MTBF: the paper's
+    exponential, an infant-mortality Weibull, and an empirical trace
+    (Weibull-shaped numpy draws from ``trace_seed`` rescaled to the exact
+    MTBF)."""
+    raw = np.random.default_rng(trace_seed).weibull(weibull_k, trace_n)
+    gaps = raw * (mtbf_s / raw.mean())
+    return {
+        "exponential": failures.Exponential(mtbf_s),
+        f"weibull_k{weibull_k:g}": failures.Weibull.from_mtbf(weibull_k, mtbf_s),
+        "trace": failures.EmpiricalTrace(gaps),
+    }
+
+
+def optimize_across_processes(cfg: ScenarioConfig, key=None, *,
+                              mtbf_s: float,
+                              processes: Optional[dict] = None,
+                              **kw) -> dict:
+    """name -> ``PolicyOptimum`` across failure processes at equal MTBF:
+    same key, same grid, same work for every process, so the raw uniforms
+    behind the gap sampler are shared and only the inter-failure law moves
+    between entries.  ``kw`` goes to ``optimize_policy`` (``device``
+    included)."""
+    if key is None:
+        key = prng.PRNGKey(0)
+    if processes is None:
+        processes = equal_mtbf_processes(mtbf_s)
+    return {name: optimize_policy(cfg, key, process=proc, mtbf_s=mtbf_s, **kw)
+            for name, proc in processes.items()}

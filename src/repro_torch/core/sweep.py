@@ -41,10 +41,13 @@ Every engine takes a ``core.topology.Topology`` (``topology=``): the
 correlated shock sampler then draws the histories and the felled survivor
 slots of each epoch, which every engine composes.
 
+The cluster axis (``renewal_monte_carlo_policies`` on a ``(C, P)``
+stack, the fleet dispatch): each cluster lane samples its own histories at
+the shared key through its own process parameters, in one batched pass,
+and one float64 scan runs over the ``C x P`` lanes.
+
 Semantics (snapping, chain order, occurrence, truncation, re-anchoring,
 the quiesce policy) are the reference's; see its module and docs/sweep.md.
-The fleet ``clusters=`` axis is not ported yet and raises
-``NotImplementedError`` naming ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -92,14 +95,6 @@ __all__ = [
 ]
 
 SECONDS_PER_YEAR = 365.25 * 24 * 3600.0
-
-_NOT_PORTED = ("is not ported yet (ROADMAP.md, Queue 1: the fleet "
-               "clusters= axis)")
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} {_NOT_PORTED}")
-
 
 def _np(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
@@ -178,15 +173,21 @@ def sweep_inputs(cfg: ScenarioConfig, dtype=torch.float32,
     )
 
 
-def _stack(inputs: Sequence[SweepInputs]) -> SweepInputs:
-    st = lambda xs: torch.stack(list(xs))
+def _map_leaves(fn, inputs: Sequence[SweepInputs]) -> SweepInputs:
+    """``SweepInputs`` whose every array leaf is ``fn`` of the list of that
+    leaf across ``inputs``; ``peer`` is the first input's."""
+    leaf = lambda get: fn([get(i) for i in inputs])
     return SweepInputs(
-        **{f: st(getattr(i, f) for i in inputs) for f in _LEAVES},
-        ladder=em.LadderArrays(**{f: st(getattr(i.ladder, f) for i in inputs)
+        **{f: leaf(lambda i, _f=f: getattr(i, _f)) for f in _LEAVES},
+        ladder=em.LadderArrays(**{f: leaf(lambda i, _f=f: getattr(i.ladder, _f))
                                   for f in _LADDER}),
-        sleep=em.SleepArrays(**{f: st(getattr(i.sleep, f) for i in inputs)
+        sleep=em.SleepArrays(**{f: leaf(lambda i, _f=f: getattr(i.sleep, _f))
                                 for f in _SLEEP}),
         peer=inputs[0].peer)
+
+
+def _stack(inputs: Sequence[SweepInputs]) -> SweepInputs:
+    return _map_leaves(torch.stack, inputs)
 
 
 def inputs_from_reference(stacked_np: dict, device="cuda") -> SweepInputs:
@@ -863,7 +864,8 @@ def _renewal_scan(inp: SweepInputs, gaps: torch.Tensor, makespan_s,
 
     ``inp`` is a lane-stacked ``SweepInputs`` (scenarios or policies,
     leading axis P; any float dtype, cast to float64 here), ``gaps`` (R, K)
-    float64 shared by every lane, ``makespan_s`` a scalar or (P,), and
+    float64 shared by every lane or (P, R, K) one history per lane (the
+    cluster axis), ``makespan_s`` a scalar or (P,), and
     ``felled`` None or an (R, K, N) survivor-slot mask.  A Python loop over
     the K epochs carries only the re-anchor recursion ``(ages, exec_anchor,
     bal_elapsed, t_anchor, alive)`` — the failed node's lost-work age rides
@@ -879,7 +881,7 @@ def _renewal_scan(inp: SweepInputs, gaps: torch.Tensor, makespan_s,
     f8 = lambda x: x.to(dtype=torch.float64)
     f4 = lambda x: x.to(dtype=torch.float32)
     n_lanes = inp.interval.shape[0]
-    n_runs, n_epochs = gaps.shape
+    n_runs, n_epochs = gaps.shape[-2:]
     n = inp.period.shape[-1]
     n_nodes = n + 1
     lane = lambda x, k: x.reshape((n_lanes,) + (1,) * k)   # vs (P, ...k axes)
@@ -893,7 +895,7 @@ def _renewal_scan(inp: SweepInputs, gaps: torch.Tensor, makespan_s,
     makespan = torch.as_tensor(makespan_s, dtype=torch.float64,
                                device=dev).expand(n_lanes)
     period = f8(inp.period)[:, None, :]                            # (P, 1, N)
-    m_all = (torch.zeros(gaps.shape + (n,), dtype=torch.bool, device=dev)
+    m_all = (torch.zeros((n_runs, n_epochs, n), dtype=torch.bool, device=dev)
              if felled is None else felled.to(device=dev, dtype=torch.bool))
     neg_inf = -float("inf")
 
@@ -906,10 +908,10 @@ def _renewal_scan(inp: SweepInputs, gaps: torch.Tensor, makespan_s,
     alive = torch.ones((n_lanes, n_runs), dtype=torch.bool, device=dev)
     ys = []
     for k in range(n_epochs):
-        delta, m = gaps[:, k], m_all[:, k]                         # (R,), (R, N)
+        delta, m = gaps[..., k], m_all[:, k]            # ([P,] R), (R, N)
         occurs = alive & (bal_elapsed + delta <= lane(makespan, 1))
         age_all, work, _, d_eff_all = planning.advance_checkpoint_sawtooth(
-            ages_all, delta[:, None], lane(interval, 2), lane(dur, 2))
+            ages_all, delta[..., None], lane(interval, 2), lane(dur, 2))
         rem = torch.remainder(exec_anchor - work[..., :-1], period)
         exec_rem = torch.where(rem == 0.0, period, rem)
         d_eff_fail = d_eff_all[..., -1]
@@ -1047,16 +1049,17 @@ def _renewal_scan(inp: SweepInputs, gaps: torch.Tensor, makespan_s,
 def _attach_failed_counts(out: dict, failed: torch.Tensor, n_nodes: int,
                           fmask=None) -> dict:
     """Per-node failure counts over valid epochs, reduced over runs;
-    ``out['valid']`` is (S|P, R, K) bool, ``failed`` (R, K).  With a
-    correlated sampler's physical-node ``fmask`` ((R, K, n_nodes)) every
-    felled node counts, not just the primary."""
+    ``out['valid']`` is (S|P, R, K) bool and ``failed`` (R, K), or (C, P,
+    R, K) and (C, 1, R, K) on the cluster axis.  With a correlated
+    sampler's physical-node ``fmask`` ((R, K, n_nodes)) every felled node
+    counts, not just the primary."""
     valid = out.pop("valid")
     if fmask is None:
         node = torch.arange(n_nodes, device=valid.device)
-        hit = valid[..., None] & (failed[None, ..., None] == node)
+        hit = valid[..., None] & (failed[..., None] == node)
     else:
-        hit = valid[..., None] & fmask[None]
-    out["failed_counts"] = hit.to(torch.int32).sum(dim=(1, 2))
+        hit = valid[..., None] & fmask
+    out["failed_counts"] = hit.to(torch.int32).sum(dim=(-3, -2))
     return out
 
 
@@ -1091,6 +1094,35 @@ def _renewal_mc_core(stacked: SweepInputs, key, makespan_s, process,
     if stats:
         out = _attach_failed_counts(out, failed, n_nodes, fmask=fmask)
     return out, gaps, failed
+
+
+def _renewal_fleet_mc_core(stacked: SweepInputs, key, makespan_s, process,
+                           n_runs: int, max_failures: int) -> dict:
+    """The cluster axis: ``stacked`` carries leading ``(C, P)`` axes
+    (clusters x policies, ``optimize.fleet_policy_inputs``),
+    ``makespan_s`` is a ``(C, P)`` tensor on its device and ``process`` a
+    same-family stack over the C clusters (``failures.stack_processes``).
+
+    Each cluster lane samples its own histories at the shared ``key``
+    through its own parameters (one batched sampler pass, ``(C, R, K)``)
+    and one float64 scan runs over the ``C x P`` lanes, every policy of a
+    cluster on that cluster's histories.  Samplers and scan are
+    elementwise per lane with fixed-tree sums, so each cluster's rows are
+    bit-identical to a standalone single-cluster call at the same key and
+    do not depend on the clusters batched beside it.  Stats only: returns
+    the ``RenewalDeviceStats`` fields as a dict, leading ``(C, P)``."""
+    n_clusters, n_policies = stacked.interval.shape
+    n_nodes = stacked.period.shape[-1] + 1
+    gaps32, failed = failures.sample_fleet_renewal_gaps(
+        process, key, n_runs, max_failures, n_nodes, stacked.interval.device)
+    flat = lambda a: a.reshape((n_clusters * n_policies,) + a.shape[2:])
+    lanes = _map_leaves(lambda xs: flat(xs[0]), [stacked])
+    gaps = flat(gaps32.to(torch.float64)[:, None].expand(
+        (n_clusters, n_policies) + tuple(gaps32.shape[1:])))
+    out = _renewal_scan(lanes, gaps, flat(makespan_s), stats=True)
+    out = {k: v.reshape((n_clusters, n_policies) + v.shape[1:])
+           for k, v in out.items()}
+    return _attach_failed_counts(out, failed[:, None], n_nodes)
 
 
 def _wrap_device_result(out: dict, gaps: torch.Tensor,
@@ -1240,11 +1272,47 @@ def renewal_monte_carlo_policies(stacked: SweepInputs, key, *, makespan_s,
     bit-identical to a standalone ``renewal_monte_carlo_device`` call on
     that policy with the same engine.  Engines as there; a ``topology``
     swaps in the correlated shock sampler, whose histories and felled masks
-    every lane shares too."""
+    every lane shares too.
+
+    **Cluster axis.**  A ``stacked`` with leading ``(C, P)`` axes
+    (``optimize.fleet_policy_inputs``) evaluates C clusters x P policies in
+    one scan (``_renewal_fleet_mc_core``): ``makespan_s`` is then ``(C,
+    P)`` and ``process`` a same-family stack over the C clusters
+    (``failures.stack_processes``); each cluster's rows are bit-identical
+    to a standalone call on that cluster at the same key.  Scan engine,
+    stats only, independent sampler: the kernel engine, ``stats=False`` and
+    ``topology`` raise, as in the reference."""
     _check_engine(engine, stats)
-    if stacked.interval.dim() != 1:
-        raise _not_ported("the cluster axis (clusters=)")
     proc = failures.as_process(process, mtbf_s)
+    if stacked.interval.dim() == 2:
+        if engine != "scan":
+            raise ValueError("the cluster axis runs on the scan engine only "
+                             "(the kernel's grid is lanes x runs)")
+        if not stats:
+            raise ValueError(
+                "cluster-stacked dispatch is the stats-only advisory hot "
+                "path; use per-cluster calls for per-epoch diagnostics")
+        if topology is not None:
+            raise ValueError(
+                "cluster-stacked dispatch samples iid per cluster; "
+                "correlated topologies are a single-cluster feature")
+        n_clusters = stacked.interval.shape[0]
+        try:
+            stacked_c = failures.fleet_size(proc)
+        except ValueError:
+            stacked_c = None
+        if stacked_c != n_clusters:
+            raise ValueError(
+                f"cluster-stacked dispatch needs a process stacked over the "
+                f"{n_clusters} cluster lanes (failures.stack_processes)")
+        makespan = torch.as_tensor(np.asarray(makespan_s, np.float64),
+                                   device=stacked.interval.device)
+        if makespan.shape != stacked.interval.shape:
+            raise ValueError(
+                f"fleet makespan_s must be (C, P) = "
+                f"{tuple(stacked.interval.shape)}, got {tuple(makespan.shape)}")
+        return RenewalDeviceStats(**_renewal_fleet_mc_core(
+            stacked, key, makespan, proc, n_runs, max_failures))
     if engine == "kernel":
         return _renewal_kernel_mc(stacked, key, makespan_s, proc, n_runs,
                                   max_failures, topology=topology)

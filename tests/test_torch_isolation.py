@@ -5,8 +5,9 @@ neither ``jax`` nor any part of the reference package ``repro``; every
 module imports with ``jax`` made unimportable, and importing them builds no
 kernel.  The entry points that import lazily (the event oracle, the sweep,
 the Monte-Carlo, the planners, both renewal engines, the correlated
-``topology=`` sampler, the failure processes and the trace export) run
-with ``jax`` and ``repro`` unimportable too.
+``topology=`` sampler, the failure processes and the trace export, the
+optimiser's entry points, the fleet advisor and the campaign runner and
+CLI) run with ``jax`` and ``repro`` unimportable too.
 """
 import ast
 import os
@@ -66,7 +67,9 @@ def test_every_module_imports_without_jax():
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
     assert len(mods) >= 15
-    assert {"repro_torch.core.topology", "repro_torch.core.trace"} <= set(mods)
+    assert {"repro_torch.core.topology", "repro_torch.core.trace",
+            "repro_torch.fleet", "repro_torch.fleet.advisor",
+            "repro_torch.campaign", "repro_torch.campaign.__main__"} <= set(mods)
 
 
 def test_entry_points_run_without_jax():
@@ -104,6 +107,26 @@ def test_entry_points_run_without_jax():
                                       process=failures.Gamma.from_mtbf(0.5, 3e5),
                                       engine=engine, device="cpu")
         failures.fit_weibull([1.0, 2.0, 5.0], censored=[3.0])
+        from repro_torch import fleet
+        from repro_torch.campaign import __main__ as campaign_cli
+        from repro_torch.campaign import presets, runner
+        small = optimize.policy_grid(ckpt_interval=[3600.0, 7200.0])
+        opt = optimize.optimize_policy(
+            scenarios.sparse_rendezvous_scenario(), table=small, work_s=1e5,
+            mtbf_s=1e4, n_runs=4, max_failures=3, refine=True,
+            cem_kw={"n_iters": 1, "population": 2}, device="cpu")
+        panel = optimize.optimize_across_processes(
+            scenarios.sparse_rendezvous_scenario(), table=small, work_s=1e5,
+            mtbf_s=1e4, n_runs=4, max_failures=3, device="cpu")
+        adv = fleet.FleetAdvisor(small, n_runs=4, max_failures=3,
+                                 device="cpu").advise(fleet.synthetic_fleet(3))
+        camp = runner.run_campaign(presets.smoke(), device="cpu")
+        import contextlib, io
+        with contextlib.redirect_stdout(io.StringIO()) as listing:
+            assert campaign_cli.main(["list"]) == 0
+        assert "policy_grid" in listing.getvalue()
+        assert opt.cem is not None and len(panel) == 3 and len(adv) == 3
+        assert camp.n_computed == 4
         prv = trace.to_prv(simulator.simulate(cfgs[0], True, device="cpu"))
         assert prv.startswith("#Paraver")
         assert len(rows) == 3 and run.n_failures == 2 and mc.n_samples == 64

@@ -273,10 +273,10 @@ def test_policy_table_helpers_match_reference(ref):
 
 
 def test_next_slice_paths_raise():
-    """What is still not ported raises, naming ROADMAP.md: the fleet
-    clusters= axis.  The scan engine and the correlated topology= sampler,
-    which raised here before, run (held by tests/test_torch_renewal_f64.py
-    and tests/test_torch_topology.py)."""
+    """Paths that raised here in earlier slices now run: the correlated
+    topology= sampler and the fleet clusters= axis (held by
+    tests/test_torch_topology.py and tests/test_torch_fleet.py).  The
+    reference's engine name "pallas" is refused; the port says "kernel"."""
     from repro_torch.core import topology as T
 
     cfgs = list(SC.paper_scenarios().values())
@@ -287,12 +287,15 @@ def test_next_slice_paths_raise():
     assert set(out) == {c.name for c in cfgs}
     assert S.renewal_monte_carlo(cfgs[0], key, n_runs=4, max_failures=3,
                                  topology=topo, device="cpu").n_runs == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        O.evaluate_policy_grid(None, O.policy_grid(ckpt_interval=[3600.0]),
-                               key, work_s=1e5, mtbf_s=1e4,
-                               clusters=[cfgs[0]], device="cpu")
+    rows = O.evaluate_policy_grid(None, O.policy_grid(ckpt_interval=[3600.0]),
+                                  key, work_s=1e5, mtbf_s=1e4, n_runs=4,
+                                  clusters=cfgs[:2], device="cpu")
+    assert [type(r) for r in rows] == [O.PolicyEvalResult] * 2
     with pytest.raises(ValueError):
         S.renewal_monte_carlo(cfgs[0], key, engine="pallas", device="cpu")
+    with pytest.raises(ValueError, match="unknown engine"):
+        O.optimize_policy(cfgs[0], key, engine="pallas", n_runs=4,
+                          max_failures=3, device="cpu")
 
 
 def test_cuda_request_without_a_card_raises(monkeypatch):

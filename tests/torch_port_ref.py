@@ -37,13 +37,19 @@ def load_reference():
 
     if not hasattr(jax.experimental, "enable_x64"):
         jax.experimental.enable_x64 = jax.enable_x64
-    from repro import configs, models
+    import importlib
+
+    from repro import configs, fleet, models
+    from repro.campaign import analyze, presets, runner, spec, store
     from repro.core import (characterization, energy_model, failures,
                             optimize, planning, scenarios, simulator,
                             strategies, sweep, topology, trace)
     from repro.kernels import flash_attention, ops, renewal_scan, ssd_scan
     from repro.launch import batching, steps
 
+    campaign = types.SimpleNamespace(
+        analyze=analyze, presets=presets, runner=runner, spec=spec,
+        store=store, cli=importlib.import_module("repro.campaign.__main__"))
     return types.SimpleNamespace(
         jax=jax, characterization=characterization,
         energy_model=energy_model, failures=failures, optimize=optimize,
@@ -51,7 +57,8 @@ def load_reference():
         strategies=strategies, topology=topology, trace=trace,
         sweep=sweep, renewal_scan=renewal_scan, kernel_ops=ops,
         flash_attention=flash_attention, ssd_scan=ssd_scan, models=models,
-        configs=configs, steps=steps, batching=batching)
+        configs=configs, steps=steps, batching=batching, fleet=fleet,
+        campaign=campaign)
 
 
 def to_np(x):
