@@ -41,6 +41,17 @@ same operands:
   launches), a float32 prefill of 2 x 512 tokens against the same tokens
   decoded one at a time and against the plain path, and the serve loop
   (batch 4, prompt 16, 32 generated tokens).
+* training, at deepseek-7b's published widths cut to 2 of its 30 layers
+  (bf16, 8 x 4096 tokens per step in 4 microbatches, AdamW): a kernel
+  launch under grad mode raises (``[train-grad-guard]``); 2 warm-up and 5
+  timed steps, step 1 replayed bit-equal (``[train]``); the same model
+  through ``FTTrainer`` on 2 pods with a failure, its rollback to the
+  pod's own checkpoint and re-execution bit-equal to a failure-free loop,
+  its decisions equal to the CPU's, every checkpoint write and read timed
+  (``[ft-train]``, ``[ft-io]``); ``launch.train --adaptive`` on the card
+  and a static run reconciled against the renewal engine
+  (``[ft-adaptive]``); the trained weights through the flash kernel at
+  head_dim 128, against the plain path and decode (``[dense-prefill]``).
 
 It times each kernel alone, its plain version, its bound, the one-call
 PyTorch equivalent where there is one (SDPA for flash attention), and the
@@ -1958,6 +1969,446 @@ def campaign_phase(card_line: str, sweep, prng) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# training on the card: the dense family, the train step and AdamW, the FT
+# runtime (pod checkpoints, localized rollback, the adaptive controller)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "deepseek-7b"
+TRAIN_LAYERS = 2                   # of 30: the only cut (PERF.md §4)
+TRAIN_BATCH, TRAIN_LEN = 8, 4096   # train_4k's sequence; its batch 256 cut to 8
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+FT_STEPS, FT_SCHEDULE = 6, {4: 1}  # pod 1 fails before step 4
+DENSE_DECODE_LEN, DENSE_DECODE_TOKENS = 512, 8
+# tests/test_controller.py's static run and its bars
+CTRL_PODS, CTRL_STEP_S, CTRL_MTBF_S, CTRL_K = 4, 100.0, 2000.0, 0.7
+CTRL_INTERVAL_STEPS, CTRL_STEPS, CTRL_KEY = 6, 60, 3
+TOL_COMPOSE, TOL_MC = 1e-5, 0.12
+
+
+def trees_equal(a, b) -> bool:
+    """Every leaf of ``a`` and ``b`` bit-equal (same shape and dtype)."""
+    from repro_torch._tree import items
+
+    ia, ib = list(items(a)), list(items(b))
+    if [p for p, _ in ia] != [p for p, _ in ib]:
+        return False
+    for (_, x), (_, y) in zip(ia, ib):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            return False
+        if not torch.equal(x, y.to(x.device)):
+            return False
+    return True
+
+
+def grad_guard_phase(dev) -> None:
+    """A kernel launch under grad mode with an operand that requires grad
+    raises; under no_grad the same launch runs."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn((1, 64, 2, 64), generator=gen, device=dev)
+               for _ in range(3))
+    x = torch.randn((1, 64, 2, 64), generator=gen, device=dev)
+    dt = torch.rand((1, 64, 2), generator=gen, device=dev)
+    a = -torch.rand((2,), generator=gen, device=dev)
+    bm, cm = (torch.randn((1, 64, 1, 64), generator=gen, device=dev)
+              for _ in range(2))
+    calls = {"flash_attention": lambda q_: ops.flash_attention(q_, k, v),
+             "ssd_scan": lambda x_: ops.ssd_scan(x_, dt, a, bm, cm, chunk=64)}
+    for name, operand in (("flash_attention", q), ("ssd_scan", x)):
+        try:
+            calls[name](operand.clone().requires_grad_(True))
+        except RuntimeError as exc:
+            if "no backward" not in str(exc):
+                raise
+        else:
+            raise Failed(f"{name}: a launch under grad returned an output")
+        with torch.no_grad():
+            calls[name](operand.clone().requires_grad_(True))
+    torch.cuda.synchronize()
+    line("train-grad-guard", flash_attention="raises under grad",
+         ssd_scan="raises under grad", under_no_grad="launched")
+
+
+def train_phase(card_line: str, fa, ssd) -> tuple:
+    """deepseek-7b at its published widths, 2 layers, bf16, 8 x 4096 per
+    step in 4 microbatches, AdamW: 2 warm-up steps (step 1 replayed from
+    the same state, bit-equal), then 5 timed steps.  Returns the model,
+    its config, the optimizer, the step and the pipeline, and the trained
+    parameters."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw
+
+    cfg = get_config(TRAIN_ARCH, num_layers=TRAIN_LAYERS)
+    model = build_model(cfg, device="cuda")
+    opt = adamw(AdamWConfig(learning_rate=3e-4))
+    step_fn = make_train_step(model, opt)
+    pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_LEN,
+                       global_batch=TRAIN_BATCH, device="cuda")
+    params = model.init(0)
+    n_params = sum(t.numel() for t in _leaves(params))
+    state = (params, opt.init(params))
+    del params
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    ssd.reset_launch_counts()
+    losses, times = [], []
+    for step in range(TRAIN_WARMUP + TRAIN_TIMED):
+        batch = pipe.batch_at(step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new = step_fn(*state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if step == 1:
+            again = step_fn(*state, batch)
+            equal = trees_equal(new[:2], again[:2]) and torch.equal(
+                new[2]["total_loss"], again[2]["total_loss"])
+            line("train-replay", step=1, bit_equal=equal)
+            if not equal:
+                raise Failed("train: step 1 and its replay differ")
+            del again
+        state = new[:2]
+        losses.append(float(new[2]["total_loss"]))
+        del new
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(losses)):
+        raise Failed(f"train: non-finite losses {losses}")
+    launches = fa.LAUNCHES["flash_attention"] + ssd.LAUNCHES["ssd_scan"]
+    if launches:
+        raise Failed(f"train: {launches} kernel launches on the plain path")
+    step_s = statistics.median(times[TRAIN_WARMUP:])
+    tokens = TRAIN_BATCH * TRAIN_LEN
+    # where one step's device time goes (its result is dropped)
+    print_profile("train-profile", card_line, device_profile(
+        lambda: step_fn(*state, pipe.batch_at(TRAIN_WARMUP + TRAIN_TIMED))))
+    line("train", arch=TRAIN_ARCH, card=repr(card_line), layers=TRAIN_LAYERS,
+         params=n_params, dtype=cfg.dtype, batch=TRAIN_BATCH, seq=TRAIN_LEN,
+         microbatches=cfg.train_microbatches, remat=cfg.remat,
+         step_ms_median=f"{step_s * 1e3:.3f}",
+         steps_ms=[f"{t * 1e3:.3f}" for t in times],
+         tokens_per_s=f"{tokens / step_s:.1f}",
+         model_flop_share=f"{6.0 * n_params * tokens / step_s / PEAK_BF16_FLOP_PER_S:.4f}",
+         peak_gb=f"{peak_gb:.3f}", kernel_launches=launches,
+         losses=[f"{x:.6f}" for x in losses])
+    return cfg, model, opt, step_fn, pipe, state[0]
+
+
+def ft_train_phase(card_line: str, model, opt, step_fn, pipe) -> None:
+    """The [train] model through FTTrainer: 2 pods, checkpoints every 3
+    steps, pod 1 fails before step 4 and rolls back to its own checkpoint.
+    Held against a plain failure-free loop of the same steps, and the
+    failure's decisions against the CPU port's EnergyManager."""
+    import shutil
+
+    from repro_torch._tree import tree_map
+    from repro_torch.checkpoint.manager import CheckpointConfig
+    from repro_torch.ft import runtime
+
+    root = ROOT / "build" / "ft_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        line("ft-train", free_disk_gb=f"{shutil.disk_usage(root).free / 1e9:.1f}",
+             root=str(root.relative_to(ROOT)))
+        params = model.init(0)
+        state = (params, opt.init(params))
+        del params
+        plain_losses = []
+        for s in range(FT_STEPS):
+            p, o, m = step_fn(*state, pipe.batch_at(s))
+            state = (p, o)
+            plain_losses.append(float(m["total_loss"]))
+        plain_final = tree_map(lambda t: t.cpu(), state)
+        del state, p, o
+        gc.collect()
+
+        params = model.init(0)
+        trainer = runtime.FTTrainer(
+            step_fn=step_fn, pipeline=pipe, state=(params, opt.init(params)),
+            cluster=runtime.ClusterSpec(n_pods=2),
+            ckpt_cfg=CheckpointConfig(root=str(root), interval_steps=3, keep=1,
+                                      phase_offset_steps=1, async_save=True),
+            injector=runtime.FailureInjector(dict(FT_SCHEDULE)), device="cuda")
+        del params
+        seen = []
+        on_failure = trainer.energy.on_failure
+
+        def spy(**kw):
+            seen.append({k: np.array(v) if isinstance(v, np.ndarray) else v
+                         for k, v in kw.items()})
+            return on_failure(**kw)
+
+        trainer.energy.on_failure = spy
+        t0 = time.perf_counter()
+        trainer.run(FT_STEPS)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        ev = trainer.events
+        if len(ev) != 1 or (ev[0]["pod"], ev[0]["rollback_to"],
+                            ev[0]["reexec_steps"]) != (1, 2, 1):
+            raise Failed(f"ft-train events {ev}")
+        final_equal = trees_equal(trainer.state, plain_final)
+        ft_losses = [h["loss"] for h in trainer.history]
+        if not final_equal:
+            raise Failed("ft-train: the final state differs from the "
+                         "failure-free loop")
+        if ft_losses != plain_losses:
+            raise Failed(f"ft-train losses {ft_losses} != {plain_losses}")
+        cpu_ev = runtime.EnergyManager(trainer.energy.cluster, "cpu").on_failure(
+            **seen[0])
+        card_ev = trainer.energy.events[0]
+        same_decisions = cpu_ev.decisions == card_ev.decisions and \
+            cpu_ev.saving_j == card_ev.saving_j
+        if not same_decisions:
+            raise Failed(f"ft-train: card decisions {card_ev.decisions} "
+                         f"{card_ev.saving_j} != CPU {cpu_ev.decisions} "
+                         f"{cpu_ev.saving_j}")
+        line("ft-train", card=repr(card_line), pods=2, steps=FT_STEPS,
+             failure=json.dumps(FT_SCHEDULE), rollback_to=ev[0]["rollback_to"],
+             reexec_steps=ev[0]["reexec_steps"], wall_s=f"{wall_s:.2f}",
+             final_state_vs_failure_free="bit-equal",
+             losses_vs_failure_free="equal",
+             decisions_vs_cpu_energy_manager="equal",
+             saving_j=f"{card_ev.saving_j:.6f}",
+             saving_pct=f"{card_ev.saving_pct:.4f}",
+             actions=json.dumps({p: d["wait_action"]
+                                 for p, d in card_ev.decisions.items()}),
+             losses=[f"{x:.6f}" for x in ft_losses])
+        total = 0
+        for pod, mgr in enumerate(trainer.managers):
+            for rec in mgr.io_log:
+                total += rec["bytes"] if rec["op"] == "save" else 0
+                line("ft-io", card=repr(card_line), op=rec["op"], pod=pod,
+                     step=rec["step"], bytes=rec["bytes"],
+                     seconds=f"{rec['seconds']:.3f}",
+                     gb_per_s=f"{rec['bytes'] / rec['seconds'] / 1e9:.3f}",
+                     **({"host_copy_seconds": f"{rec['copy_seconds']:.3f}"}
+                        if "copy_seconds" in rec else {}))
+        line("ft-io", saves=sum(m.saves for m in trainer.managers),
+             bytes_written=total)
+        del trainer, plain_final
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def ft_adaptive_phase(card_line: str) -> None:
+    """``python -m repro_torch.launch.train --arch deepseek-7b --adaptive
+    --device cuda`` in this process (smoke config, 4 pods, the reference's
+    defaults), then a static run reconciled against the renewal engine at
+    tests/test_controller.py's settings and bars."""
+    import io
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import failures, prng
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.ft import (ClusterSpec, FTTrainer,
+                                StochasticFailureInjector, reconcile_ledger)
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw
+
+    root = ROOT / "build" / "ft_adaptive"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        argv = ["--arch", TRAIN_ARCH, "--adaptive", "--device", "cuda",
+                "--ckpt-dir", str(root / "cli")]
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            trainer = train.main(argv)
+        wall_s = time.perf_counter() - t0
+        ctl = trainer.controller
+        for text in out.getvalue().splitlines():
+            line("ft-adaptive-cli", out=repr(text))
+        if not ctl.retunes or not trainer.events:
+            raise Failed("ft-adaptive: no failure or no retune")
+        line("ft-adaptive", card=repr(card_line), argv=repr(" ".join(argv[:-2])),
+             steps=len(trainer.history), failures=len(trainer.events),
+             retunes=len(ctl.retunes), wall_s=f"{wall_s:.2f}",
+             retune_wall_s=[f"{r.wall_s:.3f}" for r in ctl.retunes],
+             ledger_mj=f"{trainer.energy.ledger_total_j() / 1e6:.6f}",
+             final_interval_steps=trainer.managers[0].cfg.interval_steps)
+        del trainer, ctl
+
+        cfg = get_smoke_config(TRAIN_ARCH)
+        model = build_model(cfg, device="cuda")
+        opt = adamw(AdamWConfig(learning_rate=3e-4))
+        params = model.init(0)
+        process = failures.Weibull.from_mtbf(CTRL_K, CTRL_MTBF_S)
+        injector = StochasticFailureInjector(
+            process, prng.PRNGKey(CTRL_KEY), n_pods=CTRL_PODS, max_failures=32,
+            n_runs=4, run_index=1, device="cuda")
+        static = FTTrainer(
+            step_fn=make_train_step(model, opt),
+            pipeline=SyntheticLM(cfg.vocab_size, 64, 8, device="cuda"),
+            state=(params, opt.init(params)),
+            cluster=ClusterSpec(n_pods=CTRL_PODS, step_time_s=CTRL_STEP_S),
+            ckpt_cfg=CheckpointConfig(root=str(root / "static"),
+                                      interval_steps=CTRL_INTERVAL_STEPS,
+                                      keep=3, phase_offset_steps=1),
+            injector=injector, ckpt_duration_s=120.0, device="cuda")
+        t0 = time.perf_counter()
+        static.run(CTRL_STEPS)
+        run_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rep = reconcile_ledger(static, device="cuda")
+        rec_s = time.perf_counter() - t0
+        line("ft-adaptive", static_run="tests/test_controller.py settings",
+             pods=CTRL_PODS, steps=CTRL_STEPS, failures=rep.n_failures,
+             run_s=f"{run_s:.2f}", reconcile_s=f"{rec_s:.2f}",
+             ledger_j=f"{rep.ledger_j:.6f}", compose_j=f"{rep.compose_j:.6f}",
+             rel_err_compose=f"{rep.rel_err_compose:.3e}",
+             mc_j=f"{rep.mc_j:.6f}", rel_err_mc=f"{rep.rel_err_mc:.4f}")
+        if rep.n_failures < 3 or not rep.rel_err_compose < TOL_COMPOSE or \
+                not rep.rel_err_mc < TOL_MC:
+            raise Failed(f"ft-adaptive: reconcile {rep}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def dense_prefill_phase(card_line: str, cfg, params, fa) -> float:
+    """The [train] model's weights through the flash kernel: a bf16 prefill
+    of 2 x 4096 (one launch per layer; the first held against the plain
+    version, timed alone against it and SDPA), the float32 cast of the
+    weights against the plain path at 2 x 4096, and 8 decoded tokens
+    against the prefill.  Returns the worst kernel-vs-plain error."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda")
+    kern = build_model(dataclasses.replace(cfg, use_flash_kernel=True), "cuda")
+    plain = build_model(cfg, "cuda")
+    tokens = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN)), device=dev)
+    batch = {"tokens": tokens}
+    prefill = make_prefill_step(kern)
+    fa.reset_launch_counts()
+    first_only = lambda i, *call: call if i == 0 else None
+    with recorded(ops, "flash_attention_bhsd", first_only) as cap:
+        last = prefill(params, batch)
+        torch.cuda.synchronize()
+    launches = fa.LAUNCHES["flash_attention"]
+    if launches != cfg.num_layers or not torch.isfinite(last).all():
+        raise Failed(f"dense prefill: {launches} flash launches, finite "
+                     f"{bool(torch.isfinite(last).all())}")
+    fa_args, fa_kw, fa_out = cap[0]
+    err = check_close("dense flash first launch", fa_out,
+                      fa.flash_attention_reference(*fa_args, **fa_kw),
+                      *fa.PLAIN_TOL[fa_out.dtype])
+    last_plain = make_prefill_step(plain)(params, batch)
+    bf16_diff = float((last - last_plain).abs().max())
+    walls = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = statistics.median(walls[1:])
+    q, k, v = fa_args
+    fa_ms, fa_host = kernel_only_ms(
+        lambda: fa.flash_attention_bhsd(*fa_args, **fa_kw), LM_KERNEL_REPS)
+    plain_ms = statistics.median(cuda_ms(
+        lambda: fa.flash_attention_reference(*fa_args, **fa_kw), reps=3,
+        warmup=1))
+    heads = cfg.num_heads
+    b_kv = q.shape[0] // heads
+    q4, k4, v4 = (t.view(b_kv, t.shape[0] // b_kv, t.shape[1], t.shape[2])
+                  for t in (q, k, v))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, scale=1.0, enable_gqa=True)
+    sdpa_ms, _ = kernel_only_ms(sdpa, LM_KERNEL_REPS)
+    fa_bound, fa_by = bound(nbytes(q, k, v, fa_out), flash_work(q, k, None),
+                            q.dtype)
+    line("dense-prefill", arch=TRAIN_ARCH, card=repr(card_line),
+         layers=cfg.num_layers, dtype="bfloat16", batch=PREFILL_BATCH,
+         tokens=PREFILL_LEN, flash_launches=launches,
+         wall_ms_median=f"{wall_ms:.3f}",
+         tokens_per_s=f"{PREFILL_BATCH * PREFILL_LEN / (wall_ms * 1e-3):.1f}",
+         first_launch_max_abs_err=f"{err:.3e}",
+         bf16_last_logits_vs_plain_path_max_abs=f"{bf16_diff:.4e}")
+    line("timing", kernel="flash_attention", shape=tuple(q.shape),
+         group=fa_kw["group"], card=repr(card_line), kernel_ms=f"{fa_ms:.5f}",
+         wrapper_host_ms=f"{fa_host:.5f}", plain_ms_median=f"{plain_ms:.3f}",
+         sdpa_ms=f"{sdpa_ms:.5f}", bound_ms=f"{fa_bound:.5f}", bound_by=fa_by,
+         flop=f"{flash_work(q, k, None):.4e}", bytes=nbytes(q, k, v, fa_out))
+    del cap, fa_args, fa_out, q, k, v, q4, k4, v4, last, last_plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # float32: the kernel path against the plain path over every position,
+    # then DENSE_DECODE_TOKENS decoded tokens against the prefill
+    p32 = _to_float32(params)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    kern32 = build_model(dataclasses.replace(cfg32, use_flash_kernel=True), "cuda")
+    plain32 = build_model(cfg32, "cuda")
+    with torch.inference_mode():
+        got, _ = kern32.forward(p32, batch)
+        want, _ = plain32.forward(p32, batch)
+    err32 = check_close("dense float32 prefill kernel path vs plain path",
+                        got, want, *TOL_SSD)
+    del got, want
+    short = tokens[:, :DENSE_DECODE_LEN]
+    with torch.inference_mode():
+        pre, _ = kern32.forward(p32, {"tokens": short})
+        cache = kern32.init_cache(PREFILL_BATCH, DENSE_DECODE_LEN)
+        worst_dec, argmax_equal = 0.0, True
+        for t in range(DENSE_DECODE_LEN):
+            logits, cache = kern32.decode_step(p32, cache, short[:, t:t + 1], t)
+            if t >= DENSE_DECODE_LEN - DENSE_DECODE_TOKENS:
+                worst_dec = max(worst_dec, check_close(
+                    f"dense decode token {t} vs prefill", logits[:, 0],
+                    pre[:, t], *TOL_DECODE))
+                argmax_equal &= bool(torch.equal(logits[:, 0].argmax(-1),
+                                                 pre[:, t].argmax(-1)))
+    if not argmax_equal:
+        raise Failed("dense decode and prefill disagree on an argmax")
+    line("dense-prefill", dtype="float32", kernel_vs_plain_max_abs=f"{err32:.3e}",
+         kernel_vs_plain_tol=TOL_SSD, decoded_tokens=DENSE_DECODE_TOKENS,
+         of_prompt=DENSE_DECODE_LEN, decode_vs_prefill_max_abs=f"{worst_dec:.3e}",
+         decode_tol=TOL_DECODE, argmax_equal=argmax_equal)
+    del p32, cache, pre, kern32, plain32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return err
+
+
+def _to_float32(tree):
+    return {k: _to_float32(v) if isinstance(v, dict) else v.float()
+            for k, v in tree.items()}
+
+
+def training_path(card_line: str, fa, ssd) -> float:
+    """Phases 14-18: training on the card.  Returns the worst flash error
+    against its plain version on the dense prefill."""
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    grad_guard_phase(dev)
+    cfg, model, opt, step_fn, pipe, trained = train_phase(card_line, fa, ssd)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ft_train_phase(card_line, model, opt, step_fn, pipe)
+    ft_adaptive_phase(card_line)
+    err = dense_prefill_phase(card_line, cfg, trained, fa)
+    del trained, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return err
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -2300,6 +2751,9 @@ def main() -> int:
          worst_kernel_vs_plain_rel=f"{worst_rel:.3e}")
 
     lm_records = lm_path(card_line, fa, ssd)
+    line("lm-done", seconds=f"{time.perf_counter() - t_start:.1f}")
+    dense_err = training_path(card_line, fa, ssd)
+    lm_records[0]["max_abs_err"] = max(lm_records[0]["max_abs_err"], dense_err)
     records = [renewal_record] + lm_records
     line("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(card_line)

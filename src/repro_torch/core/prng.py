@@ -15,7 +15,12 @@ bits so the port's engines see the same histories for the same key:
     ``[1, 2)`` minus one (bit-exact with ``jax.random.uniform``);
   * ``exponential(key, shape)`` — ``-log1p(-u)``.  The uniforms are
     bit-exact; ``log1p`` is the backend's own, so a draw may differ from
-    jax's by an ulp (XLA's CPU log1p is not correctly rounded).
+    jax's by an ulp (XLA's CPU log1p is not correctly rounded);
+  * ``fold_in(key, data)`` — threefry of the key over the counter
+    ``(0, data)``;
+  * ``randint(key, shape, minval, maxval)`` — jax's ``_randint`` for int32:
+    two 32-bit words per element from the split key, reduced modulo the
+    span with jax's uint32 wraparound, bit for bit.
 
 Keys are host ``numpy.uint32`` arrays of shape ``(2,)`` (or ``(num, 2)``
 from ``split``); draws are made on ``device`` in int64 arithmetic masked
@@ -28,7 +33,8 @@ import torch
 
 from repro_torch._device import resolve_device
 
-__all__ = ["PRNGKey", "split", "random_bits", "uniform", "exponential"]
+__all__ = ["PRNGKey", "split", "fold_in", "random_bits", "uniform",
+           "exponential", "randint"]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -79,6 +85,15 @@ def split(key, num: int = 2) -> np.ndarray:
     return torch.stack([b1, b2], dim=1).numpy().astype(np.uint32)
 
 
+def fold_in(key, data: int) -> np.ndarray:
+    """A new key from ``key`` and the integer ``data`` (its low 32 bits) —
+    ``jax.random.fold_in``."""
+    k1, k2 = _key_words(key)
+    b1, b2 = _threefry2x32(k1, k2, torch.zeros(1, dtype=torch.int64),
+                           torch.tensor([int(data) & _M32]))
+    return np.array([int(b1), int(b2)], np.uint32)
+
+
 def random_bits(key, shape, device="cuda") -> torch.Tensor:
     """32 random bits per element (int64 tensor holding uint32 values)."""
     dev = resolve_device(device)
@@ -99,3 +114,20 @@ def uniform(key, shape, device="cuda") -> torch.Tensor:
 def exponential(key, shape, device="cuda") -> torch.Tensor:
     """float32 unit-exponential draws, ``-log1p(-u)`` as ``jax.random``."""
     return -torch.log1p(-uniform(key, shape, device))
+
+
+def randint(key, shape, minval: int, maxval: int, device="cuda") -> torch.Tensor:
+    """int32 integers in ``[minval, maxval)`` — ``jax.random.randint`` with
+    ``dtype=int32`` bit for bit: ``(hi mod span) * m + lo mod span`` with
+    ``m = (2^16 mod span)^2 mod span``, every product and sum in uint32
+    arithmetic (wrapping, as jax's), reduced modulo the span."""
+    lo_i, hi_i = int(minval), int(maxval)
+    if not (-2**31 <= lo_i and hi_i <= 2**31 - 1):
+        raise ValueError(f"randint takes int32 bounds; got [{lo_i}, {hi_i})")
+    span = max(hi_i - lo_i, 1)
+    k_hi, k_lo = split(key)
+    higher = random_bits(k_hi, shape, device)
+    lower = random_bits(k_lo, shape, device)
+    multiplier = (((1 << 16) % span) ** 2 & _M32) % span
+    offset = (((higher % span) * multiplier + lower % span) & _M32) % span
+    return (offset + lo_i).to(torch.int32)

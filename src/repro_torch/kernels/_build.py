@@ -19,6 +19,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
 
@@ -121,3 +123,18 @@ def check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
     fn.restype = ctypes.c_char_p
     raise RuntimeError(f"{name} CUDA launch failed: cudaError {err}: "
                        f"{fn(err).decode()}")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when grad mode is on and an operand requires grad.  The CUDA
+    kernels have no backward (nor have the reference's Pallas kernels), and
+    a ctypes launch is invisible to autograd: its output would carry no
+    gradient, silently.  Train on the plain paths (``use_flash_kernel=False``,
+    the reference's default) or launch under ``torch.no_grad()``; a backward
+    kernel waits in ROADMAP.md, Queue 1."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"the {name} CUDA kernel has no backward: its operands require "
+            "grad under grad mode, and the gradient would be dropped.  Train "
+            "with use_flash_kernel=False or call it under torch.no_grad() "
+            "(backward kernels wait in ROADMAP.md, Queue 1)")

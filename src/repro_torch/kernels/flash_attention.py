@@ -111,6 +111,7 @@ def _split_bf16(x: torch.Tensor) -> tuple:
 
 def _launch_cuda(q, k, v, group: int, causal: bool, window: Optional[int]):
     """Launch the CUDA kernel on the operands' card (no synchronisation)."""
+    _build.refuse_grad("flash_attention", q, k, v)
     _check(q, k, v, group, window)
     for t in (k, v):
         if t.device != q.device or t.dtype != q.dtype:

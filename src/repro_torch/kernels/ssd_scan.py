@@ -112,6 +112,7 @@ def ssd_scan_reference(x, dt, a, bmat, cmat, *, chunk: int):
 
 def _launch_cuda(x, dt, a, bmat, cmat, chunk: int):
     """Launch the CUDA kernel on the operands' card (no synchronisation)."""
+    _build.refuse_grad("ssd_scan", x, dt, a, bmat, cmat)
     _check(x, dt, a, bmat, cmat, chunk)
     ops = (x, dt, a, bmat, cmat)
     if any(t.device != x.device for t in ops):

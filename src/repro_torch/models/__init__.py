@@ -1,5 +1,5 @@
-"""The LM zoo of the port, counterpart of ``repro.models``: the ssm and
-hybrid (Zamba2) families, inference only."""
+"""The LM zoo of the port, counterpart of ``repro.models``: the dense, ssm
+and hybrid (Zamba2) families, for training and serving."""
 from repro_torch.models.api import (
     EncDecConfig,
     HybridConfig,

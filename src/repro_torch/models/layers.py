@@ -1,7 +1,13 @@
 """Shared layers: RMSNorm, rotary embeddings (RoPE and sectioned M-RoPE)
 and token embedding, the counterparts of ``repro.models.layers``.  Plain
 functions over explicit parameter tensors.  ``layer_norm`` waits for the
-encoder-decoder family."""
+encoder-decoder family.
+
+``embed``'s backward sums the rows of repeated tokens in a fixed order (a
+stable sort, then a pairwise tree per token), on the CPU and the card
+alike: an accumulating scatter would add them in whatever order its
+atomics land, and the FT runtime's re-executed steps must be bit-identical.
+"""
 from __future__ import annotations
 
 from typing import Tuple
@@ -66,4 +72,46 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return table[tokens.long()].to(dtype)
+    """Rows of ``table`` at ``tokens``, cast to ``dtype``; its backward is
+    deterministic (module doc)."""
+    return _Embed.apply(table, tokens.long()).to(dtype)
+
+
+def _segment_sum_rows(idx: torch.Tensor, rows: torch.Tensor, n: int
+                      ) -> torch.Tensor:
+    """(n, D) sums of ``rows`` (N, D) grouped by ``idx`` (N,), in float32 or
+    wider, the same bits on every run: rows sorted stably by index, each
+    group summed as a pairwise tree in the rows' original order."""
+    acc = torch.promote_types(rows.dtype, torch.float32)
+    order = torch.argsort(idx, stable=True)
+    sidx = idx[order]
+    vals = rows.to(acc)[order]
+    uniq, counts = torch.unique_consecutive(sidx, return_counts=True)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(idx.numel(), device=idx.device) \
+        - torch.repeat_interleave(starts, counts)
+    size = torch.repeat_interleave(counts, counts)
+    k, longest = 1, int(counts.max())
+    while k < longest:
+        sel = torch.nonzero((pos % (2 * k) == 0) & (pos + k < size))[:, 0]
+        vals[sel] = vals[sel] + vals[sel + k]       # distinct rows: no race
+        k *= 2
+    out = torch.zeros((n, rows.shape[1]), dtype=acc, device=rows.device)
+    out[uniq] = vals[starts]
+    return out
+
+
+class _Embed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.n_rows, ctx.table_dtype = table.shape[0], table.dtype
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (tokens,) = ctx.saved_tensors
+        d = grad.shape[-1]
+        table_grad = _segment_sum_rows(tokens.reshape(-1), grad.reshape(-1, d),
+                                       ctx.n_rows)
+        return table_grad.to(ctx.table_dtype), None

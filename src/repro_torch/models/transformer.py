@@ -1,20 +1,24 @@
-"""Decoder-only LM assembly for the ssm and hybrid (Zamba2-style) families,
-the counterpart of ``repro.models.transformer``.
+"""Decoder-only LM assembly for the dense, ssm and hybrid (Zamba2-style)
+families, the counterpart of ``repro.models.transformer``.
 
 Parameters are a nested dict of tensors in the reference's layer-stacked
 layout (``blocks`` (L, ...); hybrid ``main`` (n_super, every, ...),
 ``shared`` and ``tail`` (tail, ...)), so a reference parameter tree carries
 over leaf for leaf (``params_from_reference``).  The reference scans over
-the stacked layers; here a Python loop indexes them.  The hybrid model runs
-``shared_every`` Mamba2 layers, then one application of the weight-shared
-attention block, ``num_layers // shared_every`` times, then the ragged tail
-of Mamba2 layers.
+the stacked layers; here a Python loop indexes them.  The dense model runs
+``num_layers`` attention blocks (RMSNorm, attention, RMSNorm, MLP); the
+hybrid model runs ``shared_every`` Mamba2 layers, then one application of
+the weight-shared attention block, ``num_layers // shared_every`` times,
+then the ragged tail of Mamba2 layers.
 
-Inference only: ``remat``, ``train_microbatches`` and
-``decode_cache_in_carry`` are accepted and change nothing here (they shape
-the reference's training graph and its jit cache donation).  The sharding
-constraints of the reference have no counterpart yet.  The dense, moe and
-encdec families raise ``NotImplementedError``.
+The forward trains: under grad mode ``remat="full"`` (or ``"dots"``, which
+has no finer PyTorch policy and recomputes the whole layer too) wraps each
+layer in ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``,
+the reference's per-layer ``jax.checkpoint``.  ``train_microbatches``
+belongs to the train step (``launch.steps``); ``decode_cache_in_carry``
+shapes the reference's jit cache donation and changes nothing here.  The
+sharding constraints of the reference have no counterpart yet.  The moe
+and encdec families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from typing import Callable, NamedTuple, Union
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.models import attention as attn
@@ -32,8 +37,8 @@ from repro_torch.models.api import ModelConfig
 
 __all__ = ["Model", "build_model", "model_spec", "params_from_reference"]
 
-UNPORTED_FAMILIES = ("ROADMAP.md, Queue 1: 'LM zoo: the dense, moe and "
-                     "encdec families'")
+UNPORTED_FAMILIES = ("ROADMAP.md, Queue 1: 'LM zoo: the moe and encdec "
+                     "families'")
 
 
 class Model(NamedTuple):
@@ -51,7 +56,7 @@ class Model(NamedTuple):
 # ---------------------------------------------------------------------------
 
 def _attn_block_spec(cfg: ModelConfig, dtype) -> dict:
-    """Dense-MLP attention block (the hybrid's shared block)."""
+    """Dense-MLP attention block (a dense layer, the hybrid's shared block)."""
     return {
         "ln1": ((cfg.d_model,), dtype, "zeros"),
         "attn": attn.attn_spec(cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
@@ -94,7 +99,9 @@ def model_spec(cfg: ModelConfig) -> dict:
     """The parameter tree's shapes, dtypes and initialisers."""
     dtype = cfg.activation_dtype
     spec = _embedding_spec(cfg, dtype)
-    if cfg.family == "ssm":
+    if cfg.family == "dense":
+        spec["blocks"] = _stacked(_attn_block_spec(cfg, dtype), cfg.num_layers)
+    elif cfg.family == "ssm":
         spec["blocks"] = _stacked(_ssm_block_spec(cfg, dtype), cfg.num_layers)
     elif cfg.family == "hybrid":
         n_super, tail = divmod(cfg.num_layers, cfg.hybrid.shared_every)
@@ -171,6 +178,22 @@ def _at(tree, *idx):
     return tree[idx]
 
 
+def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn`` recomputed in the backward (the reference's ``_remat``) when
+    grad mode is on and ``cfg.remat`` asks for it; ``fn`` itself otherwise."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(cfg.remat)
+    if cfg.remat == "none":
+        return fn
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+    return wrapped
+
+
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
@@ -180,6 +203,17 @@ def _attn_block(p: dict, x, positions, cfg: ModelConfig):
                            positions, cfg)
     z = layers.rms_norm(h, p["ln2"], cfg.norm_eps)
     return h + mlp.mlp(p["mlp"], z, cfg.act)
+
+
+def _attn_block_decode(p: dict, x, kv: attn.KVCache, pos: int,
+                       cfg: ModelConfig):
+    """One-token attention block; writes the new key and value into the
+    layer's cache ``kv`` in place."""
+    a, _ = attn.decode_attention(
+        p["attn"], layers.rms_norm(x, p["ln1"], cfg.norm_eps), kv, pos, cfg)
+    x = x + a
+    z = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + mlp.mlp(p["mlp"], z, cfg.act)
 
 
 def _ssm_block(p: dict, x, cfg: ModelConfig):
@@ -242,6 +276,37 @@ def _seeded(seed_or_gen: Union[int, torch.Generator], device) -> torch.Generator
 # models
 # ---------------------------------------------------------------------------
 
+def _build_dense_decoder(cfg: ModelConfig, device: torch.device) -> Model:
+    n_layers = cfg.num_layers
+
+    def init(seed_or_gen):
+        return _init_tree(model_spec(cfg), _seeded(seed_or_gen, device), device)
+
+    def forward(params, batch):
+        x, positions = _embed_in(params, batch, cfg)
+        layer = _remat(lambda lp, h: _attn_block(lp, h, positions, cfg), cfg)
+        for i in range(n_layers):
+            x = layer(_at(params["blocks"], i), x)
+        return _logits_out(params, x, cfg), torch.zeros((), device=device)
+
+    def init_cache(batch, max_len):
+        kv = attn.init_kv_cache(batch, max_len, cfg.num_kv_heads,
+                                cfg.resolved_head_dim, cfg.activation_dtype,
+                                device)
+        return attn.KVCache(*(t.expand((n_layers,) + t.shape).clone()
+                              for t in kv))
+
+    def decode_step(params, cache, tokens, pos):
+        x = layers.embed(params["embed"], tokens, cfg.activation_dtype)
+        for i in range(n_layers):
+            x = _attn_block_decode(_at(params["blocks"], i), x,
+                                   attn.KVCache(cache.k[i], cache.v[i]), pos,
+                                   cfg)
+        return _logits_out(params, x, cfg), cache
+
+    return Model(cfg, device, init, forward, init_cache, decode_step)
+
+
 def _build_ssm_decoder(cfg: ModelConfig, device: torch.device) -> Model:
     n_layers = cfg.num_layers
 
@@ -250,8 +315,9 @@ def _build_ssm_decoder(cfg: ModelConfig, device: torch.device) -> Model:
 
     def forward(params, batch):
         x, _ = _embed_in(params, batch, cfg)
+        layer = _remat(lambda lp, h: _ssm_block(lp, h, cfg), cfg)
         for i in range(n_layers):
-            x = _ssm_block(_at(params["blocks"], i), x, cfg)
+            x = layer(_at(params["blocks"], i), x)
         return _logits_out(params, x, cfg), torch.zeros((), device=device)
 
     def init_cache(batch, max_len):
@@ -276,12 +342,13 @@ def _build_hybrid(cfg: ModelConfig, device: torch.device) -> Model:
 
     def forward(params, batch):
         x, positions = _embed_in(params, batch, cfg)
+        layer = _remat(lambda lp, h: _ssm_block(lp, h, cfg), cfg)
         for i in range(n_super):
             for j in range(every):
-                x = _ssm_block(_at(params["main"], i, j), x, cfg)
+                x = layer(_at(params["main"], i, j), x)
             x = _attn_block(params["shared"], x, positions, shared_cfg)
         for j in range(tail):
-            x = _ssm_block(_at(params["tail"], j), x, cfg)
+            x = layer(_at(params["tail"], j), x)
         return _logits_out(params, x, cfg), torch.zeros((), device=device)
 
     def init_cache(batch, max_len):
@@ -305,12 +372,7 @@ def _build_hybrid(cfg: ModelConfig, device: torch.device) -> Model:
                 x = _ssm_block_decode(_at(params["main"], i, j), x,
                                       cache["main_ssm"], (i, j), cfg)
             kv = attn.KVCache(cache["shared_kv"].k[i], cache["shared_kv"].v[i])
-            a, _ = attn.decode_attention(
-                sp["attn"], layers.rms_norm(x, sp["ln1"], cfg.norm_eps), kv,
-                pos, shared_cfg)
-            x = x + a
-            z = layers.rms_norm(x, sp["ln2"], cfg.norm_eps)
-            x = x + mlp.mlp(sp["mlp"], z, cfg.act)
+            x = _attn_block_decode(sp, x, kv, pos, shared_cfg)
         for j in range(tail):
             x = _ssm_block_decode(_at(params["tail"], j), x, cache["tail_ssm"],
                                   (j,), cfg)
@@ -324,11 +386,13 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
     request without a card raises).  ``decode_step`` updates the cache in
     place and returns it."""
     dev = resolve_device(device)
+    if cfg.family == "dense":
+        return _build_dense_decoder(cfg, dev)
     if cfg.family == "ssm":
         return _build_ssm_decoder(cfg, dev)
     if cfg.family == "hybrid":
         return _build_hybrid(cfg, dev)
-    if cfg.family in ("dense", "moe", "encdec"):
+    if cfg.family in ("moe", "encdec"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet ({UNPORTED_FAMILIES})")
     raise ValueError(f"unknown family {cfg.family!r}")

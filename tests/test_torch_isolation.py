@@ -7,7 +7,9 @@ kernel.  The entry points that import lazily (the event oracle, the sweep,
 the Monte-Carlo, the planners, both renewal engines, the correlated
 ``topology=`` sampler, the failure processes and the trace export, the
 optimiser's entry points, the fleet advisor and the campaign runner and
-CLI) run with ``jax`` and ``repro`` unimportable too.
+CLI, the train step, the checkpoint manager, the FT trainer with its
+adaptive controller and the training CLI) run with ``jax`` and ``repro``
+unimportable too.
 """
 import ast
 import os
@@ -69,7 +71,11 @@ def test_every_module_imports_without_jax():
     assert len(mods) >= 15
     assert {"repro_torch.core.topology", "repro_torch.core.trace",
             "repro_torch.fleet", "repro_torch.fleet.advisor",
-            "repro_torch.campaign", "repro_torch.campaign.__main__"} <= set(mods)
+            "repro_torch.campaign", "repro_torch.campaign.__main__",
+            "repro_torch.data.pipeline", "repro_torch.optim.adamw",
+            "repro_torch.checkpoint.manager", "repro_torch.ft",
+            "repro_torch.ft.runtime", "repro_torch.ft.controller",
+            "repro_torch.launch.train", "repro_torch._tree"} <= set(mods)
 
 
 def test_entry_points_run_without_jax():
@@ -139,3 +145,31 @@ def test_entry_points_run_without_jax():
                          text=True, env=env, cwd=str(ROOT), timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok 16 2")
+
+
+def test_training_entry_points_run_without_jax(tmp_path):
+    code = textwrap.dedent(f"""
+        import contextlib, io, sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        from repro_torch.launch import train
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            tr = train.main(["--steps", "4", "--fail-at", "2", "--ckpt-every",
+                             "1", "--batch", "2", "--seq-len", "8",
+                             "--device", "cpu", "--ckpt-dir", {str(tmp_path / "a")!r}])
+            ad = train.main(["--adaptive", "--steps", "6", "--batch", "2",
+                             "--seq-len", "8", "--device", "cpu",
+                             "--ckpt-dir", {str(tmp_path / "b")!r}])
+        from repro_torch.ft import reconcile_ledger
+        rep = reconcile_ledger(ad, device="cpu")
+        assert tr.events[0]["rollback_to"] == 1 and len(tr.history) == 4
+        assert rep.n_failures == len(ad.events) > 0
+        assert "jax" not in [k for k, v in sys.modules.items() if v is not None]
+        print("ok", len(out.getvalue().splitlines()) > 2)
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=str(ROOT), timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok True")

@@ -265,7 +265,7 @@ def test_params_from_reference_rejects_a_wrong_tree(ref_models):
         params_from_reference(tree, cfg, "cpu")
 
 
-@pytest.mark.parametrize("arch", ["deepseek-7b", "mixtral-8x22b",
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mixtral-8x22b",
                                   "whisper-medium"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

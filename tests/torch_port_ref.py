@@ -41,11 +41,15 @@ def load_reference():
 
     from repro import configs, fleet, models
     from repro.campaign import analyze, presets, runner, spec, store
+    from repro.checkpoint import manager as checkpoint_manager
     from repro.core import (characterization, energy_model, failures,
                             optimize, planning, scenarios, simulator,
                             strategies, sweep, topology, trace)
+    from repro.data import pipeline
+    from repro.ft import controller as ft_controller, runtime as ft_runtime
     from repro.kernels import flash_attention, ops, renewal_scan, ssd_scan
     from repro.launch import batching, steps
+    from repro.optim import adamw
 
     campaign = types.SimpleNamespace(
         analyze=analyze, presets=presets, runner=runner, spec=spec,
@@ -58,7 +62,9 @@ def load_reference():
         sweep=sweep, renewal_scan=renewal_scan, kernel_ops=ops,
         flash_attention=flash_attention, ssd_scan=ssd_scan, models=models,
         configs=configs, steps=steps, batching=batching, fleet=fleet,
-        campaign=campaign)
+        campaign=campaign, pipeline=pipeline, adamw=adamw,
+        checkpoint=checkpoint_manager, ft_runtime=ft_runtime,
+        ft_controller=ft_controller)
 
 
 def to_np(x):
