@@ -52,6 +52,23 @@ same operands:
   and a static run reconciled against the renewal engine
   (``[ft-adaptive]``); the trained weights through the flash kernel at
   head_dim 128, against the plain path and decode (``[dense-prefill]``).
+* the moe and encoder-decoder families and gradient compression, seeded
+  weights at published widths: olmoe-1b-7b whole (16 layers, flat
+  dispatch), a bf16 prefill of 2 x 4096 (16 flash launches, the share of
+  slots dropped at capacity factor 1.25) and the serve loop, then float32
+  with the capacity raised to E/K: the kernel path against the plain path
+  at 2 x 1024 with the differing routes counted, decode of 2 x 128 against
+  the forward (``[moe-prefill]``, ``[moe-decode]``); mixtral-8x22b cut to
+  2 of 56 layers, bf16, 2 x 8192, its window of 4096 at group 6 through
+  the flash kernel, held against the plain version and timed against a
+  masked SDPA call (``[mixtral-prefill]``); whisper-medium whole (24 + 24
+  layers), bf16, 8 x 1500 frames and 8 x 448 tokens (24 flash launches,
+  decoder self-attention only), the decode loop with the encoder's output,
+  float32 kernel path against the plain path and decode against the
+  forward (``[encdec]``); olmoe's widths cut to 2 layers trained with AdamW
+  on 4 x 2048 tokens, step 1 replayed bit-equal (``[moe-train]``); and
+  ``wrap_optimizer`` (int8, top-k 5 %) on that step's gradients against the
+  CPU port (``[compression]``).
 
 It times each kernel alone, its plain version, its bound, the one-call
 PyTorch equivalent where there is one (SDPA for flash attention), and the
@@ -66,6 +83,7 @@ repository is missing.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -280,6 +298,16 @@ def recorded(module, name: str, pick=lambda i, *call: call):
         yield calls
     finally:
         setattr(module, name, fn)
+
+
+def first_call(i, *call):
+    """``recorded``'s pick of the first call only."""
+    return call if i == 0 else None
+
+
+def free_cuda() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def drive(rs, fn) -> tuple:
@@ -1279,6 +1307,88 @@ def flash_vs_plain(fa, label, q, k, v, group, window) -> float:
     return err
 
 
+def flash_launch_timing(label: str, card_line: str, fa, args, kw, out,
+                        plain_chunks: bool = False) -> dict:
+    """A path's flash launch held within PLAIN_TOL of its plain version (run
+    per KV head when ``plain_chunks``: the whole score tensor would not fit
+    beside the model), then timed alone, against the plain version, with
+    its bound.  Prints one [timing] line and returns its numbers."""
+    q, k, v = args
+    group, window = kw["group"], kw.get("window")
+    if plain_chunks:
+        def plain():
+            return torch.cat([fa.flash_attention_reference(
+                q[j * group:(j + 1) * group], k[j:j + 1], v[j:j + 1], **kw)
+                for j in range(k.shape[0])])
+    else:
+        def plain():
+            return fa.flash_attention_reference(q, k, v, **kw)
+    err = check_close(f"{label} flash first launch", out, plain(),
+                      *fa.PLAIN_TOL[out.dtype])
+    fa_ms, fa_host = kernel_only_ms(
+        lambda: fa.flash_attention_bhsd(*args, **kw), LM_KERNEL_REPS)
+    plain_ms = statistics.median(cuda_ms(plain, reps=3, warmup=1))
+    fa_bound, fa_by = bound(nbytes(q, k, v, out), flash_work(q, k, window),
+                            q.dtype)
+    rec = {"case": label, "shape": tuple(q.shape), "kv": tuple(k.shape),
+           "group": group, "window": window, "max_abs_err": err,
+           "kernel_ms": fa_ms, "plain_ms": plain_ms, "bound_ms": fa_bound,
+           "bound_by": fa_by, "flop": flash_work(q, k, window)}
+    line("timing", kernel="flash_attention", case=label, card=repr(card_line),
+         shape=rec["shape"], kv=rec["kv"], group=group, window=window,
+         kernel_ms=f"{fa_ms:.5f}", wrapper_host_ms=f"{fa_host:.5f}",
+         plain_ms_median=f"{plain_ms:.3f}",
+         plain_version="per KV head" if plain_chunks else "whole",
+         bound_ms=f"{fa_bound:.5f}", bound_by=fa_by,
+         flop=f"{rec['flop']:.4e}", bytes=nbytes(q, k, v, out),
+         first_launch_max_abs_err=f"{err:.3e}")
+    return rec
+
+
+def sdpa_timing(label: str, card_line: str, args, kw, heads: int,
+                out) -> float:
+    """``scaled_dot_product_attention`` on a launch's operands: causal, or
+    with the sliding window as a boolean mask.  A masked GQA call that has
+    no backend here (or no memory) is timed with K/V expanded to every
+    query head instead; the line says which call was timed."""
+    q, k, v = args
+    group, window = kw["group"], kw.get("window")
+    b = q.shape[0] // heads
+    q4 = q.view(b, heads, q.shape[1], q.shape[2])
+    k4 = k.view(b, heads // group, k.shape[1], k.shape[2])
+    v4 = v.view(b, heads // group, v.shape[1], v.shape[2])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if window is None:
+        call = lambda: sdpa(q4, k4, v4, is_causal=True, scale=1.0,
+                            enable_gqa=True)
+        form = "is_causal, enable_gqa"
+    else:
+        sq, sk = q.shape[1], k.shape[1]
+        qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        mask = (kpos <= qpos) & (kpos > qpos - window)
+        call = lambda: sdpa(q4, k4, v4, attn_mask=mask, scale=1.0,
+                            enable_gqa=True)
+        form = "masked call: boolean window mask, enable_gqa"
+        try:
+            call()
+            torch.cuda.synchronize()
+        except (torch.OutOfMemoryError, RuntimeError) as exc:
+            torch.cuda.empty_cache()
+            ke = k4.repeat_interleave(group, dim=1)
+            ve = v4.repeat_interleave(group, dim=1)
+            call = lambda: sdpa(q4, ke, ve, attn_mask=mask, scale=1.0)
+            form = (f"masked call: boolean window mask, K/V expanded to "
+                    f"{heads} heads ({type(exc).__name__} with enable_gqa: "
+                    f"{str(exc).splitlines()[0][:80]!r})")
+    diff = float((call().reshape(out.shape).float() - out.float()).abs().max())
+    ms, _ = kernel_only_ms(call, LM_KERNEL_REPS)
+    line("timing", kernel="sdpa", case=label, card=repr(card_line),
+         call=repr(form), sdpa_ms=f"{ms:.5f}",
+         sdpa_vs_kernel_max_abs=f"{diff:.3e}")
+    return ms
+
+
 def ssd_vs_plain(ssd, label, x, dt, a, bm, cm, chunk) -> float:
     y, st = ssd.ssd_scan_bhsp(x, dt, a, bm, cm, chunk=chunk)
     y_p, st_p = ssd.ssd_scan_reference(x, dt, a, bm, cm, chunk=chunk)
@@ -1440,9 +1550,8 @@ def lm_path(card_line: str, fa, ssd) -> list:
     batch = {"tokens": tokens}
     fa.reset_launch_counts()
     ssd.reset_launch_counts()
-    first_only = lambda i, *call: call if i == 0 else None
-    with recorded(ops, "flash_attention_bhsd", first_only) as cap_fa, \
-            recorded(ops, "ssd_scan_bhsp", first_only) as cap_ssd:
+    with recorded(ops, "flash_attention_bhsd", first_call) as cap_fa, \
+            recorded(ops, "ssd_scan_bhsp", first_call) as cap_ssd:
         last = prefill(params, batch)
         torch.cuda.synchronize()
     launches = {"flash_attention": fa.LAUNCHES["flash_attention"],
@@ -1528,7 +1637,7 @@ def lm_path(card_line: str, fa, ssd) -> list:
              lambda: fa.flash_attention_bhsd(*fa_args, **fa_kw), 100)))
     kernels_ms = n_super * fa_ms + cfg.num_layers * ssd_ms
     line("prefill-breakdown", arch=LM_ARCH, card=repr(card_line),
-         wall_ms_median=f"{wall_ms:.3f}", walls_ms=[f"{w:.3f}" for w in walls],
+         wall_ms_median=f"{wall_ms:.3f}",
          flash_ms_x13=f"{n_super * fa_ms:.3f}",
          ssd_ms_x81=f"{cfg.num_layers * ssd_ms:.3f}",
          rest_ms=f"{wall_ms - kernels_ms:.3f}",
@@ -1566,8 +1675,7 @@ def lm_path(card_line: str, fa, ssd) -> list:
     print_profile("decode-profile", card_line, prof)
     del cache
     del model, params, tokens, batch
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_cuda()
 
     # --- phase 8: float32 prefill against decode and the plain path --------
     cfg32 = get_config(LM_ARCH, use_flash_kernel=True, dtype="float32")
@@ -1621,8 +1729,7 @@ def lm_path(card_line: str, fa, ssd) -> list:
     if not argmax_equal:
         raise Failed("float32 decode and prefill disagree on the argmax")
     del model, plain, params, cache, last, last_plain, dec_logits
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_cuda()
 
     return [
         {"name": "flash_attention", "route": "cuda",
@@ -2195,8 +2302,7 @@ def ft_train_phase(card_line: str, model, opt, step_fn, pipe) -> None:
         del trainer, plain_final
     finally:
         shutil.rmtree(root, ignore_errors=True)
-        gc.collect()
-        torch.cuda.empty_cache()
+        free_cuda()
 
 
 def ft_adaptive_phase(card_line: str) -> None:
@@ -2295,8 +2401,7 @@ def dense_prefill_phase(card_line: str, cfg, params, fa) -> float:
     batch = {"tokens": tokens}
     prefill = make_prefill_step(kern)
     fa.reset_launch_counts()
-    first_only = lambda i, *call: call if i == 0 else None
-    with recorded(ops, "flash_attention_bhsd", first_only) as cap:
+    with recorded(ops, "flash_attention_bhsd", first_call) as cap:
         last = prefill(params, batch)
         torch.cuda.synchronize()
     launches = fa.LAUNCHES["flash_attention"]
@@ -2304,34 +2409,12 @@ def dense_prefill_phase(card_line: str, cfg, params, fa) -> float:
         raise Failed(f"dense prefill: {launches} flash launches, finite "
                      f"{bool(torch.isfinite(last).all())}")
     fa_args, fa_kw, fa_out = cap[0]
-    err = check_close("dense flash first launch", fa_out,
-                      fa.flash_attention_reference(*fa_args, **fa_kw),
-                      *fa.PLAIN_TOL[fa_out.dtype])
     last_plain = make_prefill_step(plain)(params, batch)
     bf16_diff = float((last - last_plain).abs().max())
-    walls = []
-    for _ in range(4):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        prefill(params, batch)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    wall_ms = statistics.median(walls[1:])
-    q, k, v = fa_args
-    fa_ms, fa_host = kernel_only_ms(
-        lambda: fa.flash_attention_bhsd(*fa_args, **fa_kw), LM_KERNEL_REPS)
-    plain_ms = statistics.median(cuda_ms(
-        lambda: fa.flash_attention_reference(*fa_args, **fa_kw), reps=3,
-        warmup=1))
-    heads = cfg.num_heads
-    b_kv = q.shape[0] // heads
-    q4, k4, v4 = (t.view(b_kv, t.shape[0] // b_kv, t.shape[1], t.shape[2])
-                  for t in (q, k, v))
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True, scale=1.0, enable_gqa=True)
-    sdpa_ms, _ = kernel_only_ms(sdpa, LM_KERNEL_REPS)
-    fa_bound, fa_by = bound(nbytes(q, k, v, fa_out), flash_work(q, k, None),
-                            q.dtype)
+    _, wall_ms = wall_ms_median(lambda: prefill(params, batch), 3)
+    err = flash_launch_timing("deepseek", card_line, fa, fa_args, fa_kw,
+                              fa_out)["max_abs_err"]
+    sdpa_timing("deepseek", card_line, fa_args, fa_kw, cfg.num_heads, fa_out)
     line("dense-prefill", arch=TRAIN_ARCH, card=repr(card_line),
          layers=cfg.num_layers, dtype="bfloat16", batch=PREFILL_BATCH,
          tokens=PREFILL_LEN, flash_launches=launches,
@@ -2339,14 +2422,8 @@ def dense_prefill_phase(card_line: str, cfg, params, fa) -> float:
          tokens_per_s=f"{PREFILL_BATCH * PREFILL_LEN / (wall_ms * 1e-3):.1f}",
          first_launch_max_abs_err=f"{err:.3e}",
          bf16_last_logits_vs_plain_path_max_abs=f"{bf16_diff:.4e}")
-    line("timing", kernel="flash_attention", shape=tuple(q.shape),
-         group=fa_kw["group"], card=repr(card_line), kernel_ms=f"{fa_ms:.5f}",
-         wrapper_host_ms=f"{fa_host:.5f}", plain_ms_median=f"{plain_ms:.3f}",
-         sdpa_ms=f"{sdpa_ms:.5f}", bound_ms=f"{fa_bound:.5f}", bound_by=fa_by,
-         flop=f"{flash_work(q, k, None):.4e}", bytes=nbytes(q, k, v, fa_out))
-    del cap, fa_args, fa_out, q, k, v, q4, k4, v4, last, last_plain
-    gc.collect()
-    torch.cuda.empty_cache()
+    del cap, fa_args, fa_out, last, last_plain
+    free_cuda()
 
     # float32: the kernel path against the plain path over every position,
     # then DENSE_DECODE_TOKENS decoded tokens against the prefill
@@ -2380,8 +2457,7 @@ def dense_prefill_phase(card_line: str, cfg, params, fa) -> float:
          of_prompt=DENSE_DECODE_LEN, decode_vs_prefill_max_abs=f"{worst_dec:.3e}",
          decode_tol=TOL_DECODE, argmax_equal=argmax_equal)
     del p32, cache, pre, kern32, plain32
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_cuda()
     return err
 
 
@@ -2394,18 +2470,15 @@ def training_path(card_line: str, fa, ssd) -> float:
     """Phases 14-18: training on the card.  Returns the worst flash error
     against its plain version on the dense prefill."""
     dev = torch.device("cuda")
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_cuda()
     grad_guard_phase(dev)
     cfg, model, opt, step_fn, pipe, trained = train_phase(card_line, fa, ssd)
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_cuda()
     ft_train_phase(card_line, model, opt, step_fn, pipe)
     ft_adaptive_phase(card_line)
     err = dense_prefill_phase(card_line, cfg, trained, fa)
     del trained, model
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_cuda()
     return err
 
 
@@ -2415,6 +2488,586 @@ def _leaves(tree):
             yield from _leaves(v)
         else:
             yield v
+
+
+# ---------------------------------------------------------------------------
+# the moe and encoder-decoder families, gradient compression
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "olmoe-1b-7b"
+MOE_BATCH, MOE_LEN = 2, 4096
+MOE_CHECK_LEN = 1024               # the float32 kernel-path check
+MOE_DECODE_LEN = 128
+MIXTRAL_ARCH = "mixtral-8x22b"
+MIXTRAL_LAYERS = 2                 # of 56: the only cut (PERF.md §4)
+MIXTRAL_BATCH, MIXTRAL_LEN = 2, 8192
+WHISPER_ARCH = "whisper-medium"
+# Whisper's 30 s of audio (1500 frames) and text context (448 tokens),
+# arXiv:2212.04356
+WHISPER_BATCH, WHISPER_TOKENS = 8, 448
+WHISPER_DECODE_BATCH, WHISPER_DECODE_LEN = 2, 64
+MOE_TRAIN_LAYERS = 2               # of 16, as deepseek-train's cut
+MOE_TRAIN_BATCH, MOE_TRAIN_LEN = 4, 2048
+MOE_TRAIN_WARMUP, MOE_TRAIN_TIMED = 2, 3
+TOPK_RATIO = 0.05
+
+
+def expert_ids(i, args, kw, out):
+    return out[1].clone()
+
+
+def route_flips(a: list, b: list) -> int:
+    """(token, layer) pairs whose set of experts differs between two runs."""
+    return sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+               for x, y in zip(a, b))
+
+
+def drop_share(moe, ids: list, cfg, batch: int, seq: int) -> tuple:
+    """Share of the (token, slot) pairs of a forward that went past their
+    expert's capacity, from each layer's expert ids (N, K): over all layers
+    and per layer."""
+    e, k, cf = cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.capacity_factor
+    per_layer = []
+    for eidx in ids:
+        if cfg.moe.dispatch == "row":
+            cap = int(np.ceil(seq * k * cf / e))
+            slot = moe._slots(eidx.reshape(batch, seq * k), e, cap)
+        else:
+            cap = int(np.ceil(batch * seq * k * cf / e))
+            slot = moe._slots(eidx.reshape(-1), e, cap)
+        per_layer.append(float((slot == e * cap).float().mean()))
+    return sum(per_layer) / len(per_layer), per_layer
+
+
+def moe_phase(card_line: str, fa) -> list:
+    """olmoe-1b-7b at its published config, full width and depth: a bf16
+    prefill of 2 x 4096 (16 flash launches; the drop share at capacity
+    factor 1.25; the first launch held against the plain version and
+    timed), the bf16 serve loop, then float32 with the capacity raised to
+    E/K (nothing drops): the kernel path against the plain path at 2 x
+    1024 with the differing routes counted, and 2 x 128 decoded tokens
+    against the forward.  Returns the flash launch records."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model, moe
+
+    dev = torch.device("cuda")
+    cfg = get_config(MOE_ARCH, use_flash_kernel=True)
+    model = build_model(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    tokens = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (MOE_BATCH, MOE_LEN)), device=dev)
+    batch = {"tokens": tokens}
+    prefill = make_prefill_step(model)
+    fa.reset_launch_counts()
+    with recorded(ops, "flash_attention_bhsd", first_call) as cap, \
+            recorded(moe, "_route", expert_ids) as ids:
+        last = prefill(params, batch)
+        torch.cuda.synchronize()
+    launches = fa.LAUNCHES["flash_attention"]
+    if launches != cfg.num_layers or len(ids) != cfg.num_layers or \
+            not torch.isfinite(last).all():
+        raise Failed(f"moe prefill: {launches} flash launches, {len(ids)} "
+                     f"routed layers, finite {bool(torch.isfinite(last).all())}")
+    drops, layer_drops = drop_share(moe, ids, cfg, MOE_BATCH, MOE_LEN)
+    del ids, last
+    _, wall_ms = wall_ms_median(lambda: prefill(params, batch), 3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print_profile("moe-prefill-profile", card_line,
+                  device_profile(lambda: prefill(params, batch)))
+    line("moe-prefill", arch=MOE_ARCH, card=repr(card_line), params=n_params,
+         init_s=f"{init_s:.2f}", dtype=cfg.dtype, layers=cfg.num_layers,
+         dispatch=cfg.moe.dispatch, batch=MOE_BATCH, tokens=MOE_LEN,
+         flash_launches=launches, wall_ms_median=f"{wall_ms:.3f}",
+         tokens_per_s=f"{MOE_BATCH * MOE_LEN / (wall_ms * 1e-3):.1f}",
+         peak_gb=f"{peak_gb:.3f}",
+         capacity_factor=cfg.moe.capacity_factor,
+         dropped_pair_share=f"{drops:.6f}",
+         per_layer=[f"{x:.4f}" for x in layer_drops])
+    fa_args, fa_kw, fa_out = cap[0]
+    records = [flash_launch_timing("olmoe", card_line, fa, fa_args, fa_kw,
+                                   fa_out)]
+    records[0]["sdpa_ms"] = sdpa_timing("olmoe", card_line, fa_args, fa_kw,
+                                        cfg.num_heads, fa_out)
+    records[0]["launches"] = launches
+    del cap, fa_args, fa_out
+
+    prompts = np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))
+    fa.reset_launch_counts()
+    res = serve.serve(model, params, prompts, SERVE_GEN)
+    toks = res["tokens"]
+    if toks.shape != (SERVE_BATCH, SERVE_GEN) or toks.min() < 0 or \
+            toks.max() >= cfg.padded_vocab_size:
+        raise Failed(f"moe serve loop tokens: shape {toks.shape}")
+    line("moe-decode", arch=MOE_ARCH, loop="serve", dtype=cfg.dtype,
+         card=repr(card_line), batch=SERVE_BATCH, bucket=res["bucket"],
+         prompt=SERVE_PROMPT, gen=SERVE_GEN,
+         tokens_per_s=f"{res['tokens_per_s']:.2f}",
+         flash_launches=fa.LAUNCHES["flash_attention"],
+         first_row=toks[0, :8].tolist())
+    del model, params, prefill, batch
+    free_cuda()
+
+    # float32 with capacity E/K: the kernel path against the plain path,
+    # decode against the forward
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    cfg32 = dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
+        cfg.moe, capacity_factor=e / k))
+    kern = build_model(cfg32, "cuda")
+    plain = build_model(dataclasses.replace(cfg32, use_flash_kernel=False),
+                        "cuda")
+    p32 = kern.init(0)
+    short = tokens[:, :MOE_CHECK_LEN]
+    fa.reset_launch_counts()
+    with torch.inference_mode():
+        with recorded(moe, "_route", expert_ids) as ids_k:
+            got, aux_k = kern.forward(p32, {"tokens": short})
+        launches32 = fa.LAUNCHES["flash_attention"]
+        with recorded(moe, "_route", expert_ids) as ids_p:
+            want, aux_p = plain.forward(p32, {"tokens": short})
+    flips = route_flips(ids_k, ids_p)
+    line("moe-prefill", dtype="float32", tokens=MOE_CHECK_LEN,
+         capacity_factor=cfg32.moe.capacity_factor, flash_launches=launches32,
+         routes=len(ids_k) * MOE_BATCH * MOE_CHECK_LEN,
+         routes_differing_kernel_vs_plain=flips,
+         aux_kernel=f"{float(aux_k):.7f}", aux_plain=f"{float(aux_p):.7f}")
+    if launches32 != cfg.num_layers:
+        raise Failed(f"moe float32 prefill: {launches32} flash launches")
+    err32 = check_close("moe float32 prefill kernel path vs plain path", got,
+                        want, *TOL_SSD)
+    line("moe-prefill", dtype="float32", kernel_vs_plain_max_abs=f"{err32:.3e}",
+         kernel_vs_plain_tol=TOL_SSD)
+    del got, want, ids_k, ids_p
+    dec_toks = tokens[:, :MOE_DECODE_LEN]
+    with torch.inference_mode():
+        pre, _ = kern.forward(p32, {"tokens": dec_toks})
+        cache = kern.init_cache(MOE_BATCH, MOE_DECODE_LEN)
+        outs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(MOE_DECODE_LEN):
+            logits, cache = kern.decode_step(p32, cache, dec_toks[:, t:t + 1], t)
+            outs.append(logits[:, 0])
+        dec = torch.stack(outs, dim=1)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+    argmax_equal = int((dec.argmax(-1) == pre.argmax(-1)).sum())
+    err_dec = check_close("moe float32 decode vs forward", dec, pre, *TOL_DECODE)
+    line("moe-decode", arch=MOE_ARCH, dtype="float32", layers=cfg.num_layers,
+         capacity_factor=cfg32.moe.capacity_factor,
+         capacity_note="E/K: nothing drops, so the capacity path computes "
+                       "what decode's dense path does",
+         batch=MOE_BATCH, tokens=MOE_DECODE_LEN,
+         decode_vs_forward_max_abs=f"{err_dec:.3e}", tol=TOL_DECODE,
+         argmax_equal=f"{argmax_equal}/{dec.shape[0] * dec.shape[1]}",
+         decode_s=f"{dec_s:.2f}",
+         tokens_per_s=f"{MOE_BATCH * MOE_DECODE_LEN / dec_s:.2f}")
+    del kern, plain, p32, pre, cache, dec, outs, tokens
+    free_cuda()
+    return records
+
+
+def mixtral_phase(card_line: str, fa) -> list:
+    """mixtral-8x22b at full width, 2 of its 56 layers, bf16, 2 x 8192
+    tokens, row dispatch: 2 flash launches at group 6 and window 4096, the
+    first held against its plain version (per KV head) and timed alone,
+    against SDPA with the window as a boolean mask."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model, moe
+
+    dev = torch.device("cuda")
+    cfg = get_config(MIXTRAL_ARCH, num_layers=MIXTRAL_LAYERS,
+                     use_flash_kernel=True)
+    model = build_model(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(0)
+    n_params = sum(t.numel() for t in _leaves(params))
+    tokens = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (MIXTRAL_BATCH, MIXTRAL_LEN)), device=dev)
+    batch = {"tokens": tokens}
+    prefill = make_prefill_step(model)
+    fa.reset_launch_counts()
+    with recorded(ops, "flash_attention_bhsd", first_call) as cap, \
+            recorded(moe, "_route", expert_ids) as ids:
+        last = prefill(params, batch)
+        torch.cuda.synchronize()
+    launches = fa.LAUNCHES["flash_attention"]
+    if launches != MIXTRAL_LAYERS or not torch.isfinite(last).all():
+        raise Failed(f"mixtral prefill: {launches} flash launches, finite "
+                     f"{bool(torch.isfinite(last).all())}")
+    drops, layer_drops = drop_share(moe, ids, cfg, MIXTRAL_BATCH, MIXTRAL_LEN)
+    del ids, last
+    _, wall_ms = wall_ms_median(lambda: prefill(params, batch), 3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print_profile("mixtral-prefill-profile", card_line,
+                  device_profile(lambda: prefill(params, batch)))
+    line("mixtral-prefill", arch=MIXTRAL_ARCH, card=repr(card_line),
+         layers=MIXTRAL_LAYERS, params=n_params, dtype=cfg.dtype,
+         dispatch=cfg.moe.dispatch, window=cfg.sliding_window,
+         group=cfg.num_heads // cfg.num_kv_heads, batch=MIXTRAL_BATCH,
+         tokens=MIXTRAL_LEN, flash_launches=launches,
+         wall_ms_median=f"{wall_ms:.3f}",
+         tokens_per_s=f"{MIXTRAL_BATCH * MIXTRAL_LEN / (wall_ms * 1e-3):.1f}",
+         peak_gb=f"{peak_gb:.3f}", capacity_factor=cfg.moe.capacity_factor,
+         dropped_pair_share=f"{drops:.6f}",
+         per_layer=[f"{x:.4f}" for x in layer_drops])
+    fa_args, fa_kw, fa_out = cap[0]
+    del cap, model, params, prefill, batch, tokens
+    free_cuda()
+    rec = flash_launch_timing("mixtral", card_line, fa, fa_args, fa_kw, fa_out,
+                              plain_chunks=True)
+    rec["sdpa_ms"] = sdpa_timing("mixtral", card_line, fa_args, fa_kw,
+                                 cfg.num_heads, fa_out)
+    rec["launches"] = launches
+    del fa_args, fa_out
+    free_cuda()
+    return [rec]
+
+
+def encdec_phase(card_line: str, fa) -> list:
+    """whisper-medium at its published config (24 + 24 layers), bf16, 8 x
+    1500 frames and 8 x 448 decoder tokens: 24 flash launches (decoder
+    self-attention; the encoder and cross-attention launch none), the
+    first held against its plain version and timed; the decode loop with
+    the encoder's output, and one decode step with 1500 encoder frames
+    against one with a single frame (the per-step recomputation of
+    cross-attention); then float32: the kernel path against the plain
+    path, and 2 x 64 decoded tokens against the forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import build_model, encdec
+
+    dev = torch.device("cuda")
+    cfg = get_config(WHISPER_ARCH, use_flash_kernel=True)
+    model = build_model(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(0)
+    n_params = sum(t.numel() for t in _leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(8)
+    frames = torch.randn((WHISPER_BATCH, cfg.encdec.enc_len, cfg.d_model),
+                         generator=gen, device=dev)
+    tokens = torch.as_tensor(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (WHISPER_BATCH, WHISPER_TOKENS)), device=dev)
+    batch = {"frames": frames, "tokens": tokens}
+    prefill = make_prefill_step(model)
+    fa.reset_launch_counts()
+    with recorded(ops, "flash_attention_bhsd", first_call) as cap:
+        last = prefill(params, batch)
+        torch.cuda.synchronize()
+    launches = fa.LAUNCHES["flash_attention"]
+    if launches != cfg.num_layers or not torch.isfinite(last).all():
+        raise Failed(f"encdec forward: {launches} flash launches, finite "
+                     f"{bool(torch.isfinite(last).all())}")
+    del last
+    _, wall_ms = wall_ms_median(lambda: prefill(params, batch), 3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print_profile("encdec-profile", card_line,
+                  device_profile(lambda: prefill(params, batch)))
+    line("encdec", arch=WHISPER_ARCH, card=repr(card_line), params=n_params,
+         dtype=cfg.dtype, enc_layers=cfg.encdec.enc_layers,
+         dec_layers=cfg.num_layers, batch=WHISPER_BATCH,
+         frames=cfg.encdec.enc_len, tokens=WHISPER_TOKENS,
+         flash_launches=launches, wall_ms_median=f"{wall_ms:.3f}",
+         frames_per_s=f"{WHISPER_BATCH * cfg.encdec.enc_len / (wall_ms * 1e-3):.1f}",
+         decoder_tokens_per_s=f"{WHISPER_BATCH * WHISPER_TOKENS / (wall_ms * 1e-3):.1f}",
+         peak_gb=f"{peak_gb:.3f}")
+    fa_args, fa_kw, fa_out = cap[0]
+    rec = flash_launch_timing("whisper", card_line, fa, fa_args, fa_kw, fa_out)
+    rec["sdpa_ms"] = sdpa_timing("whisper", card_line, fa_args, fa_kw,
+                                 cfg.num_heads, fa_out)
+    rec["launches"] = launches
+    del cap, fa_args, fa_out
+
+    # the decode loop: a 16-token prompt, then 32 greedy tokens, with the
+    # encoder's output in the cache
+    step = make_serve_step(model)
+    with torch.inference_mode():
+        enc_out = encdec.encode(params, frames, cfg)
+    cache = model.init_cache(WHISPER_BATCH, SERVE_PROMPT + SERVE_GEN)
+    cache["enc_out"] = enc_out
+    tok = None
+    for t in range(SERVE_PROMPT):
+        tok, cache = step(params, cache, tokens[:, t:t + 1], t)
+    out = [tok]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(SERVE_PROMPT, SERVE_PROMPT + SERVE_GEN - 1):
+        tok, cache = step(params, cache, out[-1][:, None], t)
+        out.append(tok)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    # device time of one step with the 1500 frames and with a single one:
+    # their difference is the per-step recomputation of cross-attention
+    at = SERVE_PROMPT + SERVE_GEN - 1
+    one = dict(cache, enc_out=enc_out[:, :1].contiguous())
+    full = device_profile(lambda: step(params, cache, tok[:, None], at))
+    single = device_profile(lambda: step(params, one, tok[:, None], at))
+    print_profile("encdec-decode-profile", card_line, full)
+    if full["device_ms"] is None or single["device_ms"] is None:
+        share = "not measured (the trace holds no device time)"
+    else:
+        share = f"{(full['device_ms'] - single['device_ms']) / full['wall_ms']:.4f}"
+    line("encdec", loop="decode", dtype=cfg.dtype, batch=WHISPER_BATCH,
+         prompt=SERVE_PROMPT, gen=SERVE_GEN, card=repr(card_line),
+         tokens_per_s=f"{WHISPER_BATCH * (SERVE_GEN - 1) / loop_s:.2f}",
+         step_wall_ms=f"{full['wall_ms']:.3f}",
+         step_device_ms_1500_frames=full["device_ms"],
+         step_device_ms_1_frame=single["device_ms"],
+         cross_attention_recompute_share_of_step=share,
+         first_row=torch.stack(out, 1)[0, :8].tolist())
+    del cache, one, enc_out, out, step
+    p32 = _to_float32(params)
+    del model, params, prefill
+    free_cuda()
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    kern = build_model(cfg32, "cuda")
+    plain = build_model(dataclasses.replace(cfg32, use_flash_kernel=False),
+                        "cuda")
+    fa.reset_launch_counts()
+    with torch.inference_mode():
+        got, _ = kern.forward(p32, batch)
+        launches32 = fa.LAUNCHES["flash_attention"]
+        want, _ = plain.forward(p32, batch)
+    if launches32 != cfg.num_layers:
+        raise Failed(f"encdec float32: {launches32} flash launches")
+    err32 = check_close("encdec float32 kernel path vs plain path", got, want,
+                        *TOL_SSD)
+    del got, want
+    free_cuda()
+    b, s = WHISPER_DECODE_BATCH, WHISPER_DECODE_LEN
+    short = {"frames": frames[:b], "tokens": tokens[:b, :s]}
+    with torch.inference_mode():
+        pre, _ = kern.forward(p32, short)
+        cache = kern.init_cache(b, s)
+        cache["enc_out"] = encdec.encode(p32, short["frames"], cfg32)
+        outs = []
+        for t in range(s):
+            logits, cache = kern.decode_step(p32, cache,
+                                             short["tokens"][:, t:t + 1], t)
+            outs.append(logits[:, 0])
+        dec = torch.stack(outs, dim=1)
+    err_dec = check_close("encdec float32 decode vs forward", dec, pre,
+                          *TOL_DECODE)
+    line("encdec", dtype="float32", flash_launches=launches32,
+         kernel_vs_plain_max_abs=f"{err32:.3e}", kernel_vs_plain_tol=TOL_SSD,
+         decode_batch=b, decode_tokens=s, enc_out="the encoder's",
+         decode_vs_forward_max_abs=f"{err_dec:.3e}", decode_tol=TOL_DECODE,
+         argmax_equal=f"{int((dec.argmax(-1) == pre.argmax(-1)).sum())}/{b * s}")
+    del kern, plain, p32, pre, dec, cache, outs, frames, tokens, batch
+    free_cuda()
+    return [rec]
+
+
+def moe_train_phase(card_line: str, fa) -> tuple:
+    """olmoe-1b-7b's widths cut to 2 layers, bf16, AdamW, 4 x 2048 tokens
+    per step in its 4 microbatches: warm-up steps (step 1 replayed from the
+    same state, bit-equal), then timed steps.  Returns the last step's
+    gradients and the parameters they were taken at."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig, Optimizer, adamw
+
+    cfg = get_config(MOE_ARCH, num_layers=MOE_TRAIN_LAYERS)
+    model = build_model(cfg, device="cuda")
+    opt = adamw(AdamWConfig(learning_rate=3e-4))
+    keep: dict = {}
+
+    def update(grads, state, params):
+        if keep.pop("want", False):
+            keep["grads"], keep["params"] = grads, params
+        return opt.update(grads, state, params)
+
+    step_fn = make_train_step(model, Optimizer(opt.init, update))
+    pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=MOE_TRAIN_LEN,
+                       global_batch=MOE_TRAIN_BATCH, device="cuda")
+    params = model.init(0)
+    n_params = sum(t.numel() for t in _leaves(params))
+    state = (params, opt.init(params))
+    del params
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    losses, auxes, times = [], [], []
+    n_steps = MOE_TRAIN_WARMUP + MOE_TRAIN_TIMED
+    for step in range(n_steps):
+        batch = pipe.batch_at(step)
+        if step == n_steps - 1:
+            keep["want"] = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new = step_fn(*state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if step == 1:
+            again = step_fn(*state, batch)
+            equal = trees_equal(new[:2], again[:2]) and torch.equal(
+                new[2]["total_loss"], again[2]["total_loss"])
+            line("moe-train-replay", step=1, bit_equal=equal)
+            if not equal:
+                raise Failed("moe-train: step 1 and its replay differ")
+            del again
+        state = new[:2]
+        losses.append(float(new[2]["total_loss"]))
+        auxes.append(float(new[2]["aux_loss"]))
+        del new
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not (all(np.isfinite(losses)) and all(np.isfinite(auxes))) or \
+            min(auxes) <= 0.0:
+        raise Failed(f"moe-train: losses {losses}, aux {auxes}")
+    if fa.LAUNCHES["flash_attention"]:
+        raise Failed("moe-train: kernel launches on the plain path")
+    step_s = statistics.median(times[MOE_TRAIN_WARMUP:])
+    tokens = MOE_TRAIN_BATCH * MOE_TRAIN_LEN
+    active = cfg.active_param_count()
+    line("moe-train", arch=MOE_ARCH, card=repr(card_line),
+         layers=MOE_TRAIN_LAYERS, params=n_params, dtype=cfg.dtype,
+         dispatch=cfg.moe.dispatch, capacity_factor=cfg.moe.capacity_factor,
+         batch=MOE_TRAIN_BATCH, seq=MOE_TRAIN_LEN,
+         microbatches=cfg.train_microbatches, remat=cfg.remat,
+         step_ms_median=f"{step_s * 1e3:.3f}",
+         steps_ms=[f"{t * 1e3:.3f}" for t in times],
+         tokens_per_s=f"{tokens / step_s:.1f}",
+         active_params=active,
+         model_flop_share=f"{6.0 * active * tokens / step_s / PEAK_BF16_FLOP_PER_S:.4f}",
+         peak_gb=f"{peak_gb:.3f}", losses=[f"{x:.6f}" for x in losses],
+         aux_losses=[f"{x:.6f}" for x in auxes])
+    grads, params = keep["grads"], keep["params"]
+    del state, model, step_fn
+    free_cuda()
+    return grads, params
+
+
+def compression_phase(card_line: str, grads, params) -> None:
+    """``wrap_optimizer`` (int8, top-k 5 %) over AdamW on the card, on the
+    gradients of one [moe-train] step: two updates, so the second sees the
+    first's residual.  Per leaf, sent + residual is the compressed input
+    bit for bit; int8 equals the CPU port's on the same gradients and
+    residual; top-k's decompressed tensor equals the CPU's where the kept
+    sets are equal (the count of leaves where they are not is printed)."""
+    from repro_torch._tree import items, leaves, tree_map
+    from repro_torch.optim.adamw import AdamWConfig, adamw
+    from repro_torch.parallel import compression as comp
+
+    n = sum(t.numel() for t in _leaves(grads))
+    for method in ("int8", "topk"):
+        ccfg = comp.CompressionConfig(method=method, topk_ratio=TOPK_RATIO)
+        opt = comp.wrap_optimizer(adamw(AdamWConfig(learning_rate=3e-4)), ccfg)
+        state = opt.init(params)
+        _, state = opt.update(grads, state, params)
+        residual = state["residual"]
+        update_ms = statistics.median(cuda_ms(
+            lambda: opt.update(grads, state, params), reps=3, warmup=1))
+        compress_ms = statistics.median(cuda_ms(
+            lambda: comp._compress_tree(grads, residual, ccfg), reps=3,
+            warmup=1))
+        sent, res = comp._compress_tree(grads, residual, ccfg)
+        _, again = opt.update(grads, state, params)
+        if not trees_equal(again["residual"], res):
+            raise Failed(f"compression {method}: the update's residual "
+                         f"differs from _compress_tree's")
+        del again
+        for (path, s), r, g, r0 in zip(items(sent), leaves(res),
+                                       leaves(grads),
+                                       leaves(residual)):
+            if not torch.equal(s + r, g.float() + r0):
+                raise Failed(f"compression {method} {path}: sent + residual "
+                             f"!= g + r")
+        # the CPU port on the same gradients and residual
+        cpu = lambda tree: tree_map(lambda t: t.cpu(), tree)
+        t0 = time.perf_counter()
+        if method == "int8":
+            sent_cpu, res_cpu = comp._compress_tree(cpu(grads), cpu(residual),
+                                                    ccfg)
+            cpu_s = time.perf_counter() - t0
+            same = trees_equal(cpu(sent), sent_cpu) and \
+                trees_equal(cpu(res), res_cpu)
+            if not same:
+                raise Failed("compression int8: card and CPU differ")
+            detail = {"card_vs_cpu": "bit-equal"}
+        else:
+            n_leaves = other_sets = ties = 0
+            xs_cpu = [g.cpu().float() + r.cpu()
+                      for g, r in zip(leaves(grads), leaves(residual))]
+            # the CPU's top-k of one leaf runs on one core: a thread per leaf
+            with concurrent.futures.ThreadPoolExecutor(8) as pool:
+                on_cpu = list(pool.map(
+                    lambda x: comp.topk_compress(x, TOPK_RATIO), xs_cpu))
+            for ((path, g), r, x_cpu, (kept_c, idx_c, _)) in zip(
+                    items(grads), leaves(residual), xs_cpu, on_cpu):
+                kept, idx, shape = comp.topk_compress(g.float() + r, TOPK_RATIO)
+                n_leaves += 1
+                dense = comp.topk_decompress(kept, idx, shape).cpu()
+                dense_c = comp.topk_decompress(kept_c, idx_c, shape)
+                if torch.equal(idx.sort().values.cpu(), idx_c.sort().values):
+                    if not torch.equal(dense, dense_c):
+                        raise Failed(f"compression topk {path}: same kept "
+                                     f"set, other values")
+                    continue
+                # other kept sets: every entry kept on one side only ties
+                # at the cut, and the rest is equal
+                other_sets += 1
+                cut = kept.abs().min().cpu()
+                if cut != kept_c.abs().min():
+                    raise Failed(f"compression topk {path}: cuts differ")
+                mine = torch.zeros(x_cpu.numel(), dtype=torch.bool)
+                mine[idx.cpu()] = True
+                theirs = torch.zeros_like(mine)
+                theirs[idx_c] = True
+                differ = (mine ^ theirs).reshape(shape)
+                ties += int(differ.sum())
+                if not torch.equal(x_cpu.abs()[differ],
+                                   cut.expand(int(differ.sum()))) or \
+                        not torch.equal(dense[~differ], dense_c[~differ]):
+                    raise Failed(f"compression topk {path}: the kept sets "
+                                 f"differ beyond ties at the cut")
+            del xs_cpu, on_cpu
+            cpu_s = time.perf_counter() - t0
+            detail = {"leaves": n_leaves,
+                      "leaves_with_other_kept_set_on_cpu": other_sets,
+                      "entries_swapped_at_tied_cut": ties,
+                      "elsewhere": "bit-equal"}
+        line("compression", method=method, card=repr(card_line),
+             topk_ratio=TOPK_RATIO if method == "topk" else None,
+             entries=n, wire_ratio=comp.compression_ratio(ccfg),
+             update_ms=f"{update_ms:.3f}", compress_ms=f"{compress_ms:.3f}",
+             sent_plus_residual="g + r bit for bit", cpu_s=f"{cpu_s:.2f}",
+             **detail)
+        del opt, state, residual, sent, res
+        free_cuda()
+
+
+def families_path(card_line: str, fa) -> tuple:
+    """Phases 19-24: the moe and encoder-decoder families and gradient
+    compression.  Returns the worst flash error against its plain version
+    and the flash launch records of these paths."""
+    torch.backends.cuda.matmul.allow_tf32 = False      # the router is float32
+    free_cuda()
+    records = moe_phase(card_line, fa)
+    records += mixtral_phase(card_line, fa)
+    records += encdec_phase(card_line, fa)
+    grads, params = moe_train_phase(card_line, fa)
+    compression_phase(card_line, grads, params)
+    del grads, params
+    free_cuda()
+    worst = max(r["max_abs_err"] for r in records)
+    line("flash-launches", records=json.dumps([
+        {k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in r.items()}
+        for r in records]))
+    return worst, records
 
 
 def main() -> int:
@@ -2753,7 +3406,10 @@ def main() -> int:
     lm_records = lm_path(card_line, fa, ssd)
     line("lm-done", seconds=f"{time.perf_counter() - t_start:.1f}")
     dense_err = training_path(card_line, fa, ssd)
-    lm_records[0]["max_abs_err"] = max(lm_records[0]["max_abs_err"], dense_err)
+    line("train-done", seconds=f"{time.perf_counter() - t_start:.1f}")
+    family_err, _ = families_path(card_line, fa)
+    lm_records[0]["max_abs_err"] = max(lm_records[0]["max_abs_err"], dense_err,
+                                       family_err)
     records = [renewal_record] + lm_records
     line("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(card_line)

@@ -10,11 +10,12 @@ process and runs the online adaptive energy controller.
         --steps 50 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --adaptive --device cpu
 
-Weights come from seed 0.  ``--device`` defaults to ``cuda`` and raises
-without a card.  Checkpoints go to ``--ckpt-dir`` (default: a new
-temporary directory).  ``--production-lower`` belongs to the dry-run,
-which is not ported yet; the reference's ``--shape``, which only that
-option reads, comes with it.
+Weights come from seed 0; every decoder arch trains (the encoder-decoder
+needs audio frames the synthetic pipeline does not draw, and is refused).
+``--device`` defaults to ``cuda`` and raises without a card.
+Checkpoints go to ``--ckpt-dir`` (default: a new temporary directory).
+``--production-lower`` belongs to the dry-run, which is not ported yet;
+the reference's ``--shape``, which only that option reads, comes with it.
 """
 from __future__ import annotations
 
@@ -68,6 +69,11 @@ def main(argv=None):
     from repro_torch.optim.adamw import AdamWConfig, adamw
 
     cfg = get_smoke_config(args.arch)
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"--arch {args.arch}: the synthetic pipeline draws tokens only; "
+            "the encoder-decoder trains through launch.steps.make_train_step "
+            "on batches with 'frames'")
     model = build_model(cfg, device=args.device)
     params = model.init(0)
     opt = adamw(AdamWConfig(learning_rate=3e-4))

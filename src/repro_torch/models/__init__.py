@@ -1,5 +1,6 @@
-"""The LM zoo of the port, counterpart of ``repro.models``: the dense, ssm
-and hybrid (Zamba2) families, for training and serving."""
+"""The LM zoo of the port, counterpart of ``repro.models``: the dense, moe,
+ssm, hybrid (Zamba2) and encoder-decoder (Whisper) families, for training
+and serving."""
 from repro_torch.models.api import (
     EncDecConfig,
     HybridConfig,

@@ -3,8 +3,9 @@ path over a KV cache, the counterparts of ``repro.models.attention``.  The
 full-sequence path goes through ``kernels.ops.flash_attention`` when
 ``cfg.use_flash_kernel`` (the CUDA kernel on the card, its plain version on
 the CPU); otherwise through the einsum reference, chunked over queries
-above 1024 tokens.  ``cross_attention`` waits for the encoder-decoder
-family."""
+above 1024 tokens.  ``cross_attention`` (the encoder-decoder's) has no
+rotation and no mask and, as the reference's, adds no QKV bias even where
+the parameters carry one."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
@@ -15,7 +16,8 @@ from repro_torch.models import layers
 from repro_torch.models.api import ModelConfig
 
 __all__ = ["attn_spec", "attention", "gqa_scores_reference",
-           "chunked_attention", "KVCache", "init_kv_cache", "decode_attention"]
+           "chunked_attention", "cross_attention", "KVCache", "init_kv_cache",
+           "decode_attention"]
 
 
 def attn_spec(d_model: int, num_heads: int, num_kv_heads: int, head_dim: int,
@@ -128,6 +130,21 @@ def attention(p: dict, x: torch.Tensor, positions, cfg: ModelConfig, *,
         out = gqa_scores_reference(q, k, v, causal=causal,
                                    sliding_window=cfg.sliding_window)
     b, s = x.shape[:2]
+    return out.reshape(b, s, -1) @ p["wo"]
+
+
+def cross_attention(p: dict, x: torch.Tensor, kv_src: torch.Tensor,
+                    cfg: ModelConfig, num_heads: int,
+                    num_kv_heads: int) -> torch.Tensor:
+    """Encoder-decoder cross attention: queries from x (B,S,D), keys and
+    values from kv_src (B,T,D); no positional rotation, no mask, no bias."""
+    hd = cfg.resolved_head_dim
+    b, s, _ = x.shape
+    t = kv_src.shape[1]
+    q = (x @ p["wq"]).reshape(b, s, num_heads, hd)
+    k = (kv_src @ p["wk"]).reshape(b, t, num_kv_heads, hd)
+    v = (kv_src @ p["wv"]).reshape(b, t, num_kv_heads, hd)
+    out = gqa_scores_reference(q, k, v, causal=False, sliding_window=None)
     return out.reshape(b, s, -1) @ p["wo"]
 
 

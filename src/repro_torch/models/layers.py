@@ -1,7 +1,6 @@
-"""Shared layers: RMSNorm, rotary embeddings (RoPE and sectioned M-RoPE)
-and token embedding, the counterparts of ``repro.models.layers``.  Plain
-functions over explicit parameter tensors.  ``layer_norm`` waits for the
-encoder-decoder family.
+"""Shared layers: RMSNorm, LayerNorm, rotary embeddings (RoPE and
+sectioned M-RoPE) and token embedding, the counterparts of
+``repro.models.layers``.  Plain functions over explicit parameter tensors.
 
 ``embed``'s backward sums the rows of repeated tokens in a fixed order (a
 stable sort, then a pairwise tree per token), on the CPU and the card
@@ -14,8 +13,8 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["rms_norm", "rope_frequencies", "apply_rope", "apply_mrope",
-           "embed"]
+__all__ = ["rms_norm", "layer_norm", "rope_frequencies", "apply_rope",
+           "apply_mrope", "embed"]
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6
@@ -26,6 +25,18 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6
     var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + weight.float())).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in float32 over the population variance (``jnp.var``),
+    returned in x's dtype."""
+    dtype = x.dtype
+    x = x.float()
+    mean = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, correction=0)
+    x = (x - mean) * torch.rsqrt(var + eps)
+    return (x * weight.float() + bias.float()).to(dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:

@@ -1,15 +1,19 @@
-"""Decoder-only LM assembly for the dense, ssm and hybrid (Zamba2-style)
-families, the counterpart of ``repro.models.transformer``.
+"""Decoder-only LM assembly for the dense, moe, ssm and hybrid (Zamba2-style)
+families, the counterpart of ``repro.models.transformer``; the
+encoder-decoder family is ``repro_torch.models.encdec``.
 
 Parameters are a nested dict of tensors in the reference's layer-stacked
 layout (``blocks`` (L, ...); hybrid ``main`` (n_super, every, ...),
 ``shared`` and ``tail`` (tail, ...)), so a reference parameter tree carries
 over leaf for leaf (``params_from_reference``).  The reference scans over
-the stacked layers; here a Python loop indexes them.  The dense model runs
-``num_layers`` attention blocks (RMSNorm, attention, RMSNorm, MLP); the
-hybrid model runs ``shared_every`` Mamba2 layers, then one application of
-the weight-shared attention block, ``num_layers // shared_every`` times,
-then the ragged tail of Mamba2 layers.
+the stacked layers; here a Python loop indexes them.  The dense and moe
+models run ``num_layers`` attention blocks (RMSNorm, attention, RMSNorm,
+MLP or MoE FFN); the moe forward returns the mean of the layers' auxiliary
+losses, in layer order, and its decode runs the dense MoE path
+(``moe_ffn_dense``).  The hybrid model runs ``shared_every`` Mamba2
+layers, then one application of the weight-shared attention block,
+``num_layers // shared_every`` times, then the ragged tail of Mamba2
+layers.
 
 The forward trains: under grad mode ``remat="full"`` (or ``"dots"``, which
 has no finer PyTorch policy and recomputes the whole layer too) wraps each
@@ -17,8 +21,7 @@ layer in ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``,
 the reference's per-layer ``jax.checkpoint``.  ``train_microbatches``
 belongs to the train step (``launch.steps``); ``decode_cache_in_carry``
 shapes the reference's jit cache donation and changes nothing here.  The
-sharding constraints of the reference have no counterpart yet.  The moe
-and encdec families raise ``NotImplementedError``.
+sharding constraints of the reference have no counterpart yet.
 """
 from __future__ import annotations
 
@@ -32,13 +35,10 @@ import torch.utils.checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, mlp, ssm
+from repro_torch.models import layers, mlp, moe, ssm
 from repro_torch.models.api import ModelConfig
 
 __all__ = ["Model", "build_model", "model_spec", "params_from_reference"]
-
-UNPORTED_FAMILIES = ("ROADMAP.md, Queue 1: 'LM zoo: the moe and encdec "
-                     "families'")
 
 
 class Model(NamedTuple):
@@ -56,14 +56,18 @@ class Model(NamedTuple):
 # ---------------------------------------------------------------------------
 
 def _attn_block_spec(cfg: ModelConfig, dtype) -> dict:
-    """Dense-MLP attention block (a dense layer, the hybrid's shared block)."""
-    return {
+    """Attention block: a dense or moe layer, the hybrid's shared block."""
+    p = {
         "ln1": ((cfg.d_model,), dtype, "zeros"),
         "attn": attn.attn_spec(cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                                cfg.resolved_head_dim, cfg.qkv_bias, dtype),
         "ln2": ((cfg.d_model,), dtype, "zeros"),
-        "mlp": mlp.mlp_spec(cfg.d_model, cfg.d_ff, cfg.act, dtype),
     }
+    if cfg.moe is not None:
+        p["moe"] = moe.moe_spec(cfg.d_model, cfg.moe, dtype)
+    else:
+        p["mlp"] = mlp.mlp_spec(cfg.d_model, cfg.d_ff, cfg.act, dtype)
+    return p
 
 
 def _ssm_block_spec(cfg: ModelConfig, dtype) -> dict:
@@ -98,8 +102,11 @@ def _shared_cfg(cfg: ModelConfig) -> ModelConfig:
 def model_spec(cfg: ModelConfig) -> dict:
     """The parameter tree's shapes, dtypes and initialisers."""
     dtype = cfg.activation_dtype
+    if cfg.family == "encdec":
+        from repro_torch.models.encdec import encdec_spec
+        return encdec_spec(cfg)
     spec = _embedding_spec(cfg, dtype)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         spec["blocks"] = _stacked(_attn_block_spec(cfg, dtype), cfg.num_layers)
     elif cfg.family == "ssm":
         spec["blocks"] = _stacked(_ssm_block_spec(cfg, dtype), cfg.num_layers)
@@ -111,8 +118,7 @@ def model_spec(cfg: ModelConfig) -> dict:
         if tail:
             spec["tail"] = _stacked(_ssm_block_spec(cfg, dtype), tail)
     else:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet ({UNPORTED_FAMILIES})")
+        raise ValueError(f"unknown family {cfg.family!r}")
     return spec
 
 
@@ -199,10 +205,16 @@ def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
 # ---------------------------------------------------------------------------
 
 def _attn_block(p: dict, x, positions, cfg: ModelConfig):
+    """Returns the block's output and its MoE auxiliary loss (None for a
+    dense MLP)."""
     h = x + attn.attention(p["attn"], layers.rms_norm(x, p["ln1"], cfg.norm_eps),
                            positions, cfg)
     z = layers.rms_norm(h, p["ln2"], cfg.norm_eps)
-    return h + mlp.mlp(p["mlp"], z, cfg.act)
+    if cfg.moe is None:
+        return h + mlp.mlp(p["mlp"], z, cfg.act), None
+    fn = moe.moe_ffn if cfg.moe.dispatch == "row" else moe.moe_ffn_flat
+    y, aux = fn(p["moe"], z, cfg.moe, cfg.act)
+    return h + y, aux
 
 
 def _attn_block_decode(p: dict, x, kv: attn.KVCache, pos: int,
@@ -213,7 +225,10 @@ def _attn_block_decode(p: dict, x, kv: attn.KVCache, pos: int,
         p["attn"], layers.rms_norm(x, p["ln1"], cfg.norm_eps), kv, pos, cfg)
     x = x + a
     z = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp.mlp(p["mlp"], z, cfg.act)
+    if cfg.moe is None:
+        return x + mlp.mlp(p["mlp"], z, cfg.act)
+    y, _ = moe.moe_ffn_dense(p["moe"], z, cfg.moe, cfg.act)
+    return x + y
 
 
 def _ssm_block(p: dict, x, cfg: ModelConfig):
@@ -276,7 +291,8 @@ def _seeded(seed_or_gen: Union[int, torch.Generator], device) -> torch.Generator
 # models
 # ---------------------------------------------------------------------------
 
-def _build_dense_decoder(cfg: ModelConfig, device: torch.device) -> Model:
+def _build_decoder(cfg: ModelConfig, device: torch.device) -> Model:
+    """The dense and moe families."""
     n_layers = cfg.num_layers
 
     def init(seed_or_gen):
@@ -285,9 +301,13 @@ def _build_dense_decoder(cfg: ModelConfig, device: torch.device) -> Model:
     def forward(params, batch):
         x, positions = _embed_in(params, batch, cfg)
         layer = _remat(lambda lp, h: _attn_block(lp, h, positions, cfg), cfg)
+        auxes = []
         for i in range(n_layers):
-            x = layer(_at(params["blocks"], i), x)
-        return _logits_out(params, x, cfg), torch.zeros((), device=device)
+            x, aux = layer(_at(params["blocks"], i), x)
+            auxes.append(aux)
+        if cfg.moe is None:
+            return _logits_out(params, x, cfg), torch.zeros((), device=device)
+        return _logits_out(params, x, cfg), torch.stack(auxes).mean()
 
     def init_cache(batch, max_len):
         kv = attn.init_kv_cache(batch, max_len, cfg.num_kv_heads,
@@ -346,7 +366,7 @@ def _build_hybrid(cfg: ModelConfig, device: torch.device) -> Model:
         for i in range(n_super):
             for j in range(every):
                 x = layer(_at(params["main"], i, j), x)
-            x = _attn_block(params["shared"], x, positions, shared_cfg)
+            x, _ = _attn_block(params["shared"], x, positions, shared_cfg)
         for j in range(tail):
             x = layer(_at(params["tail"], j), x)
         return _logits_out(params, x, cfg), torch.zeros((), device=device)
@@ -386,13 +406,13 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
     request without a card raises).  ``decode_step`` updates the cache in
     place and returns it."""
     dev = resolve_device(device)
-    if cfg.family == "dense":
-        return _build_dense_decoder(cfg, dev)
+    if cfg.family in ("dense", "moe"):
+        return _build_decoder(cfg, dev)
     if cfg.family == "ssm":
         return _build_ssm_decoder(cfg, dev)
     if cfg.family == "hybrid":
         return _build_hybrid(cfg, dev)
-    if cfg.family in ("moe", "encdec"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet ({UNPORTED_FAMILIES})")
+    if cfg.family == "encdec":
+        from repro_torch.models.encdec import build_encdec
+        return build_encdec(cfg, dev)
     raise ValueError(f"unknown family {cfg.family!r}")

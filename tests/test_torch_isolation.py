@@ -8,8 +8,9 @@ the Monte-Carlo, the planners, both renewal engines, the correlated
 ``topology=`` sampler, the failure processes and the trace export, the
 optimiser's entry points, the fleet advisor and the campaign runner and
 CLI, the train step, the checkpoint manager, the FT trainer with its
-adaptive controller and the training CLI) run with ``jax`` and ``repro``
-unimportable too.
+adaptive controller and the training CLI, the moe and encoder-decoder
+models through the serve and train entry points, gradient compression) run
+with ``jax`` and ``repro`` unimportable too.
 """
 import ast
 import os
@@ -75,7 +76,9 @@ def test_every_module_imports_without_jax():
             "repro_torch.data.pipeline", "repro_torch.optim.adamw",
             "repro_torch.checkpoint.manager", "repro_torch.ft",
             "repro_torch.ft.runtime", "repro_torch.ft.controller",
-            "repro_torch.launch.train", "repro_torch._tree"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch._tree",
+            "repro_torch.models.moe", "repro_torch.models.encdec",
+            "repro_torch.parallel", "repro_torch.parallel.compression"} <= set(mods)
 
 
 def test_entry_points_run_without_jax():
@@ -173,3 +176,46 @@ def test_training_entry_points_run_without_jax(tmp_path):
                          text=True, env=env, cwd=str(ROOT), timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok True")
+
+
+def test_moe_and_encdec_entry_points_run_without_jax(tmp_path):
+    code = textwrap.dedent(f"""
+        import contextlib, io, sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import torch
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.launch import serve, steps, train
+        from repro_torch.models import build_model
+        from repro_torch.optim.adamw import adamw
+        from repro_torch.parallel.compression import (CompressionConfig,
+                                                      wrap_optimizer)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            for arch in ("olmoe-1b-7b", "whisper-medium"):
+                serve.main(["--arch", arch, "--batch", "2", "--prompt-len", "3",
+                            "--gen", "3", "--device", "cpu"])
+            tr = train.main(["--arch", "mixtral-8x22b", "--steps", "2",
+                             "--batch", "2", "--seq-len", "8", "--pods", "2",
+                             "--device", "cpu", "--ckpt-dir", {str(tmp_path)!r}])
+        cfg = get_smoke_config("whisper-medium")
+        model = build_model(cfg, device="cpu")
+        opt = wrap_optimizer(adamw(), CompressionConfig(method="int8"))
+        params = model.init(0)
+        g = torch.Generator().manual_seed(0)
+        batch = {{"frames": torch.randn((2, cfg.encdec.enc_len, cfg.d_model),
+                                       generator=g),
+                 "tokens": torch.randint(0, 256, (2, 8), generator=g),
+                 "labels": torch.randint(0, 256, (2, 8), generator=g)}}
+        p, s, m = steps.make_train_step(model, opt)(params, opt.init(params),
+                                                    batch)
+        assert len(tr.history) == 2 and set(s) == {{"base", "residual"}}
+        assert bool(torch.isfinite(m["total_loss"]))
+        assert "jax" not in [k for k, v in sys.modules.items() if v is not None]
+        print("ok", len(out.getvalue().splitlines()))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=str(ROOT), timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok 3")

@@ -265,11 +265,13 @@ def test_params_from_reference_rejects_a_wrong_tree(ref_models):
         params_from_reference(tree, cfg, "cpu")
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mixtral-8x22b",
-                                  "whisper-medium"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(tconfigs.get_smoke_config(arch), device="cpu")
+def test_unknown_family_raises():
+    cfg = dataclasses.replace(tconfigs.get_smoke_config("deepseek-7b"),
+                              family="conv")
+    with pytest.raises(ValueError, match="unknown family 'conv'"):
+        build_model(cfg, device="cpu")
+    with pytest.raises(ValueError, match="unknown family 'conv'"):
+        model_spec(cfg)
 
 
 def test_cuda_request_without_a_card_raises():
