@@ -38,7 +38,8 @@ same operands:
   and resumed through the campaign CLI (``[campaign]``);
 * Zamba2-7B serving at its published widths with seeded weights: a bf16
   prefill of 2 x 4096 tokens (13 ``flash_attention`` and 81 ``ssd_scan``
-  launches), a float32 prefill of 2 x 512 tokens against the same tokens
+  launches), a float32 prefill of 2 x 512 tokens (cut to 15 of the 81
+  layers: 2 of the 13 super-blocks and the tail) against the same tokens
   decoded one at a time and against the plain path, and the serve loop
   (batch 4, prompt 16, 32 generated tokens).
 * training, at deepseek-7b's published widths cut to 2 of its 30 layers
@@ -65,10 +66,22 @@ same operands:
   layers), bf16, 8 x 1500 frames and 8 x 448 tokens (24 flash launches,
   decoder self-attention only), the decode loop with the encoder's output,
   float32 kernel path against the plain path and decode against the
-  forward (``[encdec]``); olmoe's widths cut to 2 layers trained with AdamW
+  forward (``[encdec]``); olmoe's widths cut to 1 layer trained with AdamW
   on 4 x 2048 tokens, step 1 replayed bit-equal (``[moe-train]``); and
   ``wrap_optimizer`` (int8, top-k 5 %) on that step's gradients against the
   CPU port (``[compression]``).
+* distribution, no kernel: deepseek-7b at its published widths cut to 2
+  of 30 layers (as ``[train]``) on a 1 x 1 ("data", "model") NCCL mesh
+  under the production sharding rules and activation policy: the train
+  step (bf16, 8 x 4096 in 4 microbatches, AdamW), a 2 x 4096 prefill and
+  32 decode steps at batch 4 with the cache placed by ``cache_specs``,
+  each bit-equal to the unsharded step on the same seeded weights, with
+  both wall times (``[mesh-steps]``); the dry run on the fake 256-rank
+  production mesh for mamba2-370m x decode_32k and x train_4k and
+  qwen2-72b x decode_32k (a CPU process each, started together after
+  every timed phase): per-device argument and peak bytes against
+  the card's memory, flops, collective counts and wire bytes, train_4k
+  held to the reference test's bars (``[dryrun]``).
 
 It times each kernel alone, its plain version, its bound, the one-call
 PyTorch equivalent where there is one (SDPA for flash attention), and the
@@ -173,6 +186,7 @@ CAMPAIGN_CUT_SEED = 5
 LM_ARCH = "zamba2-7b"
 PREFILL_BATCH, PREFILL_LEN = 2, 4096
 DECODE_CHECK_LEN = 512     # two SSD chunks, eight flash query blocks
+DECODE_CHECK_LAYERS = 15   # of 81: 2 of 13 super-blocks and the 3-layer tail
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 16, 32
 LM_KERNEL_REPS = 10
 # flash attention against its plain version: the kernel module's
@@ -1678,7 +1692,9 @@ def lm_path(card_line: str, fa, ssd) -> list:
     free_cuda()
 
     # --- phase 8: float32 prefill against decode and the plain path --------
-    cfg32 = get_config(LM_ARCH, use_flash_kernel=True, dtype="float32")
+    cfg32 = get_config(LM_ARCH, use_flash_kernel=True, dtype="float32",
+                       num_layers=DECODE_CHECK_LAYERS)
+    n_super32 = cfg32.num_layers // cfg32.hybrid.shared_every
     model = build_model(cfg32, device="cuda")
     params = model.init(0)
     tokens = torch.as_tensor(np.random.default_rng(3).integers(
@@ -1691,7 +1707,7 @@ def lm_path(card_line: str, fa, ssd) -> list:
         last = make_prefill_step(model)(params, {"tokens": tokens})
     torch.cuda.synchronize()
     if (fa.LAUNCHES["flash_attention"], ssd.LAUNCHES["ssd_scan"]) != \
-            (n_super, cfg.num_layers):
+            (n_super32, cfg32.num_layers):
         raise Failed("the float32 prefill did not launch both kernels per layer")
     plain = build_model(dataclasses.replace(cfg32, use_flash_kernel=False), "cuda")
     last_plain = make_prefill_step(plain)(params, {"tokens": tokens})
@@ -1712,14 +1728,15 @@ def lm_path(card_line: str, fa, ssd) -> list:
     dec_last = dec_logits[:, -1]
     # relative error of the hidden state after each super-block (its last
     # Mamba2 layer) and after the tail, prefill against decode
-    every = cfg.hybrid.shared_every
-    marks = [every * i + every - 1 for i in range(n_super)] + [cfg.num_layers - 1]
+    every = cfg32.hybrid.shared_every
+    marks = [every * i + every - 1 for i in range(n_super32)] \
+        + [cfg32.num_layers - 1]
     per_block = [float((pre_layers[i] - dec_layers[i]).abs().max()
                        / pre_layers[i].abs().max()) for i in marks]
     argmax_equal = bool(torch.equal(last.argmax(-1), dec_last.argmax(-1)))
     err = (dec_last.double() - last.double()).abs()
     line("prefill-vs-decode", arch=LM_ARCH, dtype="float32",
-         tokens=DECODE_CHECK_LEN, batch=PREFILL_BATCH,
+         layers=cfg32.num_layers, tokens=DECODE_CHECK_LEN, batch=PREFILL_BATCH,
          max_abs_err=f"{float(err.max()):.3e}",
          logits_absmax=f"{float(last.abs().max()):.4f}",
          argmax_equal=argmax_equal, decode_s=f"{decode_s:.2f}",
@@ -2506,7 +2523,7 @@ WHISPER_ARCH = "whisper-medium"
 # arXiv:2212.04356
 WHISPER_BATCH, WHISPER_TOKENS = 8, 448
 WHISPER_DECODE_BATCH, WHISPER_DECODE_LEN = 2, 64
-MOE_TRAIN_LAYERS = 2               # of 16, as deepseek-train's cut
+MOE_TRAIN_LAYERS = 1               # of 16: room for [dryrun] in the time limit
 MOE_TRAIN_BATCH, MOE_TRAIN_LEN = 4, 2048
 MOE_TRAIN_WARMUP, MOE_TRAIN_TIMED = 2, 3
 TOPK_RATIO = 0.05
@@ -2871,7 +2888,7 @@ def encdec_phase(card_line: str, fa) -> list:
 
 
 def moe_train_phase(card_line: str, fa) -> tuple:
-    """olmoe-1b-7b's widths cut to 2 layers, bf16, AdamW, 4 x 2048 tokens
+    """olmoe-1b-7b's widths cut to 1 layer, bf16, AdamW, 4 x 2048 tokens
     per step in its 4 microbatches: warm-up steps (step 1 replayed from the
     same state, bit-equal), then timed steps.  Returns the last step's
     gradients and the parameters they were taken at."""
@@ -3068,6 +3085,265 @@ def families_path(card_line: str, fa) -> tuple:
         {k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in r.items()}
         for r in records]))
     return worst, records
+
+
+# ---------------------------------------------------------------------------
+# distribution: the sharded steps on a 1 x 1 mesh, the dry run
+# ---------------------------------------------------------------------------
+
+MESH_PREFILL_BATCH = 2                 # x TRAIN_LEN tokens
+MESH_DECODE_BATCH, MESH_DECODE_STEPS = 4, 32
+MESH_REPS = 5                      # timed calls per side of each comparison
+# the reference's dry-run test cells (tests/test_dryrun.py) and its largest
+# dense decode, on the single 16 x 16 production mesh
+DRYRUN_CELLS = (("mamba2-370m", "decode_32k"), ("mamba2-370m", "train_4k"),
+                ("qwen2-72b", "decode_32k"))
+DRYRUN_DIR = ROOT / "build" / "dryrun" / "chip_smoke"
+
+
+def start_dryrun() -> list:
+    """The dry run of each ``DRYRUN_CELLS`` cell, a CPU process each (a fake
+    256-rank group, meta shards: no card), all started together once the
+    timed phases are over, so that no host timing runs beside them;
+    ``dryrun_phase`` waits for them, and any still running when this
+    process exits are stopped."""
+    import atexit
+    import os
+
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        out = DRYRUN_DIR / f"{arch}_{shape}.json"
+        out.unlink(missing_ok=True)
+        log = open(DRYRUN_DIR / f"{arch}_{shape}.log", "w")
+        procs.append((arch, shape, out, log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+             "--shape", shape, "--out", str(out)],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)))
+    atexit.register(_stop_dryrun, procs)
+    return procs
+
+
+def _stop_dryrun(procs: list) -> None:
+    for *_, log, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def dryrun_phase(card_line: str, procs: list) -> None:
+    """Each cell's record: per-device argument bytes and peak against the
+    card's memory, flops, collective counts and bytes; ``train_4k`` held to
+    the reference test's bars (tests/test_dryrun.py)."""
+    total_memory = torch.cuda.get_device_properties(0).total_memory
+    try:
+        for arch, shape, out, log, proc in procs:
+            rc = proc.wait(timeout=900)
+            log.close()
+            if rc != 0:
+                tail = pathlib.Path(log.name).read_text()[-2000:]
+                raise Failed(f"dryrun {arch} x {shape}: rc {rc}\n{tail}")
+            (rec,) = json.loads(out.read_text())
+            c, mem = rec["collectives"], rec["memory"]
+            model = 6 * rec["active_params"] * 4096 * 256 / rec["num_devices"]
+            line("dryrun", arch=arch, shape=shape, mesh=rec["mesh"],
+                 num_devices=rec["num_devices"], trace_s=rec["trace_s"],
+                 flops_per_device=f"{rec['flops']:.6e}",
+                 flops_over_6nd=(f"{rec['flops'] / model:.4f}"
+                                 if shape == "train_4k" else "n/a"),
+                 collective_counts=json.dumps(
+                     {k: int(v) for k, v in c["counts"].items()}),
+                 collective_wire_bytes=json.dumps(
+                     {k: int(v) for k, v in c["bytes"].items()}),
+                 collective_total_bytes=f"{c['total_bytes']:.6e}",
+                 argument_bytes=mem["argument_size_in_bytes"],
+                 peak_bytes=mem["peak_size_in_bytes"],
+                 card_total_memory=total_memory,
+                 peak_share_of_card=f"{mem['peak_size_in_bytes'] / total_memory:.4f}",
+                 card=repr(card_line))
+            if rec["num_devices"] != 256 or not rec["flops"] > 0:
+                raise Failed(f"dryrun {arch} x {shape}: {rec}")
+            if shape == "train_4k" and not (
+                    c["counts"]["all-gather"] > 48 and c["total_bytes"] > 1e9
+                    and 0.8 * model < rec["flops"] < 3.0 * model):
+                raise Failed(f"dryrun {arch} x {shape}: outside the "
+                             f"reference test's bars: {rec}")
+    finally:
+        _stop_dryrun(procs)
+
+
+def _host(tree):
+    """Every leaf of a (DTensor) tree whole, on the host."""
+    from repro_torch.parallel.dtensor_ops import is_dtensor
+    from repro_torch._tree import items
+
+    return [(p, (t.full_tensor() if is_dtensor(t) else t).detach().cpu())
+            for p, t in items(tree)]
+
+
+def _max_abs(a: list, b: list) -> float:
+    return max(float((x.float() - y.float()).abs().max()) if x.numel() else 0.0
+               for (_, x), (_, y) in zip(a, b))
+
+
+def _bit_equal(a: list, b: list) -> bool:
+    return [p for p, _ in a] == [p for p, _ in b] and all(
+        torch.equal(x, y) for (_, x), (_, y) in zip(a, b))
+
+
+def mesh_steps_phase(card_line: str, fa, ssd) -> None:
+    """deepseek-7b at its published widths, 2 of 30 layers (as [train]), on
+    a 1 x 1 ("data", "model") NCCL mesh in this process, the production
+    rules and the activation policy: the train step (bf16, 8 x 4096 in 4
+    microbatches, AdamW), a 2 x 4096 prefill and 32 decode steps at batch 4
+    with the cache placed by ``cache_specs``, each bit-equal to the same
+    step without a mesh on the same seeded weights, and each step's wall
+    time beside the unsharded step's: the median of ``MESH_REPS`` calls
+    after the checked one and a warm-up (``wall_ms_median``), the decode
+    step's over 31 steps after the first, which fills DTensor's
+    propagation caches."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
+                                          make_train_step)
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.constraints import (ActivationPolicy,
+                                                  activation_sharding)
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_host_mesh(1, 1, device_type="cuda")
+        cfg = get_config(TRAIN_ARCH, num_layers=TRAIN_LAYERS)
+        model = build_model(cfg, device="cuda")
+        rules = shd.make_rules(cfg, mesh)
+        policy = ActivationPolicy(mesh=mesh, batch_axes=rules.batch,
+                                  tensor_axis=rules.tensor)
+        place = lambda tree, specs: shd.distribute(tree,
+                                                   shd.named_tree(mesh, specs))
+        opt = adamw(AdamWConfig(learning_rate=3e-4))
+        step = make_train_step(model, opt)
+        pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_LEN,
+                           global_batch=TRAIN_BATCH, device="cuda")
+        batch = pipe.batch_at(0)
+        params = model.init(0)
+        pspecs = shd.param_specs(cfg, mesh, params, rules)
+        fa.reset_launch_counts()
+        ssd.reset_launch_counts()
+        free_cuda()
+
+        # the train step: unsharded, then on the mesh from the same state
+        state = (params, opt.init(params))
+        plain = step(*state, batch)
+        plain_host = _host(plain[:2]) + [("loss", plain[2]["total_loss"].cpu())]
+        del plain
+        _, plain_ms = wall_ms_median(
+            lambda: step(*state, batch)[2]["total_loss"], MESH_REPS)
+        del state
+        free_cuda()
+        with activation_sharding(policy):
+            dstate = (place(params, pspecs),
+                      place(opt.init(params), shd.opt_specs(pspecs)))
+            dbatch = place(batch, shd.batch_specs(cfg, mesh, batch, rules))
+            sharded = step(*dstate, dbatch)
+            sharded_host = _host(sharded[:2]) + [
+                ("loss", sharded[2]["total_loss"].full_tensor().cpu())]
+            del sharded
+            _, mesh_ms = wall_ms_median(
+                lambda: step(*dstate, dbatch)[2]["total_loss"], MESH_REPS)
+        del dstate
+        free_cuda()
+        equal = _bit_equal(plain_host, sharded_host)
+        line("mesh-steps", step="train", arch=TRAIN_ARCH, layers=TRAIN_LAYERS,
+             batch=TRAIN_BATCH, seq=TRAIN_LEN,
+             microbatches=cfg.train_microbatches, mesh="1x1 nccl",
+             bit_equal=equal, max_abs_diff=f"{_max_abs(plain_host, sharded_host):.6g}",
+             reps=MESH_REPS, unsharded_ms_median=f"{plain_ms:.3f}",
+             mesh_ms_median=f"{mesh_ms:.3f}",
+             mesh_over_unsharded=f"{mesh_ms / plain_ms:.4f}",
+             card=repr(card_line))
+        if not equal:
+            raise Failed("mesh-steps: the sharded train step differs")
+        del plain_host, sharded_host
+
+        # the prefill
+        prefill = make_prefill_step(model)
+        pbatch = {"tokens": batch["tokens"][:MESH_PREFILL_BATCH].contiguous()}
+        want, pf_ms = wall_ms_median(lambda: prefill(params, pbatch), MESH_REPS)
+        dparams = place(params, pspecs)
+        with activation_sharding(policy):
+            dpb = place(pbatch, shd.batch_specs(cfg, mesh, pbatch, rules))
+            got, dpf_ms = wall_ms_median(lambda: prefill(dparams, dpb),
+                                         MESH_REPS)
+            got = got.full_tensor()
+        equal = torch.equal(want, got)
+        line("mesh-steps", step="prefill", batch=MESH_PREFILL_BATCH,
+             seq=TRAIN_LEN, bit_equal=equal,
+             max_abs_diff=f"{float((want.float() - got.float()).abs().max()):.6g}",
+             reps=MESH_REPS, unsharded_ms_median=f"{pf_ms:.3f}",
+             mesh_ms_median=f"{dpf_ms:.3f}",
+             mesh_over_unsharded=f"{dpf_ms / pf_ms:.4f}", card=repr(card_line))
+        if not equal:
+            raise Failed("mesh-steps: the sharded prefill differs")
+        del want, got
+        free_cuda()
+
+        # 32 greedy decode steps at batch 4
+        serve = make_serve_step(model)
+        first = batch["tokens"][:MESH_DECODE_BATCH, :1].contiguous()
+        runs = []
+        for sharded_run in (False, True):
+            cache = model.init_cache(MESH_DECODE_BATCH, MESH_DECODE_STEPS)
+            p, tok = (dparams, None) if sharded_run else (params, first)
+            ctx = activation_sharding(policy) if sharded_run \
+                else contextlib.nullcontext()
+            with ctx:
+                if sharded_run:
+                    cache = place(cache, shd.cache_specs(
+                        cfg, mesh, cache, MESH_DECODE_BATCH, rules))
+                    tok = place({"tokens": first}, shd.batch_specs(
+                        cfg, mesh, {"tokens": first}, rules))["tokens"]
+                toks, times = [], []
+                for t in range(MESH_DECODE_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    nxt, cache = serve(p, cache, tok, t)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    toks.append(nxt.full_tensor() if sharded_run else nxt)
+                    tok = nxt[:, None]
+            runs.append((torch.stack(toks).cpu(), _host(cache), times))
+        (t0_, c0, ms0), (t1_, c1, ms1) = runs
+        equal = torch.equal(t0_, t1_) and _bit_equal(c0, c1)
+        launches = fa.LAUNCHES["flash_attention"] + ssd.LAUNCHES["ssd_scan"]
+        line("mesh-steps", step="decode", batch=MESH_DECODE_BATCH,
+             steps=MESH_DECODE_STEPS, bit_equal=equal,
+             cache_max_abs_diff=f"{_max_abs(c0, c1):.6g}",
+             unsharded_step_ms_median=f"{statistics.median(ms0[1:]):.3f}",
+             mesh_step_ms_median=f"{statistics.median(ms1[1:]):.3f}",
+             first_step_ms=f"{ms0[0]:.3f}/{ms1[0]:.3f}",
+             kernel_launches=launches, card=repr(card_line))
+        if not equal:
+            raise Failed("mesh-steps: the sharded decode differs")
+        if launches:
+            raise Failed(f"mesh-steps: {launches} kernel launches")
+        del params, dparams, runs
+    finally:
+        dist.destroy_process_group()
+        free_cuda()
 
 
 def main() -> int:
@@ -3410,6 +3686,11 @@ def main() -> int:
     family_err, _ = families_path(card_line, fa)
     lm_records[0]["max_abs_err"] = max(lm_records[0]["max_abs_err"], dense_err,
                                        family_err)
+    mesh_steps_phase(card_line, fa, ssd)
+    line("mesh-steps-done", seconds=f"{time.perf_counter() - t_start:.1f}")
+    # the dry run needs no card: its CPU processes start after every timing
+    dryrun_phase(card_line, start_dryrun())
+    line("mesh-done", seconds=f"{time.perf_counter() - t_start:.1f}")
     records = [renewal_record] + lm_records
     line("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(card_line)

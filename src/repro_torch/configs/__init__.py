@@ -1,4 +1,5 @@
-"""Assigned-architecture configs and the shape grid (data only)."""
+"""Assigned-architecture configs, the shape grid and the dry run's abstract
+inputs."""
 from repro_torch.configs.registry import (
     ARCHS,
     LONG_CONTEXT_ARCHS,
@@ -7,6 +8,8 @@ from repro_torch.configs.registry import (
     cell_is_skipped,
     get_config,
     get_smoke_config,
+    grid,
+    input_specs,
 )
 
 __all__ = [
@@ -17,4 +20,6 @@ __all__ = [
     "cell_is_skipped",
     "get_config",
     "get_smoke_config",
+    "grid",
+    "input_specs",
 ]

@@ -3,14 +3,17 @@ counterpart of ``repro.configs.registry``.
 
 Every assigned architecture ships a ``config()`` (the published numbers)
 and a ``smoke_config()`` (same family, tiny widths) in its own module.
-``input_specs`` and ``grid`` belong to the dry-run and are not ported yet
-(ROADMAP.md, Queue 1).
+The registry exposes lookup, the shape grid, skip logic for ``long_500k``
+(sub-quadratic archs only) and ``input_specs``, whose ``meta`` tensors
+stand in for a step's inputs in the dry run (no storage).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Dict, Optional
+
+import torch
 
 from repro_torch.models.api import ModelConfig
 
@@ -67,3 +70,49 @@ def cell_is_skipped(arch: str, shape: str) -> Optional[str]:
     if shape == "long_500k" and arch not in LONG_CONTEXT_ARCHS:
         return "pure full-attention arch: long_500k needs sub-quadratic attention"
     return None
+
+
+def grid():
+    """All non-skipped (arch, shape) cells — the dry-run grid."""
+    return [
+        (a, s) for a in ARCHS for s in SHAPES
+        if cell_is_skipped(a, s) is None
+    ]
+
+
+# ---------------------------------------------------------------------------
+# input specs (meta tensors: shapes and dtypes, no storage)
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """Abstract inputs for the step function of the given kind.
+
+    train/prefill -> full-sequence batch; decode -> one new token plus the
+    position scalar (the KV cache is part of the state, see launch/dryrun).
+    """
+    b = shape.global_batch
+    s = shape.seq_len
+    i32 = torch.int32
+    if shape.kind in ("train", "prefill"):
+        batch = {}
+        if cfg.family == "encdec":
+            batch["frames"] = _meta((b, cfg.encdec.enc_len, cfg.d_model),
+                                    cfg.activation_dtype)
+            batch["tokens"] = _meta((b, s), i32)
+        elif cfg.embeds_input:
+            batch["embeds"] = _meta((b, s, cfg.d_model), cfg.activation_dtype)
+            if cfg.mrope_sections is not None:
+                batch["mrope_positions"] = _meta(
+                    (len(cfg.mrope_sections), b, s), i32)
+        else:
+            batch["tokens"] = _meta((b, s), i32)
+        if shape.kind == "train":
+            batch["labels"] = _meta((b, s), i32)
+        return batch
+    if shape.kind == "decode":
+        return {"tokens": _meta((b, 1), i32), "pos": _meta((), i32)}
+    raise ValueError(shape.kind)

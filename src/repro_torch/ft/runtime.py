@@ -9,8 +9,8 @@ Pieces:
                           Algorithm 1 (``core.strategies``, on the manager's
                           device) at failure time and integrates the energy
                           ledger;
-  * ``ElasticPlan``     — the shrunken mesh's axes when a pod is lost
-                          (the reshard waits for the port's DeviceMesh);
+  * ``ElasticPlan``     — elastic shrink/regrow of the DeviceMesh when a
+                          pod is lost, and the reshard onto it;
   * ``FTTrainer``       — orchestration loop: synchronous data-parallel
                           steps, uncoordinated pod-local checkpoints (with
                           move-ahead), failure -> localized rollback ->
@@ -40,13 +40,10 @@ from repro_torch.checkpoint.manager import CheckpointConfig, PodCheckpointManage
 from repro_torch.core import energy_model as em
 from repro_torch.core import planning, strategies
 from repro_torch.core.characterization import MachineProfile, paper_machine_profile
+from repro_torch.parallel.sharding import mesh_axes
 
 __all__ = ["ClusterSpec", "FailureInjector", "EnergyManager", "EnergyEvent",
            "ElasticPlan", "FTTrainer"]
-
-UNPORTED_MESH = ("ROADMAP.md, Queue 1, item 9: distribution and launch "
-                 "tooling (torch DeviceMesh)")
-
 
 @dataclasses.dataclass(frozen=True)
 class ClusterSpec:
@@ -279,31 +276,55 @@ class EnergyManager:
 
 @dataclasses.dataclass
 class ElasticPlan:
-    """Shrink plan when a pod is lost and spares are unavailable: the
-    'pod' mesh axis shrinks by one.  ``shrink`` takes a mapping of axis
-    sizes (or an object with such a ``shape``, as jax's and torch's meshes
-    have); building the new mesh and resharding onto it wait for the
-    port's distribution tooling."""
+    """Shrink/regrow plan when a pod is lost and spares are unavailable.
+
+    At production scale the 'pod' mesh axis shrinks by one and the training
+    state (replicated per pod, see parallel/sharding.py) is re-laid-out on
+    the surviving ranks.  ``shrink`` takes a mapping of axis sizes, a
+    ``DeviceMesh`` or any object whose ``shape`` maps axes to sizes;
+    ``new_mesh`` builds the shrunk ``DeviceMesh`` over the first ranks of
+    the default process group, and ``apply`` moves the state onto it."""
 
     old_axes: dict
     new_axes: dict
 
     @classmethod
     def shrink(cls, mesh, axis: str = "pod") -> "ElasticPlan":
-        axes = dict(mesh) if isinstance(mesh, dict) else dict(mesh.shape)
+        axes = dict(mesh) if isinstance(mesh, dict) else mesh_axes(mesh)
         if axes.get(axis, 1) <= 1:
             raise ValueError("cannot shrink a 1-pod mesh; use spare pods")
         new = dict(axes)
         new[axis] = axes[axis] - 1
         return cls(old_axes=axes, new_axes=new)
 
-    def new_mesh(self):
-        raise NotImplementedError(f"ElasticPlan.new_mesh is not ported yet "
-                                  f"({UNPORTED_MESH})")
+    def new_mesh(self, device_type: str = "cuda"):
+        """The shrunk ``DeviceMesh`` of ``new_axes`` over the first
+        ``prod(new_axes)`` ranks of the default process group; every rank
+        of the group calls it (the others get no coordinate on it)."""
+        from repro_torch.launch.mesh import mesh_over
 
-    def apply(self, state, spec_tree):
-        raise NotImplementedError(f"ElasticPlan.apply is not ported yet "
-                                  f"({UNPORTED_MESH})")
+        return mesh_over(tuple(self.new_axes.values()), tuple(self.new_axes),
+                         device_type)
+
+    def apply(self, state, spec_tree, device_type: str = "cuda"):
+        """``(mesh, state)``: ``new_mesh`` and every leaf of ``state`` laid
+        out on it by the congruent partition spec of ``spec_tree``.  A
+        DTensor cannot be redistributed across meshes, so each leaf is
+        gathered whole on the old mesh (``full_tensor``, every rank of it
+        takes part) and distributed again; a plain leaf is distributed as
+        it is."""
+        from torch.distributed.tensor import distribute_tensor
+
+        from repro_torch.parallel.dtensor_ops import is_dtensor
+        from repro_torch.parallel.sharding import named_tree
+
+        mesh = self.new_mesh(device_type)
+
+        def move(leaf, sharding):
+            whole = leaf.full_tensor() if is_dtensor(leaf) else leaf
+            return distribute_tensor(whole, mesh, sharding.placements)
+
+        return mesh, tree_map(move, state, named_tree(mesh, spec_tree))
 
 
 class FTTrainer:

@@ -138,3 +138,17 @@ def refuse_grad(name: str, *tensors) -> None:
             "grad under grad mode, and the gradient would be dropped.  Train "
             "with use_flash_kernel=False or call it under torch.no_grad() "
             "(backward kernels wait in ROADMAP.md, Queue 1)")
+
+
+def refuse_dtensor(name: str, *tensors) -> None:
+    """Raise for a DTensor operand (a tensor on a ``DeviceMesh``): a launch
+    on its local shard would compute on a piece of the tensor, silently.
+    Under a mesh the model runs its plain path (``use_flash_kernel=False``),
+    as the reference never lowers a kernel there."""
+    from repro_torch.parallel.dtensor_ops import is_dtensor
+
+    if any(is_dtensor(t) for t in tensors):
+        raise TypeError(
+            f"the {name} kernel takes no DTensor (a tensor on a DeviceMesh): "
+            "its local shard is a piece of the operand.  Run the model's plain "
+            "path under a mesh (use_flash_kernel=False)")

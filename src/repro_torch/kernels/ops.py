@@ -4,7 +4,10 @@ kernel-layout functions, which launch the CUDA kernel for CUDA tensors and
 run its plain version for CPU tensors.  There is no shape fallback: the
 flash kernel masks ragged lengths itself, and the SSD scan raises unless
 the sequence is at most one chunk or a whole number of chunks (the
-reference's ``ssd_reference`` asserts the same).
+reference's ``ssd_reference`` asserts the same).  A ``DTensor`` operand
+raises: a launch on its local shard would compute on a piece of the
+tensor, and the model's plain path (``use_flash_kernel=False``) is the one
+that runs under a mesh, as the reference never lowers a kernel there.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
 from repro_torch.kernels.ssd_scan import ssd_scan_bhsp
 
@@ -24,6 +28,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Model layout: q (B,S,H,hd), k/v (B,T,K,hd) -> (B,S,H,hd).  The
     softmax scale is applied to q in its own dtype, as the reference does,
     so bfloat16 rounds at the same place."""
+    _build.refuse_dtensor("flash_attention", q, k, v)
     b, sq, h, d = q.shape
     _, sk, kh, _ = k.shape
     qt = (q * d ** -0.5).transpose(1, 2).reshape(b * h, sq, d).contiguous()
@@ -40,6 +45,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
     Returns (y (b,s,h,p) fp32, final_state (b,h,p,n) fp32).
     """
+    _build.refuse_dtensor("ssd_scan", x, dt, a, bmat, cmat)
     s = x.shape[1]
     chunk = min(chunk, s)
     if s % chunk:

@@ -1,1 +1,3 @@
-"""Serving path of the port: step functions, batching and the CLI."""
+"""Launch tooling of the port: step functions, batching, the serve and
+train CLIs, the production meshes (``mesh``) and the dry run
+(``dryrun``)."""

@@ -2,12 +2,16 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --device cpu
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-72b \
+        --production-lower --shape decode_32k
+
 The smoke config of ``--arch``.  Weights are drawn from seed 0 and prompts
 from seed 1; the batch is padded up to a shape bucket (the padded rows
 repeat the last prompt) and sliced back before the report.  ``--device``
 defaults to ``cuda`` and raises without a card.  ``--production-lower``
-belongs to the dry-run, which is not ported yet; the reference's
-``--shape``, which only that option reads, comes with it.
+runs the dry run of ``--arch`` x ``--shape`` on the production mesh in a
+subprocess (``python -m repro_torch.launch.dryrun``) and exits with its
+code, as the reference does.
 """
 from __future__ import annotations
 
@@ -19,8 +23,13 @@ import torch
 
 from repro_torch.launch.batching import DEFAULT_BUCKETS, bucket_size, pad_rows
 
-PRODUCTION_LOWER = ("ROADMAP.md, Queue 1: 'Distribution and launch tooling' "
-                    "(the dry-run and production lowering)")
+def production_lower(arch: str, shape: str) -> int:
+    """The dry run of ``arch`` x ``shape`` in a subprocess; its exit code."""
+    import subprocess
+    import sys
+
+    return subprocess.call([sys.executable, "-m", "repro_torch.launch.dryrun",
+                            "--arch", arch, "--shape", shape])
 
 
 def serve(model, params, prompts: np.ndarray, gen: int) -> dict:
@@ -62,11 +71,11 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--production-lower", action="store_true")
+    ap.add_argument("--shape", default="decode_32k")
     args = ap.parse_args(argv)
 
     if args.production_lower:
-        raise NotImplementedError(
-            f"--production-lower is not ported yet ({PRODUCTION_LOWER})")
+        raise SystemExit(production_lower(args.arch, args.shape))
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import build_model

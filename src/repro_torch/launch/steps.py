@@ -8,7 +8,8 @@ backward (nor have the reference's Pallas kernels), and a launch under
 grad mode raises.  It is functional, as the reference's jitted step:
 ``train_step(params, opt_state, batch)`` returns new trees and leaves its
 arguments unchanged.  The serving steps run under
-``torch.inference_mode``.
+``torch.inference_mode``, or ``torch.no_grad`` for DTensor parameters on a
+mesh (DTensor makes no views of its tensors in inference mode).
 """
 from __future__ import annotations
 
@@ -19,6 +20,9 @@ import torch
 from repro_torch._tree import leaves, tree_map
 from repro_torch.models.transformer import Model
 from repro_torch.optim.adamw import Optimizer
+from repro_torch.parallel.dtensor_ops import (is_dtensor, like, replicate,
+                                              shard_local, split_rows,
+                                              unshard_dim)
 
 __all__ = ["AUX_LOSS_WEIGHT", "cross_entropy", "make_loss_fn",
            "make_train_step", "make_prefill_step", "make_serve_step"]
@@ -26,15 +30,25 @@ __all__ = ["AUX_LOSS_WEIGHT", "cross_entropy", "make_loss_fn",
 AUX_LOSS_WEIGHT = 0.01
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean token cross entropy; labels < 0 are masked."""
+def _nll_sum(logits: torch.Tensor, labels: torch.Tensor):
+    """Summed token cross entropy and the count of unmasked labels."""
     logits = logits.float()
     mask = (labels >= 0).float()
     labels = labels.clamp_min(0).long()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     nll = (lse - gold) * mask
-    return nll.sum() / mask.sum().clamp_min(1.0)
+    return nll.sum(), mask.sum()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross entropy; labels < 0 are masked.  Logits sharded
+    on the vocab (a DTensor) are gathered along it first
+    (``parallel.dtensor_ops.unshard_dim``), and each rank sums its own
+    rows (``shard_local``)."""
+    total, count = shard_local(_nll_sum, (unshard_dim(logits, -1), labels),
+                               ((0, None), (0, None)), ("sum", "sum"))
+    return total / count.clamp_min(1.0)
 
 
 def make_loss_fn(model: Model) -> Callable:
@@ -66,13 +80,17 @@ def make_train_step(model: Model, optimizer: Optimizer,
 
     def grads_of(params, mb, seed: float):
         """The loss, its metrics and the gradient of ``seed * loss`` per leaf
-        of ``params`` (in ``leaves`` order)."""
+        of ``params`` (in ``leaves`` order); on a mesh the loss is whole on
+        every rank and each gradient is laid out as its parameter."""
         loss, metrics = loss_fn(params, mb)
-        grads = torch.autograd.grad(loss, leaves(params),
+        loss = replicate(loss)
+        flat = leaves(params)
+        grads = torch.autograd.grad(loss, flat,
                                     grad_outputs=torch.full_like(loss, seed),
                                     allow_unused=True, materialize_grads=True)
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
-            list(grads)
+        return loss.detach(), \
+            {k: replicate(v).detach() for k, v in metrics.items()}, \
+            [like(g, p) for g, p in zip(grads, flat)]
 
     def train_step(params, opt_state, batch):
         # grad leaves share the inputs' storage; the inputs keep their flags
@@ -115,36 +133,43 @@ def _split_microbatches(batch: dict, n_micro: int) -> dict:
     """Split the batch dim into ``(n_micro, B / n_micro)`` per leaf.  The
     batch dim is axis 0 for every input except ``mrope_positions``
     (layout (n_sections, B, S): batch is axis 1), whose microbatch axis
-    moves to the front."""
+    moves to the front.  On a mesh each microbatch's rows stay sharded
+    over the batch axes (``parallel.dtensor_ops.split_rows``)."""
 
     def split(name, x):
         axis = 1 if name == "mrope_positions" else 0
-        shape = tuple(x.shape)
-        x = x.reshape(shape[:axis] + (n_micro, shape[axis] // n_micro)
-                      + shape[axis + 1:])
+        x = split_rows(x, axis, n_micro)
         return torch.movedim(x, axis, 0) if axis else x
 
     return {k: split(k, v) for k, v in batch.items()}
 
 
+def _serving(params):
+    return torch.no_grad() if is_dtensor(leaves(params)[0]) \
+        else torch.inference_mode()
+
+
 def make_prefill_step(model: Model) -> Callable:
     """Forward-only full-sequence step; returns the last-position logits."""
 
-    @torch.inference_mode()
     def prefill_step(params, batch):
-        logits, _ = model.forward(params, batch)
-        return logits[:, -1, :]
+        with _serving(params):
+            logits, _ = model.forward(params, batch)
+            return logits[:, -1, :]
 
     return prefill_step
 
 
 def make_serve_step(model: Model) -> Callable:
     """One-token decode step with a KV/SSM cache (updated in place); returns
-    the greedy next token (int32) and the cache."""
+    the greedy next token (int32) and the cache.  Logits sharded on the
+    vocab (a DTensor) are gathered along it for the argmax, which DTensor
+    does not reduce across vocab shards at batch 1."""
 
-    @torch.inference_mode()
     def serve_step(params, cache, tokens, pos):
-        logits, cache = model.decode_step(params, cache, tokens, pos)
-        return logits[:, -1, :].argmax(dim=-1).to(torch.int32), cache
+        with _serving(params):
+            logits, cache = model.decode_step(params, cache, tokens, pos)
+            last = unshard_dim(logits[:, -1, :], -1)
+            return last.argmax(dim=-1).to(torch.int32), cache
 
     return serve_step

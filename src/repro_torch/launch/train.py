@@ -14,17 +14,14 @@ Weights come from seed 0; every decoder arch trains (the encoder-decoder
 needs audio frames the synthetic pipeline does not draw, and is refused).
 ``--device`` defaults to ``cuda`` and raises without a card.
 Checkpoints go to ``--ckpt-dir`` (default: a new temporary directory).
-``--production-lower`` belongs to the dry-run, which is not ported yet;
-the reference's ``--shape``, which only that option reads, comes with it.
+``--production-lower`` runs the dry run of ``--arch`` x ``--shape``
+(default ``train_4k``) on the production mesh in a subprocess
+(``launch.serve.production_lower``) and exits with its code.
 """
 from __future__ import annotations
 
 import argparse
 import tempfile
-
-PRODUCTION_LOWER = ("ROADMAP.md, Queue 1, item 9: 'Distribution and launch "
-                    "tooling' (the dry-run and production lowering)")
-
 
 def main(argv=None):
     """Run the CLI; returns the finished ``FTTrainer`` (its controller, if
@@ -57,8 +54,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.production_lower:
-        raise NotImplementedError(
-            f"--production-lower is not ported yet ({PRODUCTION_LOWER})")
+        from repro_torch.launch.serve import production_lower
+        raise SystemExit(production_lower(args.arch, args.shape))
 
     from repro_torch.checkpoint.manager import CheckpointConfig
     from repro_torch.configs import get_smoke_config

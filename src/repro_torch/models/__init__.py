@@ -10,6 +10,7 @@ from repro_torch.models.api import (
 )
 from repro_torch.models.transformer import (
     Model,
+    abstract_params,
     build_model,
     model_spec,
     params_from_reference,
@@ -24,5 +25,6 @@ __all__ = [
     "Model",
     "build_model",
     "model_spec",
+    "abstract_params",
     "params_from_reference",
 ]

@@ -8,12 +8,15 @@ rotation and no mask and, as the reference's, adds no QKV bias even where
 the parameters carry one."""
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.models import layers
 from repro_torch.models.api import ModelConfig
+from repro_torch.parallel.dtensor_ops import (dim_shards, shard_local,
+                                              shards_dim, split_dim, write_at)
 
 __all__ = ["attn_spec", "attention", "gqa_scores_reference",
            "chunked_attention", "cross_attention", "KVCache", "init_kv_cache",
@@ -41,11 +44,13 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
                  num_heads: int, num_kv_heads: int):
     hd = cfg.resolved_head_dim
     b, s, _ = x.shape
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    q, k, v = (layers.dense(x, p["wq"]), layers.dense(x, p["wk"]),
+               layers.dense(x, p["wv"]))
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(b, s, num_heads, hd), k.reshape(b, s, num_kv_heads, hd),
-            v.reshape(b, s, num_kv_heads, hd))
+    return (split_dim(q, -1, (num_heads, hd)),
+            split_dim(k, -1, (num_kv_heads, hd)),
+            split_dim(v, -1, (num_kv_heads, hd)))
 
 
 def _apply_positional(q, k, positions, cfg: ModelConfig):
@@ -86,7 +91,7 @@ def gqa_scores_reference(q, k, v, *, causal: bool,
     b, s, h, hd = q.shape
     t, kheads = k.shape[1], k.shape[2]
     mask = _mask(s, t, t - s, sliding_window, q.device) if causal else None
-    out = _attend(q.reshape(b, s, kheads, h // kheads, hd), k, v, mask)
+    out = _attend(split_dim(q, 2, (kheads, h // kheads)), k, v, mask)
     return out.reshape(b, s, h, hd)
 
 
@@ -100,13 +105,28 @@ def chunked_attention(q, k, v, *, causal: bool, sliding_window: Optional[int],
     if s % q_chunk:
         return gqa_scores_reference(q, k, v, causal=causal,
                                     sliding_window=sliding_window)
-    qg = q.reshape(b, s, kheads, h // kheads, hd)
+    qg = split_dim(q, 2, (kheads, h // kheads))
     outs = []
     for c0 in range(0, s, q_chunk):
         mask = (_mask(q_chunk, t, c0 + t - s, sliding_window, q.device)
                 if causal else None)
         outs.append(_attend(qg[:, c0:c0 + q_chunk], k, v, mask))
     return torch.cat(outs, dim=1).reshape(b, s, h, hd)
+
+
+def _local_core(core, q, k, v):
+    """``core(q, k, v)``; for DTensors on each rank's own batch rows and
+    heads (``parallel.dtensor_ops.shard_local``).  Where the KV heads do not
+    divide the query heads' shards (GQA's 8 on a model axis of 16), each is
+    repeated until they do, so the query heads stay sharded: a rank's block
+    of query heads then meets exactly the keys its heads read."""
+    shards = dim_shards(q, 2)
+    kh = k.shape[2]
+    rep = shards // math.gcd(kh, shards)
+    if rep > 1 and q.shape[2] % (kh * rep) == 0:
+        idx = torch.arange(kh, device=k.device).repeat_interleave(rep)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    return shard_local(core, (q, k, v), ((0, 2),) * 3, ((0, 2),))
 
 
 def attention(p: dict, x: torch.Tensor, positions, cfg: ModelConfig, *,
@@ -123,14 +143,13 @@ def attention(p: dict, x: torch.Tensor, positions, cfg: ModelConfig, *,
         from repro_torch.kernels import ops as kops
         out = kops.flash_attention(q, k, v, causal=True,
                                    sliding_window=cfg.sliding_window)
-    elif x.shape[1] > 1024:
-        out = chunked_attention(q, k, v, causal=causal,
-                                sliding_window=cfg.sliding_window)
     else:
-        out = gqa_scores_reference(q, k, v, causal=causal,
-                                   sliding_window=cfg.sliding_window)
+        core = chunked_attention if x.shape[1] > 1024 else gqa_scores_reference
+        out = _local_core(lambda *a: core(*a, causal=causal,
+                                          sliding_window=cfg.sliding_window),
+                          q, k, v)
     b, s = x.shape[:2]
-    return out.reshape(b, s, -1) @ p["wo"]
+    return layers.dense(out.reshape(b, s, -1), p["wo"])
 
 
 def cross_attention(p: dict, x: torch.Tensor, kv_src: torch.Tensor,
@@ -141,11 +160,12 @@ def cross_attention(p: dict, x: torch.Tensor, kv_src: torch.Tensor,
     hd = cfg.resolved_head_dim
     b, s, _ = x.shape
     t = kv_src.shape[1]
-    q = (x @ p["wq"]).reshape(b, s, num_heads, hd)
-    k = (kv_src @ p["wk"]).reshape(b, t, num_kv_heads, hd)
-    v = (kv_src @ p["wv"]).reshape(b, t, num_kv_heads, hd)
-    out = gqa_scores_reference(q, k, v, causal=False, sliding_window=None)
-    return out.reshape(b, s, -1) @ p["wo"]
+    q = split_dim(layers.dense(x, p["wq"]), -1, (num_heads, hd))
+    k = split_dim(layers.dense(kv_src, p["wk"]), -1, (num_kv_heads, hd))
+    v = split_dim(layers.dense(kv_src, p["wv"]), -1, (num_kv_heads, hd))
+    out = _local_core(lambda *a: gqa_scores_reference(
+        *a, causal=False, sliding_window=None), q, k, v)
+    return layers.dense(out.reshape(b, s, -1), p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -172,7 +192,10 @@ def decode_attention(p: dict, x: torch.Tensor, cache: KVCache, pos: int,
 
     Writes the new key and value into ``cache`` in place (the reference's
     donated dynamic_update_slice) and attends over the first pos+1 entries;
-    the masked tail the reference also carries adds exact zeros only.
+    the masked tail the reference also carries adds exact zeros only.  A
+    DTensor cache whose sequence is sharded is written shard-locally and
+    read whole under the mask, as the reference reads it: its slices would
+    gather the cache.
     """
     nh = num_heads or cfg.num_heads
     nk = num_kv_heads or cfg.num_kv_heads
@@ -184,10 +207,19 @@ def decode_attention(p: dict, x: torch.Tensor, cache: KVCache, pos: int,
     if cfg.mrope_sections is not None:
         positions = positions.expand(len(cfg.mrope_sections), b, 1)
     q, k_new = _apply_positional(q, k_new, positions, cfg)
-    cache.k[:, pos] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[:, pos] = v_new[:, 0].to(cache.v.dtype)
-    t = pos + 1
-    mask = _mask(1, t, pos, cfg.sliding_window, x.device)
-    out = _attend(q.reshape(b, 1, nk, nh // nk, hd), cache.k[:, :t],
-                  cache.v[:, :t], mask)
-    return out.reshape(b, 1, nh * hd) @ p["wo"], cache
+    if shards_dim(cache.k, 1):
+        write_at(cache.k, 1, pos, k_new[:, 0].to(cache.k.dtype))
+        write_at(cache.v, 1, pos, v_new[:, 0].to(cache.v.dtype))
+        keys, values = cache.k, cache.v
+    else:
+        cache.k[:, pos] = k_new[:, 0].to(cache.k.dtype)
+        cache.v[:, pos] = v_new[:, 0].to(cache.v.dtype)
+        keys, values = cache.k[:, :pos + 1], cache.v[:, :pos + 1]
+    mask = _mask(1, keys.shape[1], pos, cfg.sliding_window, x.device)
+    qg = split_dim(q, 2, (nk, nh // nk))
+    if shards_dim(keys, 1):
+        out = _attend(qg, keys, values, mask)
+    else:
+        out = shard_local(_attend, (qg, keys, values, mask),
+                          ((0, 2), (0, 2), (0, 2), None), ((0, 2),))
+    return layers.dense(out.reshape(b, 1, nh * hd), p["wo"]), cache

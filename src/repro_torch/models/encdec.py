@@ -23,6 +23,7 @@ from repro_torch.models import layers, mlp
 from repro_torch.models.api import EncDecConfig, ModelConfig
 from repro_torch.models.transformer import (Model, _at, _init_tree, _remat,
                                             _seeded, _stacked)
+from repro_torch.parallel.constraints import constrain
 
 __all__ = ["encdec_spec", "build_encdec", "encode"]
 
@@ -95,13 +96,13 @@ def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
     x = x + _sinusoids(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
     layer = _remat(lambda lp, h: _enc_layer(lp, h, cfg), cfg)
     for i in range((cfg.encdec or EncDecConfig()).enc_layers):
-        x = layer(_at(params["enc_layers"], i), x)
+        x = constrain(layer(_at(params["enc_layers"], i), x), "hidden")
     return _ln(x, params["enc_norm"])
 
 
 def _logits(params, x):
     x = _ln(x, params["dec_norm"])
-    return (x @ params["embed"].T.to(x.dtype)).float()
+    return layers.dense(x, params["embed"].T.to(x.dtype)).float()
 
 
 def build_encdec(cfg: ModelConfig, device: torch.device) -> Model:
@@ -123,8 +124,9 @@ def build_encdec(cfg: ModelConfig, device: torch.device) -> Model:
         layer = _remat(lambda lp, h: _dec_layer(lp, h, enc_out, positions, cfg),
                        cfg)
         for i in range(n_layers):
-            x = layer(_at(params["dec_layers"], i), x)
-        return _logits(params, x), torch.zeros((), device=device)
+            x = constrain(layer(_at(params["dec_layers"], i), x), "hidden")
+        return constrain(_logits(params, x), "logits"), \
+            torch.zeros((), device=device)
 
     def init_cache(batch, max_len):
         kv = attn.init_kv_cache(batch, max_len, cfg.num_kv_heads,

@@ -13,8 +13,22 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.parallel.dtensor_ops import (fsdp_gather, sharded_embed,
+                                              tp_dense)
+
 __all__ = ["rms_norm", "layer_norm", "rope_frequencies", "apply_rope",
-           "apply_mrope", "embed"]
+           "apply_mrope", "embed", "dense"]
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for x (..., K), w (K, N) as one (M, K) x (K, N) product:
+    the fold ``torch.matmul`` makes of a contiguous x, made explicit.  A
+    DTensor with a size-1 dim (one decode token) carries strides that stop
+    matmul from folding it, and the batched product it takes instead
+    rounds differently.  A DTensor weight is gathered over the mesh dims
+    that shard x's tokens (``parallel.dtensor_ops.fsdp_gather``) and the
+    product is each rank's own (``tp_dense``)."""
+    return tp_dense(x, fsdp_gather(w, x, range(x.ndim - 1)))
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6
@@ -84,8 +98,9 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 def embed(table: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
     """Rows of ``table`` at ``tokens``, cast to ``dtype``; its backward is
-    deterministic (module doc)."""
-    return _Embed.apply(table, tokens.long()).to(dtype)
+    deterministic (module doc).  A ``DTensor`` table goes through
+    ``parallel.dtensor_ops.sharded_embed``."""
+    return sharded_embed(_Embed.apply, table, tokens).to(dtype)
 
 
 def _segment_sum_rows(idx: torch.Tensor, rows: torch.Tensor, n: int

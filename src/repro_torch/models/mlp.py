@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.layers import dense
+
 __all__ = ["mlp_spec", "mlp"]
 
 
@@ -22,11 +24,12 @@ def mlp_spec(d_model: int, d_ff: int, act: str, dtype) -> dict:
 
 def mlp(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     if act == "swiglu":
-        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+        h = F.silu(dense(x, p["w_gate"])) * dense(x, p["w_up"])
     elif act == "geglu":
-        h = F.gelu(x @ p["w_gate"], approximate="tanh") * (x @ p["w_up"])
+        h = F.gelu(dense(x, p["w_gate"]), approximate="tanh") \
+            * dense(x, p["w_up"])
     elif act == "gelu":
-        h = F.gelu(x @ p["w_up"], approximate="tanh")
+        h = F.gelu(dense(x, p["w_up"]), approximate="tanh")
     else:
         raise ValueError(f"unknown activation {act!r}")
-    return h @ p["w_down"]
+    return dense(h, p["w_down"])

@@ -18,6 +18,8 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers
 from repro_torch.models.api import ModelConfig, SSMConfig
+from repro_torch.parallel.dtensor_ops import (shard_local, shards_dim,
+                                              split_columns)
 
 __all__ = ["ssm_spec", "ssm_mixer", "ssd_reference", "SSMState",
            "init_ssm_state", "ssm_decode_step"]
@@ -53,7 +55,14 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                  ) -> torch.Tensor:
-    """Depthwise causal conv, x (B, S, C), w (W, C)."""
+    """Depthwise causal conv, x (B, S, C), w (W, C); for DTensors on each
+    rank's own rows and channels (``parallel.dtensor_ops.shard_local``)."""
+    return shard_local(_causal_conv_local, (x, w, b),
+                       ((0, 2), (None, 1), (None, 0)), ((0, 2),))
+
+
+def _causal_conv_local(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                       ) -> torch.Tensor:
     width, s = w.shape[0], x.shape[1]
     pad = F.pad(x, (0, 0, width - 1, 0))
     out = torch.zeros_like(x)
@@ -63,9 +72,19 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
 
 
 def _split_proj(p: dict, u: torch.Tensor, d_model: int, s: SSMConfig):
+    """The in-projection's (z, xBC, dt).  A DTensor ``in_proj`` sharded on
+    its columns, meeting more tokens than it has rows, projects piece by
+    piece (``parallel.dtensor_ops.split_columns``): the split of its fused
+    output would gather the larger activations; with fewer tokens (decode)
+    gathering the output is the cheaper."""
     d_inner, n_heads, conv_dim = _dims(d_model, s)
-    zxbcdt = u @ p["in_proj"]
-    z, xbc, dt = torch.split(zxbcdt, [d_inner, conv_dim, n_heads], dim=-1)
+    sizes = [d_inner, conv_dim, n_heads]
+    if shards_dim(p["in_proj"], 1) and u.numel() > u.shape[-1] ** 2:
+        z, xbc, dt = (layers.dense(u, w)
+                      for w in split_columns(p["in_proj"], sizes))
+    else:
+        zxbcdt = layers.dense(u, p["in_proj"])
+        z, xbc, dt = torch.split(zxbcdt, sizes, dim=-1)
     return z, xbc, dt, d_inner, n_heads
 
 
@@ -123,11 +142,17 @@ def ssm_mixer(p: dict, u: torch.Tensor, cfg: ModelConfig, *,
         from repro_torch.kernels import ops as kops
         y, _ = kops.ssd_scan(x, dt, A, B, C, chunk=s_cfg.chunk_size)
     else:
-        y, _ = ssd_reference(x, dt, A, B, C, chunk=min(s_cfg.chunk_size, s))
+        chunk = min(s_cfg.chunk_size, s)
+        bc = 2 if s_cfg.n_groups > 1 else None
+        # on a mesh the heads are split as the head vectors (A_log) are
+        y, _ = shard_local(lambda *a: ssd_reference(*a, chunk=chunk),
+                           (x, dt, A, B, C),
+                           ((0, 2), (0, 2), (None, 0), (0, bc), (0, bc)),
+                           ((0, 2), (0, 1)), heads_from=2)
     y = y + p["D"][:, None] * x.float()
     y = y.reshape(b, s, d_inner).to(u.dtype)
     y = layers.rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
-    return y @ p["out_proj"]
+    return layers.dense(y, p["out_proj"])
 
 
 # ---------------------------------------------------------------------------
@@ -174,8 +199,9 @@ def ssm_decode_step(p: dict, u: torch.Tensor, state: SSMState,
     a = torch.exp(dt * -torch.exp(p["A_log"]))               # (b,h)
     dax = dt[..., None] * x.float()                          # (b,h,p)
     new_ssd = state.ssd * a[..., None, None] + dax[..., None] * Bh[:, :, None, :]
-    y = torch.einsum("bhpn,bhn->bhp", new_ssd, Ch)
+    y = shard_local(lambda st, c: torch.einsum("bhpn,bhn->bhp", st, c),
+                    (new_ssd, Ch), ((0, 1), (0, 1)), ((0, 1),))
     y = y + p["D"][:, None] * x.float()
     y = y.reshape(b, 1, d_inner).to(u.dtype)
     y = layers.rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
-    return y @ p["out_proj"], SSMState(conv=new_conv, ssd=new_ssd)
+    return layers.dense(y, p["out_proj"]), SSMState(conv=new_conv, ssd=new_ssd)

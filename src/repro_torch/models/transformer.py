@@ -21,7 +21,9 @@ layer in ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``,
 the reference's per-layer ``jax.checkpoint``.  ``train_microbatches``
 belongs to the train step (``launch.steps``); ``decode_cache_in_carry``
 shapes the reference's jit cache donation and changes nothing here.  The
-sharding constraints of the reference have no counterpart yet.
+reference's sharding anchors are kept: ``parallel.constraints.constrain``
+on the embedded input ("hidden"), each layer's output ("hidden") and the
+logits ("logits"), a no-op without an activation policy.
 """
 from __future__ import annotations
 
@@ -37,8 +39,10 @@ from repro_torch._device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, mlp, moe, ssm
 from repro_torch.models.api import ModelConfig
+from repro_torch.parallel.constraints import constrain
 
-__all__ = ["Model", "build_model", "model_spec", "params_from_reference"]
+__all__ = ["Model", "build_model", "model_spec", "abstract_params",
+           "params_from_reference"]
 
 
 class Model(NamedTuple):
@@ -120,6 +124,16 @@ def model_spec(cfg: ModelConfig) -> dict:
     else:
         raise ValueError(f"unknown family {cfg.family!r}")
     return spec
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree as ``meta`` tensors (shapes and dtypes, no
+    storage): the counterpart of ``jax.eval_shape(model.init, key)``."""
+    def walk(spec):
+        return {k: walk(v) if not _is_leaf(v)
+                else torch.empty(v[0], dtype=v[1], device="meta")
+                for k, v in spec.items()}
+    return walk(model_spec(cfg))
 
 
 def _init_leaf(leaf, gen: torch.Generator, device) -> torch.Tensor:
@@ -254,6 +268,7 @@ def _embed_in(params, batch, cfg: ModelConfig):
         x = batch["embeds"].to(dtype)
     else:
         x = layers.embed(params["embed"], batch["tokens"], dtype)
+    x = constrain(x, "hidden")
     b, s = x.shape[:2]
     base = torch.arange(s, device=x.device)[None].expand(b, s)
     if cfg.mrope_sections is not None:
@@ -270,7 +285,7 @@ def _embed_in(params, batch, cfg: ModelConfig):
 def _logits_out(params, x, cfg: ModelConfig):
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (x @ head.to(x.dtype)).float()
+    return constrain(layers.dense(x, head.to(x.dtype)).float(), "logits")
 
 
 def _ssm_cache(prefix: tuple, batch: int, cfg: ModelConfig, device):
@@ -304,6 +319,7 @@ def _build_decoder(cfg: ModelConfig, device: torch.device) -> Model:
         auxes = []
         for i in range(n_layers):
             x, aux = layer(_at(params["blocks"], i), x)
+            x = constrain(x, "hidden")
             auxes.append(aux)
         if cfg.moe is None:
             return _logits_out(params, x, cfg), torch.zeros((), device=device)
@@ -337,7 +353,7 @@ def _build_ssm_decoder(cfg: ModelConfig, device: torch.device) -> Model:
         x, _ = _embed_in(params, batch, cfg)
         layer = _remat(lambda lp, h: _ssm_block(lp, h, cfg), cfg)
         for i in range(n_layers):
-            x = layer(_at(params["blocks"], i), x)
+            x = constrain(layer(_at(params["blocks"], i), x), "hidden")
         return _logits_out(params, x, cfg), torch.zeros((), device=device)
 
     def init_cache(batch, max_len):
@@ -365,10 +381,11 @@ def _build_hybrid(cfg: ModelConfig, device: torch.device) -> Model:
         layer = _remat(lambda lp, h: _ssm_block(lp, h, cfg), cfg)
         for i in range(n_super):
             for j in range(every):
-                x = layer(_at(params["main"], i, j), x)
+                x = constrain(layer(_at(params["main"], i, j), x), "hidden")
             x, _ = _attn_block(params["shared"], x, positions, shared_cfg)
+            x = constrain(x, "hidden")
         for j in range(tail):
-            x = layer(_at(params["tail"], j), x)
+            x = constrain(layer(_at(params["tail"], j), x), "hidden")
         return _logits_out(params, x, cfg), torch.zeros((), device=device)
 
     def init_cache(batch, max_len):

@@ -53,7 +53,8 @@ def adamw(cfg: AdamWConfig = AdamWConfig()) -> Optimizer:
     sdt = getattr(torch, cfg.state_dtype)
 
     def init(params):
-        zeros = lambda p: torch.zeros(p.shape, dtype=sdt, device=p.device)
+        # zeros_like: a DTensor parameter's moments are laid out as it is
+        zeros = lambda p: torch.zeros_like(p, dtype=sdt)
         return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
                 "count": _count(params)}
 

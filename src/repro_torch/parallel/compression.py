@@ -46,8 +46,12 @@ def topk_decompress(kept: torch.Tensor, idx: torch.Tensor, shape) -> torch.Tenso
 
 
 def int8_compress(g: torch.Tensor):
-    """(int8 codes, float32 scale): ``max |g| / 127`` per tensor."""
-    scale = torch.clamp_min(g.abs().max(), 1e-12) / 127.0
+    """(int8 codes, float32 scale): ``max |g| / 127`` per tensor.  The
+    divisor is a tensor: CUDA multiplies by the reciprocal of a Python
+    number instead of dividing, which rounds otherwise than the CPU (and
+    the reference) for some scales."""
+    amax = torch.clamp_min(g.abs().max(), 1e-12)
+    scale = amax / torch.full((), 127.0, dtype=amax.dtype, device=amax.device)
     q = torch.round(g / scale).clamp(-127, 127).to(torch.int8)
     return q, scale
 

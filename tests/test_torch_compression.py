@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_ref import load_reference
+from torch_port_ref import load_reference, requires_cuda, skip_without_cuda
 
 from repro_torch._tree import items, leaves, tree_map
 from repro_torch.optim import adamw as tadamw
@@ -63,6 +63,20 @@ def test_int8_rounds_half_to_even():
     q, s = tc.int8_compress(g)
     assert float(s) == 1.0
     assert q.tolist() == [127, 0, 2, 2, 0, -2]
+
+
+@requires_cuda
+def test_int8_on_card_equals_cpu():
+    """The scale's division by 127 gives the CPU's bits on the card (a
+    Python-number divisor is a reciprocal multiply there, which rounds
+    otherwise for some scales)."""
+    skip_without_cuda()
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(2000):
+        g = torch.randn(64, generator=gen) * float(torch.rand(1, generator=gen)) * 100
+        q, s = tc.int8_compress(g)
+        qc, sc = tc.int8_compress(g.cuda())
+        assert torch.equal(qc.cpu(), q) and torch.equal(sc.cpu(), s)
 
 
 @pytest.mark.parametrize("ratio", [0.25, 0.05, 1e-9])

@@ -412,10 +412,14 @@ def test_elastic_shrink_plan():
     plan = T.ElasticPlan.shrink({"pod": 3, "data": 2})
     assert plan.new_axes == {"pod": 2, "data": 2}
     assert plan.old_axes == {"pod": 3, "data": 2}
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        plan.new_mesh()
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        plan.apply({}, {})
+    # new_mesh / apply are ported: the shrunk mesh over a (fake) group
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.parallel.sharding import mesh_axes
+
+    with fake_world(6):
+        mesh, state = plan.apply({}, {}, device_type="cpu")
+        assert mesh_axes(mesh) == {"pod": 2, "data": 2} and state == {}
+        assert mesh_axes(plan.new_mesh(device_type="cpu")) == plan.new_axes
 
 
 # ---------------------------------------------------------------------------
@@ -468,9 +472,16 @@ def test_train_cli_adaptive(R, tmp_path, monkeypatch):
         sum("retune@" in s for s in want)
 
 
-def test_train_cli_defaults_to_cuda_and_refuses_production_lower():
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
+def test_train_cli_defaults_to_cuda_and_refuses_production_lower(monkeypatch):
+    # --production-lower is ported since: it runs the port's dry run
+    import subprocess
+
+    calls = []
+    monkeypatch.setattr(subprocess, "call", lambda cmd: calls.append(cmd) or 0)
+    with pytest.raises(SystemExit):
         ttrain.main(["--production-lower"])
+    assert calls == [[sys.executable, "-m", "repro_torch.launch.dryrun",
+                      "--arch", "deepseek-7b", "--shape", "train_4k"]]
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):

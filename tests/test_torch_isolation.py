@@ -9,8 +9,9 @@ the Monte-Carlo, the planners, both renewal engines, the correlated
 optimiser's entry points, the fleet advisor and the campaign runner and
 CLI, the train step, the checkpoint manager, the FT trainer with its
 adaptive controller and the training CLI, the moe and encoder-decoder
-models through the serve and train entry points, gradient compression) run
-with ``jax`` and ``repro`` unimportable too.
+models through the serve and train entry points, gradient compression, the
+dry run on a fake 256-rank mesh) run with ``jax`` and ``repro``
+unimportable too, and so does importing ``chip_smoke.py``.
 """
 import ast
 import os
@@ -78,7 +79,10 @@ def test_every_module_imports_without_jax():
             "repro_torch.ft.runtime", "repro_torch.ft.controller",
             "repro_torch.launch.train", "repro_torch._tree",
             "repro_torch.models.moe", "repro_torch.models.encdec",
-            "repro_torch.parallel", "repro_torch.parallel.compression"} <= set(mods)
+            "repro_torch.parallel", "repro_torch.parallel.compression",
+            "repro_torch.parallel.sharding", "repro_torch.parallel.constraints",
+            "repro_torch.parallel.dtensor_ops", "repro_torch.launch.mesh",
+            "repro_torch.launch.dryrun"} <= set(mods)
 
 
 def test_entry_points_run_without_jax():
@@ -219,3 +223,29 @@ def test_moe_and_encdec_entry_points_run_without_jax(tmp_path):
                          text=True, env=env, cwd=str(ROOT), timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok 3")
+
+
+def test_dryrun_and_chip_smoke_run_without_jax(tmp_path):
+    out = tmp_path / "rec.json"
+    code = textwrap.dedent(f"""
+        import runpy, sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        sys.path.insert(0, {str(ROOT)!r})
+        import chip_smoke
+        sys.argv = ["dryrun", "--arch", "mamba2-370m", "--shape", "decode_32k",
+                    "--out", {str(out)!r}]
+        runpy.run_module("repro_torch.launch.dryrun", run_name="__main__")
+        bad = [k for k, v in sys.modules.items() if v is not None
+               and k.split(".")[0] in ("jax", "jaxlib", "repro")]
+        assert not bad, bad
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=str(tmp_path), timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("ok")
+    import json
+    (rec,) = json.loads(out.read_text())
+    assert rec["num_devices"] == 256 and rec["flops"] > 0

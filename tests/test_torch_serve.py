@@ -74,6 +74,16 @@ def test_serve_defaults_to_cuda():
         serve.main(["--arch", "mamba2-370m", "--gen", "2"])
 
 
-def test_production_lower_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_production_lower_is_not_ported(monkeypatch):
+    """Ported since: ``--production-lower`` runs the port's dry run in a
+    subprocess (``tests/test_torch_dryrun.py`` runs the dry run itself)."""
+    import subprocess
+    import sys
+
+    calls = []
+    monkeypatch.setattr(subprocess, "call", lambda cmd: calls.append(cmd) or 0)
+    with pytest.raises(SystemExit) as exc:
         serve.main(["--arch", "zamba2-7b", "--production-lower"])
+    assert exc.value.code == 0
+    assert calls == [[sys.executable, "-m", "repro_torch.launch.dryrun",
+                      "--arch", "zamba2-7b", "--shape", "decode_32k"]]
