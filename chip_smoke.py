@@ -13,9 +13,10 @@ same operands:
   42-policy grid and Weibull failures, checked against the port's float64
   host oracle (``renewal_scan``; before them the kernel is held bit-equal
   to its plain version at 1-4 survivors, 1-4 ladder levels, K 1 and 64,
-  R 1, 31 and 1000: ``[kernel-shapes]``, and past those shapes, the wide
-  kernel up to its caps and the fleet preset's 7 survivors at the main
-  path's size: ``[kernel-bounds]``);
+  R 1, 31 and 1000 in both mappings of runs to lanes: ``[kernel-shapes]``,
+  and past those shapes, up to the caps of 64 survivors and 16 levels,
+  then the fleet preset's 7 survivors, 9 x 4, 16 x 8, 17 x 5, 32 x 8,
+  33 x 4 and 64 x 16 at the main path's size, timed: ``[kernel-bounds]``);
 * correlated rack failures at the main path's size under the reference's
   gentle and aggressive topologies, both engines against the float64
   oracle (``[correlated]``), and the failure-process axis (LogNormal,
@@ -36,6 +37,9 @@ same operands:
   per-cluster loop (``[fleet]``); the ``fleet`` and ``policy_grid``
   campaign presets against direct dispatches, and the ``smoke`` preset cut
   and resumed through the campaign CLI (``[campaign]``);
+* the models' constant tables on the card against the CPU's bits
+  (``[card-vs-cpu]``: RoPE's inverse frequencies at head_dim 112, the
+  1500 x 1024 sinusoids);
 * Zamba2-7B serving at its published widths with seeded weights: a bf16
   prefill of 2 x 4096 tokens (13 ``flash_attention`` and 81 ``ssd_scan``
   launches), a float32 prefill of 2 x 512 tokens (cut to 15 of the 81
@@ -120,8 +124,12 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12
 # analytic cost of one occurring (epoch, survivor) decision of the renewal
-# kernel (benchmarks/failure_sweep.py, roofline methodology)
-FLOP_PER_DECISION = 190.0
+# kernel (benchmarks/failure_sweep.py, roofline methodology: ~190 at 4
+# ladder levels): ~30 per ladder level (the timer count with its IEEE
+# division, the checkpoint time, feasibility, the sleep gate, the running
+# argmin) and ~70 for the rest of the body
+FLOP_PER_DECISION_BASE = 70.0
+FLOP_PER_LADDER_LEVEL = 30.0
 
 FULL_RUNS = 4096
 FULL_EPOCHS = 64
@@ -135,20 +143,27 @@ KERNEL_REPS = 20          # launches queued back to back per kernel timing
 TOL_ORACLE = 1e-4          # whole-run energies vs the float64 oracle
 TOL_PLAIN = 1e-6           # kernel vs its plain version (bit-equal expected)
 # the renewal kernel's shape sweep: survivors x ladder levels x (K, R)
-SHAPE_KR = ((1, 1), (1, 31), (1, 1000), (FULL_EPOCHS, 1), (FULL_EPOCHS, 31),
-            (FULL_EPOCHS, 1000))
+SHAPE_K, SHAPE_R = (1, FULL_EPOCHS), (1, 31, 1000)
+SHAPE_KR = tuple((k, r) for k in SHAPE_K for r in SHAPE_R)
 FLOAT_STATS = ("energy_ref", "energy_int", "saving", "balanced_energy",
                "end_time")
-# the renewal kernel past its fast shapes (phase 2c): the wide kernel at
-# 5-32 survivors x 3-8 ladder levels and at its caps, the fast kernel's
-# survivor counts at deeper ladders; the fleet preset's shape (8 nodes,
-# src/repro/campaign/presets.py, on the paper's 4-level ladder) at the
-# main path's size
+# the renewal kernel past phase 2b's shapes (phase 2c): 5-32 survivors x
+# 3-8 ladder levels, 6 and 8 survivors, the bounds of the kernels' survivor
+# counts (8 the last exact count, 9 and 16 the group's, 17 the first with
+# one mapping, 33 and 64) and ladders (4, 5, 8, 16 levels), the caps; the
+# fleet preset's shape (8 nodes, src/repro/campaign/presets.py, on the
+# paper's 4-level ladder) and six wider clusters at the main path's size,
+# the plain version timed on the fleet preset and the three widest
+SHAPES_MAX_N = 4     # phase 2b's survivor counts
 KERNEL_BOUND_SHAPES = tuple((n, nf) for n in (5, 7, 16, 32)
                             for nf in (3, 4, 5, 8)) \
-    + ((3, 5), (3, 8), (4, 8), (64, 16))
+    + ((3, 5), (3, 8), (4, 8), (6, 4), (8, 4), (8, 5), (8, 16), (9, 4),
+       (9, 16), (17, 5), (33, 8), (64, 4), (64, 16))
 FLEET_SHAPE = (7, 4)
-EARLIER_MAIN_PATH_MS = 0.04829   # the main path's kernel time before the wide kernel (PERF.md §6)
+WIDE_TIMED_SHAPES = (FLEET_SHAPE, (9, 4), (16, 8), (17, 5), (32, 8), (33, 4),
+                     (64, 16))
+WIDE_PLAIN_TIMED = (FLEET_SHAPE, (16, 8), (32, 8), (64, 16))
+EARLIER_MAIN_PATH_MS = 0.04701   # the main path's kernel time before this kernel design (PERF.md §6)
 # correlated rack failures (phase 5b), the reference's own fixtures
 # (tests/test_topology.py): rack size (None: one rack of every node),
 # shock MTBS in days, p_kill, age boost of the spared members in seconds
@@ -375,6 +390,53 @@ def compare_outputs(got: dict, want: dict) -> tuple:
         raise Failed(f"kernel floats differ from the plain version: "
                      f"max rel {max_rel:.3e} > {TOL_PLAIN}")
     return max_abs, max_rel
+
+
+def shape_sweep(rs, failures, prng, ops, n: int, dev, key: int, seed: int,
+                first: int, forced: bool) -> tuple:
+    """The renewal kernel against its plain version at one shape over
+    SHAPE_KR: per K of SHAPE_K two of the four (felled, compensated)
+    variants (the other two at the other K; ``first`` picks which), the
+    plain version run once at the largest R of SHAPE_R, and the kernel at
+    every R on the first R runs of the same operands (runs are
+    independent), launched by its own pick of lanes per run and, with
+    ``forced``, in each mapping.  Returns (worst abs, worst rel, the
+    variants seen, the cases)."""
+    variants = ((False, True), (True, False), (True, True), (False, False))
+    r_max = max(SHAPE_R)
+    worst_abs = worst_rel = 0.0
+    seen, n_cases = set(), 0
+    for i, k in enumerate(SHAPE_K):
+        g32, _ = failures.sample_renewal_gaps(
+            failures.Exponential(MTBF_S), prng.PRNGKey(key + i), r_max, k,
+            n + 1, dev)
+        gaps_t = g32.T.contiguous()
+        gen = torch.Generator(device="cpu").manual_seed(seed + i)
+        felled = (torch.rand((k, n, r_max), generator=gen) < 0.15).float().to(dev)
+        for use_fel, comp in (variants[(first + i) % 4],
+                              variants[(first + i + 2) % 4]):
+            fel = felled if use_fel else None
+            want = rs.renewal_scan_reference(*ops, gaps_t, fel,
+                                             compensated=comp)
+            for r in SHAPE_R:
+                gaps_r = gaps_t[:, :r].contiguous()
+                fel_r = None if fel is None else fel[:, :, :r].contiguous()
+                before = rs.LAUNCHES["renewal_scan"]
+                outs = [rs.renewal_scan(*ops, gaps_r, fel_r, compensated=comp)]
+                if rs.LAUNCHES["renewal_scan"] != before + 1:
+                    raise Failed(f"n={n}: no counted launch")
+                if forced:
+                    outs += [rs._launch_cuda(*ops, gaps_r, fel_r, comp, lanes=g)
+                             for g in rs.lane_choices(n)]
+                torch.cuda.synchronize()
+                want_r = {f: w[..., :r] for f, w in want.items()}
+                for got in outs:
+                    max_abs, max_rel = compare_outputs(got, want_r)
+                    worst_abs = max(worst_abs, max_abs)
+                    worst_rel = max(worst_rel, max_rel)
+                n_cases += 1
+            seen.add((use_fel, comp))
+    return worst_abs, worst_rel, seen, n_cases
 
 
 def check_against_oracle(phase, sweep, cfg, stats_row: dict, gaps, failed,
@@ -838,79 +900,92 @@ def stats_row(stats, s: int) -> dict:
 
 def kernel_bounds_phase(card_line: str, rs, failures, prng, scen_ops, dev,
                         n_scen: int) -> tuple:
-    """Phase 2c: the survivor counts and ladder depths past the fast
-    kernel's bounds (the wide kernel), and the fast kernel's survivor counts
-    at deeper ladders, with and without shocks, compensated and not, every
-    launch bit-equal to the plain version; then the fleet preset's shape
-    (7 survivors, 4 levels: the Table-4 scenarios widened) at the main
-    path's size, timed alone against its bound.  Returns (worst abs, worst
-    rel) against the plain version."""
-    variants = ((False, True), (True, False), (True, True), (False, False))
+    """Phase 2c: the survivor counts and ladder depths past phase 2b's
+    (KERNEL_BOUND_SHAPES), with and without shocks, compensated and not,
+    the kernel's own pick of lanes per run and, where the shape has two
+    mappings, each forced, every launch bit-equal to the plain version;
+    then the fleet preset's shape (7 survivors, 4 levels: the Table-4
+    scenarios widened) and WIDE_TIMED_SHAPES' wider clusters at the main
+    path's size, each bit-equal with and without shocks and timed alone
+    against its bound (the plain version on WIDE_PLAIN_TIMED).  Returns
+    (worst abs, worst rel) against the plain version."""
     worst_abs = worst_rel = 0.0
-    for n, nf in KERNEL_BOUND_SHAPES:
+    for j, (n, nf) in enumerate(KERNEL_BOUND_SHAPES):
         ops = with_shape(scen_ops, n, nf)
-        shape_abs, seen = 0.0, set()
-        for j, (k, r) in enumerate(SHAPE_KR):
-            g32, _ = failures.sample_renewal_gaps(
-                failures.Exponential(MTBF_S), prng.PRNGKey(200 + j), r, k,
-                n + 1, dev)
-            gaps_t = g32.T.contiguous()
-            gen = torch.Generator(device="cpu").manual_seed(31 + j)
-            felled = (torch.rand((k, n, r), generator=gen) < 0.15).float().to(dev)
-            for use_fel, comp in (variants[j % 4], variants[(j + 2) % 4]):
-                fel = felled if use_fel else None
-                want = rs.renewal_scan_reference(*ops, gaps_t, fel,
-                                                 compensated=comp)
-                before = rs.LAUNCHES["renewal_scan"]
-                got = rs.renewal_scan(*ops, gaps_t, fel, compensated=comp)
-                torch.cuda.synchronize()
-                if rs.LAUNCHES["renewal_scan"] != before + 1:
-                    raise Failed(f"kernel-bounds n={n} nf={nf}: no counted launch")
-                max_abs, max_rel = compare_outputs(got, want)
-                if max_rel != 0.0:
-                    raise Failed(f"kernel-bounds n={n} nf={nf}: floats not "
-                                 f"bit-equal (rel {max_rel:.3e})")
-                shape_abs = max(shape_abs, max_abs)
-                worst_abs, worst_rel = max(worst_abs, max_abs), max(worst_rel, max_rel)
-                seen.add((use_fel, comp))
+        shape_abs, shape_rel, seen, _ = shape_sweep(
+            rs, failures, prng, ops, n, dev, key=200, seed=31, first=j,
+            forced=len(rs.lane_choices(n)) > 1)
+        if shape_rel != 0.0:
+            raise Failed(f"kernel-bounds n={n} nf={nf}: floats not bit-equal "
+                         f"(rel {shape_rel:.3e})")
+        worst_abs = max(worst_abs, shape_abs)
         if len(seen) != 4:
             raise Failed(f"kernel-bounds n={n} nf={nf}: only {sorted(seen)}")
         line("kernel-bounds", survivors=n, levels=nf, lanes=n_scen,
-             kernel=rs.kernel_name(n, nf),
+             kernels="/".join(rs.kernel_name(n, nf, g) for g in rs.lane_choices(n)),
              shapes="K,R=" + "/".join(f"{k}x{r}" for k, r in SHAPE_KR),
-             felled_compensated="all four", bit_equal=True,
+             felled_compensated="all four", lanes_per_run="auto/" + "/".join(
+                 map(str, rs.lane_choices(n))), bit_equal=True,
              max_abs_err=f"{shape_abs:.6g}")
 
-    # the fleet preset's shape at the main path's size
-    n, nf = FLEET_SHAPE
-    ops = with_shape(scen_ops, n, nf)
-    g32, _ = failures.sample_renewal_gaps(
-        failures.Exponential(MTBF_S), prng.PRNGKey(1), FULL_RUNS, FULL_EPOCHS,
-        n + 1, dev)
-    gaps_t = g32.T.contiguous()
-    gen = torch.Generator(device="cpu").manual_seed(5)
-    felled = (torch.rand((FULL_EPOCHS, n, FULL_RUNS), generator=gen) < 0.15
-              ).float().to(dev)
-    for fel in (None, felled):
-        out = rs.renewal_scan(*ops, gaps_t, fel)
-        want = rs.renewal_scan_reference(*ops, gaps_t, fel)
-        torch.cuda.synchronize()
-        max_abs, max_rel = compare_outputs(out, want)
-        if max_rel != 0.0:
-            raise Failed(f"kernel-bounds fleet: floats not bit-equal ({max_rel:.3e})")
-        worst_abs, worst_rel = max(worst_abs, max_abs), max(worst_rel, max_rel)
-        args = (*ops, gaps_t) + (() if fel is None else (fel,))
-        k_ms, host_ms = kernel_only_ms(lambda: rs.renewal_scan(*args),
-                                       n=KERNEL_REPS)
-        b_ms, b_by, n_bytes, occ = renewal_bound(args, out, n)
-        line("kernel-bounds", shape="fleet preset", card=repr(card_line),
-             survivors=n, levels=nf, kernel=rs.kernel_name(n, nf),
-             lanes=n_scen, runs=FULL_RUNS, epochs=FULL_EPOCHS,
-             felled=fel is not None, bit_equal=True, kernel_ms=f"{k_ms:.5f}",
-             wrapper_host_ms=f"{host_ms:.5f}", occurring_decisions=occ,
-             bytes=n_bytes, bound_ms=f"{b_ms:.5f}", bound_by=b_by,
-             bound_share=f"{b_ms / k_ms:.4f}")
+    # the fleet preset's shape and the wider clusters at the main path's size
+    for n, nf in WIDE_TIMED_SHAPES:
+        ops = with_shape(scen_ops, n, nf)
+        g32, _ = failures.sample_renewal_gaps(
+            failures.Exponential(MTBF_S), prng.PRNGKey(1), FULL_RUNS,
+            FULL_EPOCHS, n + 1, dev)
+        gaps_t = g32.T.contiguous()
+        gen = torch.Generator(device="cpu").manual_seed(5)
+        felled = (torch.rand((FULL_EPOCHS, n, FULL_RUNS), generator=gen) < 0.15
+                  ).float().to(dev)
+        for fel in (None, felled):
+            args = (*ops, gaps_t) + (() if fel is None else (fel,))
+            out = rs.renewal_scan(*args)
+            p_ms = None
+            if fel is None and (n, nf) in WIDE_PLAIN_TIMED:
+                # the plain version timed without shocks, its first call
+                # the one the kernel is held against
+                wants = []
+                p_ms = statistics.median(cuda_ms(
+                    lambda: wants.append(rs.renewal_scan_reference(*args)),
+                    reps=3, warmup=0))
+                want = wants[0]
+            else:
+                want = rs.renewal_scan_reference(*args)
+            torch.cuda.synchronize()
+            max_abs, max_rel = compare_outputs(out, want)
+            if max_rel != 0.0:
+                raise Failed(f"kernel-bounds n={n} nf={nf} at the main path's "
+                             f"size: floats not bit-equal ({max_rel:.3e})")
+            worst_abs, worst_rel = max(worst_abs, max_abs), max(worst_rel, max_rel)
+            k_ms, host_ms = kernel_only_ms(lambda: rs.renewal_scan(*args),
+                                           n=KERNEL_REPS)
+            b_ms, b_by, n_bytes, occ = renewal_bound(args, out, n)
+            line("kernel-bounds", shape="fleet preset" if (n, nf) == FLEET_SHAPE
+                 else f"{n}x{nf}", card=repr(card_line), survivors=n, levels=nf,
+                 kernel=rs.kernel_name(n, nf, renewal_lanes(rs, n, nf, n_scen)),
+                 lanes=n_scen, runs=FULL_RUNS, epochs=FULL_EPOCHS,
+                 felled=fel is not None, bit_equal=True, kernel_ms=f"{k_ms:.5f}",
+                 plain_ms="not measured" if p_ms is None else f"{p_ms:.2f}",
+                 wrapper_host_ms=f"{host_ms:.5f}", occurring_decisions=occ,
+                 bytes=n_bytes, bound_ms=f"{b_ms:.5f}", bound_by=b_by,
+                 bound_share=f"{b_ms / k_ms:.4f}")
     return worst_abs, worst_rel
+
+
+# survivor counts at which the run kernel's occupancy is printed
+RUN_OCCUPANCY_N = (9, 17, 33, 64)
+
+
+def renewal_lanes(rs, n: int, nf: int, n_lanes: int,
+                  n_runs: int = FULL_RUNS) -> int:
+    """The lanes per run the renewal kernel picks for a launch."""
+    import ctypes
+    from repro_torch.kernels import _build
+
+    pick = _build.load_library(*rs.LIBRARY).renewal_scan_lanes_per_run
+    pick.argtypes = [ctypes.c_int] * 4
+    return pick(n, nf, n_lanes, n_runs)
 
 
 def correlated_phase(card_line: str, rs, sweep, topology, failures, prng,
@@ -1151,19 +1226,22 @@ def kernel_name(mangled: str) -> str:
 
 def ptxas_functions(text: str) -> list:
     """One dict per entry function of ``ptxas -v`` output: its name,
-    registers, spill stores and loads (bytes) and static shared memory."""
+    registers, stack frame, spill stores and loads (bytes) and static
+    shared memory."""
     out, cur = [], None
     for r in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", r)
         if m:
-            cur = {"function": kernel_name(m.group(1)), "spill_stores": 0,
-                   "spill_loads": 0}
+            cur = {"function": kernel_name(m.group(1)), "stack_frame": 0,
+                   "spill_stores": 0, "spill_loads": 0}
             continue
         if cur is None:
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", r)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", r)
         if m:
-            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            cur["stack_frame"], cur["spill_stores"], cur["spill_loads"] = (
+                int(g) for g in m.groups())
         m = re.search(r"Used (\d+) registers", r)
         if m:
             cur["registers"] = int(m.group(1))
@@ -1206,36 +1284,43 @@ def print_occupancy(fa, ssd, head_dim: int, p: int, n: int, chunk: int) -> None:
 
 
 def print_renewal_occupancy(rs, launches: dict) -> None:
-    """Blocks per SM of the renewal kernel for each survivor count N and
-    lanes per run (1, or one per survivor), and for the path's launches
-    (``launches``: label -> (lanes, runs, survivors)) the mapping the
-    kernel picks and the blocks and waves it makes on this card."""
+    """Blocks per SM of every instantiation of the renewal kernel (each
+    survivor count up to FAST_MAX_N and GROUP_N, each mapping, both
+    unrolled ladder depths; the run kernel, whose shared memory grows with
+    the survivors, at RUN_OCCUPANCY_N), and for the path's launches
+    (``launches``: label -> (lanes, runs, survivors, levels)) the mapping
+    the kernel picks and the blocks and waves it makes on this card."""
     import ctypes
     from repro_torch.kernels import _build
 
     lib = _build.load_library(*rs.LIBRARY)
     occ_fn = lib.renewal_scan_occupancy
-    occ_fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
-    pick = lib.renewal_scan_lanes_per_run
-    pick.argtypes = [ctypes.c_int] * 3
+    occ_fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    occ = {}
-    # the fast kernel per N and mapping, then the wide kernel (one entry:
-    # N is a runtime argument there)
-    for n, per_run in [(n, g) for n in range(1, rs.FAST_MAX_N + 1)
-                       for g in sorted({1, n})] + [(rs.FAST_MAX_N + 1, 1)]:
+    def occupancy(n: int, nf: int, per_run: int) -> tuple:
         blocks, threads, runs = (ctypes.c_int() for _ in range(3))
-        _build.check_launch(lib, "renewal_scan",
-                            occ_fn(n, per_run, blocks, threads, runs))
-        name = rs.kernel_name(n, 1, per_run)
-        occ[name] = (blocks.value, threads.value, runs.value)
-        line("occupancy", kernel=name, threads=threads.value,
-             runs_per_block=runs.value, blocks_per_sm=blocks.value,
-             warps_per_sm=blocks.value * threads.value // 32)
+        _build.check_launch(lib, "renewal_scan", occ_fn(
+            n, nf, per_run, blocks, threads, runs))
+        return blocks.value, threads.value, runs.value
+
+    def show(name: str, n: int, blocks: int, threads: int, runs: int) -> None:
+        extra = {"survivors": n} if name == rs.RUN_KERNEL else {}
+        line("occupancy", kernel=name, **extra, threads=threads,
+             runs_per_block=runs, blocks_per_sm=blocks,
+             warps_per_sm=blocks * threads // 32)
+
+    for nf in (rs.FAST_MAX_F, rs.MAX_F):
+        for n in list(range(1, rs.FAST_MAX_N + 1)) + [rs.GROUP_N]:
+            for per_run in rs.lane_choices(n):
+                if per_run > 1 or n <= rs.THROUGHPUT_MAX_N:
+                    show(rs.kernel_name(n, nf, per_run), n,
+                         *occupancy(n, nf, per_run))
+    for n in RUN_OCCUPANCY_N:
+        show(rs.RUN_KERNEL, n, *occupancy(n, rs.FAST_MAX_F, 1))
     for label, (lanes, n_runs, n, nf) in launches.items():
-        per_run = pick(n, lanes, n_runs) if nf <= rs.FAST_MAX_F else 1
+        per_run = renewal_lanes(rs, n, nf, lanes, n_runs)
         name = rs.kernel_name(n, nf, per_run)
-        per_sm, threads, runs = occ[name]
+        per_sm, threads, runs = occupancy(n, nf, per_run)
         grid = lanes * -(-n_runs // runs)
         line("occupancy", launch=label, kernel=name, lanes_per_run=per_run,
              blocks=grid, sms=sms, waves=f"{grid / (per_sm * sms):.3f}",
@@ -1245,14 +1330,16 @@ def print_renewal_occupancy(rs, launches: dict) -> None:
 def renewal_bound(args, out: dict, n_surv: int) -> tuple:
     """(bound_ms, bound_by, bytes, occurring decisions) of one renewal
     launch: each operand read once and each output written once at the
-    card's memory rate, against FLOP_PER_DECISION per occurring (epoch,
-    survivor) decision of this run's data at the float32 rate."""
+    card's memory rate, against the flop of each occurring (epoch,
+    survivor) decision of this run's data on its ladder (args[2]: (P, 5,
+    levels)) at the float32 rate."""
     n_bytes = sum(t.numel() * t.element_size() for t in args
                   if isinstance(t, torch.Tensor)) \
         + sum(t.numel() * t.element_size() for t in out.values())
     occurring = int(out["valid"].sum()) * n_surv
+    flop = FLOP_PER_DECISION_BASE + FLOP_PER_LADDER_LEVEL * args[2].shape[2]
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = occurring * FLOP_PER_DECISION / PEAK_FP32_FLOP_PER_S * 1e3
+    ops_ms = occurring * flop / PEAK_FP32_FLOP_PER_S * 1e3
     return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations",
             n_bytes, occurring)
 
@@ -1495,6 +1582,28 @@ def print_profile(phase: str, card_line: str, prof: dict) -> None:
         line(phase, kernel=repr(name), count=count, device_ms=f"{ms:.3f}")
 
 
+def tables_equal_cpu(card_line: str, head_dim: int) -> None:
+    """The models' constant tables on the card against their CPU values,
+    bit for bit: RoPE's inverse frequencies at zamba2-7b's head_dim and
+    whisper-medium's 1500 x 1024 sinusoids (ROADMAP.md Queue 3, item 17)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec, layers
+
+    theta = get_config(LM_ARCH).rope_theta
+    whisper = get_config("whisper-medium")
+    length = whisper.encdec.enc_len
+    for name, fn, args in (
+            ("rope_frequencies", layers.rope_frequencies, (head_dim, theta)),
+            ("_sinusoids", encdec._sinusoids, (length, whisper.d_model))):
+        got, want = fn(*args, device=torch.device("cuda")), fn(*args)
+        differ = int((got.cpu().view(torch.int32) != want.view(torch.int32)).sum())
+        line("card-vs-cpu", table=name, args=args, entries=want.numel(),
+             differing=differ, card=repr(card_line))
+        if got.device.type != "cuda" or differ:
+            raise Failed(f"{name}{args} on the card differs from the CPU at "
+                         f"{differ} entries")
+
+
 def lm_path(card_line: str, fa, ssd) -> list:
     """Phases 6-10: the Zamba2-7B serving path.  Returns the kernel
     records of flash_attention and ssd_scan."""
@@ -1514,6 +1623,7 @@ def lm_path(card_line: str, fa, ssd) -> list:
     worst = {"flash_attention": 0.0, "ssd_scan": 0.0}
 
     print_occupancy(fa, ssd, hd, s_cfg.head_dim, s_cfg.state_dim, s_cfg.chunk_size)
+    tables_equal_cpu(card_line, hd)
 
     # --- phase 6: kernels against their plain versions on the card ---------
     # (label, batch, heads, kv heads, Sq, head dim, dtype, window, Sk)
@@ -3379,6 +3489,10 @@ def main() -> int:
              cached=info["cached"], fmad=("-fmad=false" not in flags))
         for fn in ptxas_functions(info["ptxas"]):
             line("build", kernel=name, **fn)
+            # every survivor's carry in registers: no renewal kernel spills
+            if name == rs.LIBRARY[0] and (fn["stack_frame"] or fn["spill_stores"]):
+                raise Failed(f"{fn['function']}: {fn['stack_frame']} bytes of "
+                             f"stack frame, {fn['spill_stores']} of spill stores")
 
     scen = list(paper_scenarios().values())
     grid_cfg = sparse_rendezvous_scenario()
@@ -3397,7 +3511,8 @@ def main() -> int:
         "main-path": (len(scen), FULL_RUNS, n_surv, n_lev),
         "policy-grid": (len(table), FULL_RUNS, n_surv, n_lev),
         "weibull": (len(scen), WEIBULL_RUNS, n_surv, n_lev),
-        "fleet-preset": (len(scen), FULL_RUNS, *FLEET_SHAPE)})
+        **{"fleet-preset" if shape == FLEET_SHAPE else f"{shape[0]}x{shape[1]}":
+           (len(scen), FULL_RUNS, *shape) for shape in WIDE_TIMED_SHAPES}})
 
     # --- phase 2: kernel against its plain version, R not a multiple of 128
     r2, k2, n_nodes = 1000, FULL_EPOCHS, len(scen[0].survivors) + 1
@@ -3422,50 +3537,29 @@ def main() -> int:
                  compensated=comp, ints="exact",
                  max_abs_err=f"{max_abs:.6g}", max_rel_err=f"{max_rel:.3e}")
 
-    # --- phase 2b: every survivor count and ladder depth the kernel takes,
-    # warps and blocks part-filled (R = 1, 31) and whole, both mappings of
-    # runs to lanes; (felled, compensated) alternate over the shapes so each
-    # shape sees two of the four and each (N, F) all four
-    variants = ((False, True), (True, False), (True, True), (False, False))
-    for n in range(1, rs.FAST_MAX_N + 1):
+    # --- phase 2b: 1-4 survivors (whose mapping follows the launch size) at
+    # every ladder depth of the shallow kernels, warps and blocks
+    # part-filled (R = 1, 31) and whole, both mappings of runs to lanes;
+    # (felled, compensated) alternate over the shapes so each shape sees two
+    # of the four and each (N, F) all four
+    for n in range(1, SHAPES_MAX_N + 1):
         for nf in range(1, rs.FAST_MAX_F + 1):
             ops = with_shape(scen_ops, n, nf)
-            seen, n_cases, shape_abs = set(), 0, 0.0
-            for j, (k, r) in enumerate(SHAPE_KR):
-                g32, _ = failures.sample_renewal_gaps(
-                    failures.Exponential(MTBF_S), prng.PRNGKey(100 + j), r, k,
-                    n + 1, dev)
-                gaps_t = g32.T.contiguous()
-                gen = torch.Generator(device="cpu").manual_seed(17 + j)
-                felled = (torch.rand((k, n, r), generator=gen) < 0.15
-                          ).float().to(dev)
-                for use_fel, comp in (variants[(j + n + nf) % 4],
-                                      variants[(j + n + nf + 2) % 4]):
-                    fel = felled if use_fel else None
-                    want = rs.renewal_scan_reference(*ops, gaps_t, fel,
-                                                     compensated=comp)
-                    # the kernel's own pick of lanes per run, then each
-                    # mapping forced
-                    for lanes in (None,) + tuple(sorted({1, n})):
-                        got = rs._launch_cuda(*ops, gaps_t, fel, comp,
-                                              lanes=lanes)
-                        torch.cuda.synchronize()
-                        max_abs, max_rel = compare_outputs(got, want)
-                        shape_abs = max(shape_abs, max_abs)
-                        worst_abs = max(worst_abs, max_abs)
-                        worst_rel = max(worst_rel, max_rel)
-                    seen.add((use_fel, comp))
-                    n_cases += 1
+            shape_abs, shape_rel, seen, n_cases = shape_sweep(
+                rs, failures, prng, ops, n, dev, key=100, seed=17,
+                first=n + nf, forced=True)
+            worst_abs = max(worst_abs, shape_abs)
+            worst_rel = max(worst_rel, shape_rel)
             if len(seen) != 4:
                 raise Failed(f"kernel-shapes n={n} nf={nf}: only {sorted(seen)}")
             line("kernel-shapes", survivors=n, levels=nf, lanes=ops[0].shape[0],
                  shapes="K,R=" + "/".join(f"{k}x{r}" for k, r in SHAPE_KR),
                  cases=n_cases, felled_compensated="all four",
-                 lanes_per_run="auto/" + "/".join(map(str, sorted({1, n}))),
+                 lanes_per_run="auto/" + "/".join(map(str, rs.lane_choices(n))),
                  ints="exact",
                  max_abs_err=f"{shape_abs:.6g}")
 
-    # --- phase 2c: past the fast kernel's shapes (the wide kernel) ---------
+    # --- phase 2c: more survivors and deeper ladders, the caps -------------
     b_abs, b_rel = kernel_bounds_phase(
         card_line, rs, failures, prng, scen_ops, dev, len(scen))
     worst_abs, worst_rel = max(worst_abs, b_abs), max(worst_rel, b_rel)

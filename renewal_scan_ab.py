@@ -8,16 +8,21 @@ the same file of another checkout ``DIR`` (a commit unpacked with
 one nvcc each, started together.  It captures the operands of the renewal
 path's three launches as ``chip_smoke.py`` makes them (the main path: six
 Table-4 scenarios x 4096 runs x 64 epochs; the 42-policy grid; Weibull
-failures, 1024 runs), holds both builds bit-equal to each other and to the
+failures, 1024 runs) and makes those of the wider clusters at the main
+path's size as ``chip_smoke.py``'s phase 2c does (``WIDE_TIMED_SHAPES``:
+the fleet preset's 7 survivors x 4 levels, 9 x 4, 16 x 8, 17 x 5, 32 x 8,
+33 x 4, 64 x 16).  It holds both builds bit-equal to each other and to the
 plain version on each, and times each launch with ``chip_smoke.py``'s
-``kernel_only_ms`` in the order baseline, this, this, baseline, per round.
-Then it times this build's two mappings of runs to lanes (one lane per run,
-one lane per survivor) on those operands and on the grid's cut to 2..42
-lanes, beside the mapping the kernel picks.  Prints one ``[ab]`` line per
-launch and one ``[mapping]`` line per launch size with every time, the
-card's SM clock under the grid's load, and the card as ``nvidia-smi``
-names it.  Exits non-zero
-without a result when no CUDA device is present.
+``kernel_only_ms`` in the order baseline, this, this, baseline, per round,
+then this build's mappings of runs to lanes in the order one, other,
+other, one.  Then it sweeps launch sizes: the grid's cut to 2..42 lanes,
+and each of ``MAPPING_SHAPES``' six lanes repeated to 12, 24 and 42, each
+timed in both builds and in each mapping, beside the mapping the kernel
+picks.
+Prints one ``[ab]`` line per launch and one ``[mapping]`` line per launch
+size with every time, the card's SM clock under the grid's load, and the
+card as ``nvidia-smi`` names it.  Exits non-zero without a result when no
+CUDA device is present.
 """
 from __future__ import annotations
 
@@ -86,11 +91,23 @@ def main() -> int:
     captured = {}
     for label, path in paths.items():
         _, _, ((k_args, k_kw, _),) = cs.drive(rs, path)
-        n_surv = k_args[1].shape[2]
         comp = k_kw.get("compensated", True)
         felled = k_args[4] if len(k_args) > 4 else k_kw.get("felled")
-        ops = k_args[:4]
-        captured[label] = (ops, felled, comp)
+        captured[label] = (k_args[:4], felled, comp)
+    dev = torch.device("cuda")
+    _, scen_stack = sweep._renewal_device_inputs(scen, torch.float32, dev)
+    scen_ops = sweep._pack_kernel_inputs(scen_stack, cs.MAKESPAN_S)
+    for n, nf in cs.WIDE_TIMED_SHAPES:
+        g32, _ = failures.sample_renewal_gaps(
+            failures.Exponential(cs.MTBF_S), key, cs.FULL_RUNS, cs.FULL_EPOCHS,
+            n + 1, dev)
+        label = "fleet-preset" if (n, nf) == cs.FLEET_SHAPE else f"{n}x{nf}"
+        captured[label] = (cs.with_shape(scen_ops, n, nf) + (
+            g32.T.contiguous(),), None, True)
+    pick = _build.load_library(*rs.LIBRARY).renewal_scan_lanes_per_run
+    pick.argtypes = [ctypes.c_int] * 4
+    for label, (ops, felled, comp) in captured.items():
+        n_surv, n_lev = ops[1].shape[2], ops[2].shape[2]
         this = lambda: rs.renewal_scan(*ops, felled, compensated=comp)
         base = lambda: rs._launch_cuda(*ops, felled, comp, lib=base_lib)
         want = rs.renewal_scan_reference(*ops, felled, compensated=comp)
@@ -109,9 +126,11 @@ def main() -> int:
                 ms, _ = cs.kernel_only_ms(base if who == "baseline" else this,
                                           n=cs.KERNEL_REPS)
                 times[who].append(ms)
+        mapped = mapping_ms(cs, rs, ops, felled, comp)
         bound_ms, bound_by, _, occurring = cs.renewal_bound(ops, want, n_surv)
         med = {who: statistics.median(t) for who, t in times.items()}
         cs.line("ab", launch=label, card=repr(card_line),
+                survivors=n_surv, levels=n_lev,
                 lanes=ops[0].shape[0], runs=ops[3].shape[1],
                 epochs=ops[3].shape[0], occurring_decisions=occurring,
                 baseline_ms=[f"{t:.5f}" for t in times["baseline"]],
@@ -119,6 +138,10 @@ def main() -> int:
                 baseline_median_ms=f"{med['baseline']:.5f}",
                 this_median_ms=f"{med['this']:.5f}",
                 speedup=f"{med['baseline'] / med['this']:.3f}",
+                kernel_picks=rs.kernel_name(n_surv, n_lev, pick(
+                    n_surv, n_lev, ops[0].shape[0], ops[3].shape[1])),
+                **{f"lanes_{g}_ms": [f"{t:.5f}" for t in ts]
+                   for g, ts in mapped.items()},
                 bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
                 bit_equal="both")
         if label == "policy-grid":
@@ -128,36 +151,67 @@ def main() -> int:
                         cs.loaded_clocks(this, 2000)))
 
     # this build's two mappings of runs to lanes against the launch size:
-    # the main path's and Weibull's operands, and the grid's cut to its
-    # first P lanes; each timed in turns (one lane, per survivor, per
-    # survivor, one lane) beside the mapping the kernel picks
-    lib = _build.load_library(*rs.LIBRARY)
-    pick = lib.renewal_scan_lanes_per_run
-    pick.argtypes = [ctypes.c_int] * 3
+    # the grid's cut to its first P lanes, and each wider shape's six lanes
+    # repeated to 12, 24 and 42; each timed in turns beside the mapping the
+    # kernel picks
     grid_ops, grid_fel, grid_comp = captured["policy-grid"]
-    cases = [(label, *captured[label]) for label in ("weibull", "main-path")]
+    cases = []
     for n_pol in (2, 4, 8, 12, 16, 24, 32, 42):
         cut = tuple(t[:n_pol].contiguous() for t in grid_ops[:3])
         cases.append((f"policy-grid[:{n_pol}]", cut + (grid_ops[3],),
                       grid_fel, grid_comp))
+    for n, nf in MAPPING_SHAPES:
+        base_ops = cs.with_shape(scen_ops, n, nf)
+        g32, _ = failures.sample_renewal_gaps(
+            failures.Exponential(cs.MTBF_S), key, cs.FULL_RUNS,
+            cs.FULL_EPOCHS, n + 1, dev)
+        for reps in (1, 2, 4, 7):
+            tiled = tuple(t.repeat(reps, 1, 1).contiguous() for t in base_ops[1:])
+            ops = (base_ops[0].repeat(reps, 1).contiguous(),) + tiled \
+                + (g32.T.contiguous(),)
+            cases.append((f"{n}x{nf}[{6 * reps}]", ops, None, True))
     for label, ops, felled, comp in cases:
-        n, lanes_total, n_runs = ops[1].shape[2], ops[0].shape[0], ops[3].shape[1]
-        times = {1: [], n: []}
-        for lanes in (1, n, n, 1):
-            ms, _ = cs.kernel_only_ms(
-                lambda lanes=lanes: rs._launch_cuda(*ops, felled, comp,
-                                                    lanes=lanes),
-                n=cs.KERNEL_REPS)
-            times[lanes].append(ms)
-        med = {k: statistics.median(v) for k, v in times.items()}
+        n, nf = ops[1].shape[2], ops[2].shape[2]
+        lanes_total, n_runs = ops[0].shape[0], ops[3].shape[1]
+        mapped = mapping_ms(cs, rs, ops, felled, comp, base_lib)
+        med = {g: statistics.median(v) for g, v in mapped.items()
+               if g != "baseline"}
         cs.line("mapping", operands=label, card=repr(card_line),
-                runs_total=lanes_total * n_runs, survivors=n,
-                one_lane_ms=[f"{t:.5f}" for t in times[1]],
-                per_survivor_ms=[f"{t:.5f}" for t in times[n]],
-                faster=1 if med[1] <= med[n] else n,
-                kernel_picks=pick(n, lanes_total, n_runs))
+                runs_total=lanes_total * n_runs, survivors=n, levels=nf,
+                **{f"lanes_{g}_ms" if g != "baseline" else "baseline_ms":
+                   [f"{t:.5f}" for t in ts] for g, ts in mapped.items()},
+                faster=min(med, key=med.get),
+                kernel_picks=pick(n, nf, lanes_total, n_runs))
     print(card_line)
     return 0
+
+
+# the wider shapes swept over launch sizes: 5-8 survivors (one lane per
+# survivor), each side of the group's counts (9, 12, 16) and run kernel
+# shapes from 17 to 64 survivors
+MAPPING_SHAPES = ((5, 4), (7, 4), (8, 4), (9, 4), (12, 4), (16, 8), (17, 5),
+                  (24, 5), (32, 8), (33, 4), (48, 8), (64, 16))
+
+
+def mapping_ms(cs, rs, ops, felled, comp, base_lib=None) -> dict:
+    """Device ms of each of the shape's mappings of runs to lanes (lanes per
+    run -> times), timed in turns: one, other, other, one; with
+    ``base_lib``, the other build's pick first and last too (key
+    ``"baseline"``)."""
+    choices = rs.lane_choices(ops[1].shape[2])
+    order = choices + choices[::-1]
+    if base_lib is not None:
+        order = ("baseline",) + order + ("baseline",)
+    times = {g: [] for g in order}
+    for lanes in order:
+        if lanes == "baseline":
+            fn = lambda: rs._launch_cuda(*ops, felled, comp, lib=base_lib)
+        else:
+            fn = lambda lanes=lanes: rs._launch_cuda(*ops, felled, comp,
+                                                     lanes=lanes)
+        ms, _ = cs.kernel_only_ms(fn, n=cs.KERNEL_REPS)
+        times[lanes].append(ms)
+    return times
 
 
 if __name__ == "__main__":

@@ -29,10 +29,13 @@ REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
 #
 # EXACT_FLAGS (renewal_scan): -fmad=false, no multiply-add contraction, so
 # every product and sum rounds as its own float32 operation — as in the
-# plain PyTorch version, and as the Kahan ledger needs.
+# plain PyTorch version, and as the Kahan ledger needs.  Its 25 kernels are
+# assembled on every core (ptxas -split-compile=0: the same registers and
+# code per kernel, a shorter build).
 EXACT_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
+    "-Xptxas", "-split-compile=0",
     "-shared", "-Xcompiler", "-fPIC",
 )
 # FMA_FLAGS (flash_attention, ssd_scan): nvcc's default contraction into

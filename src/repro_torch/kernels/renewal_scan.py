@@ -22,21 +22,24 @@ Two implementations of one function live here:
     ``strategies.evaluate_strategies_fold`` and
     ``scenarios.post_recovery_anchor``.  Sums over survivors are written
     out in node order so every float32 operation matches the kernel.
-  * the CUDA kernel in ``csrc/renewal_scan.cu``.  While a launch's runs
-    are few (latency-bound, as the main path) a group of N lanes of one
-    warp takes each (lane, run), one survivor per lane with its carry in
-    registers, the cross-node sums and maxima gathered by warp shuffles in
-    node order; once the runs fill the card (throughput-bound, as the
-    policy grid) one lane takes each run.  The float64 wraps take an exact
-    fast floor-mod; gaps are loaded one epoch ahead; a warp leaves the
+  * the CUDA kernels in ``csrc/renewal_scan.cu``.  A group of G lanes of
+    one warp takes each (lane, run), its survivors strided over the group
+    (survivor i in lane i % G) with every survivor's carry in registers,
+    the cross-node sums and maxima gathered by warp shuffles in node order:
+    one lane per survivor up to ``FAST_MAX_N`` survivors, ``GROUP_LANES``
+    lanes up to ``GROUP_N``.  One lane per run is the other mapping: with
+    the survivors in registers up to ``THROUGHPUT_MAX_N``, and past it
+    ``RUN_KERNEL``, which loops over the survivors with their anchors in
+    shared memory (the only mapping past ``GROUP_N``).  While a launch's
+    runs are few (latency-bound, as the main path) the group is taken; once
+    the runs fill the card (throughput-bound, as the policy grid) one lane
+    per run (``lane_choices``).  The ladder unrolls to ``FAST_MAX_F``
+    levels, or to ``MAX_F`` for deeper ladders.  The float64 wraps take an
+    exact fast floor-mod; gaps are loaded one epoch ahead; a warp leaves the
     epoch loop once all its runs are dead, and ``valid`` is written once
     per block after the scan (design notes and the arguments for
-    bit-equality in the source).  That kernel holds a lane's survivors in
-    registers, so it is compiled for up to ``FAST_MAX_N`` survivors and
-    ``FAST_MAX_F`` ladder levels; wider shapes (up to ``MAX_N`` and
-    ``MAX_F``) take a second kernel with one lane per run and runtime
-    loops over survivors and levels.  The shape alone picks the kernel, and
-    both give the plain version's bits.
+    bit-equality in the source).  Every mapping gives the plain version's
+    bits.
 
 One deliberate difference from the TPU kernel: the rendezvous anchors and
 their wrap are float64 (the rest is float32).  In float32 the rounding of
@@ -66,7 +69,8 @@ from repro_torch.kernels import _build
 __all__ = ["renewal_scan", "renewal_scan_reference", "pack_lane_params",
            "N_PARAMS", "PARAM_COLS", "STAT_FIELDS", "LAUNCHES",
            "reset_launch_counts", "MAX_N", "MAX_F", "FAST_MAX_N",
-           "FAST_MAX_F", "kernel_name"]
+           "FAST_MAX_F", "GROUP_N", "GROUP_LANES", "THROUGHPUT_MAX_N",
+           "RUN_KERNEL", "lane_choices", "kernel_name"]
 
 # column map of the packed per-lane scalar row
 PARAM_COLS = (
@@ -88,16 +92,25 @@ STAT_FIELDS = (
 )
 _N_FSTATS = sum(dt == torch.float32 for _, dt in STAT_FIELDS)
 
-# bounds of the CUDA kernels (csrc/renewal_scan.cu): renewal_scan_kernel
-# <N, G> is instantiated for 1..kMaxN survivors and unrolls its ladder loop
-# to kMaxF levels (the Table-4 path has 3 survivors and 4 levels);
-# renewal_scan_wide_kernel takes the shapes beyond, up to kWideMaxN
-# survivors and kWideMaxF levels (its per-thread arrays and its 64-bit
-# felled mask).  Past MAX_N or MAX_F the wrapper raises.
-FAST_MAX_N = 4
+# bounds of the CUDA kernels (csrc/renewal_scan.cu).  renewal_scan_kernel
+# <N, G, F> keeps every survivor's carry in registers: it is instantiated
+# per survivor count up to kMaxN (FAST_MAX_N), and for the counts past it up
+# to kGroupN (GROUP_N) with the count at run time and GROUP_LANES lanes per
+# run; its ladder unrolls to kMaxF (FAST_MAX_F) levels, or to kCapF (MAX_F)
+# for deeper ladders (the Table-4 path has 3 survivors and 4 levels).
+# RUN_KERNEL takes one lane per run past THROUGHPUT_MAX_N survivors (its
+# survivors' anchors in shared memory), up to kCapN (MAX_N) survivors and
+# kCapF levels.  Past MAX_N or MAX_F the wrapper raises.
+FAST_MAX_N = 8
 FAST_MAX_F = 4
 MAX_N = 64
 MAX_F = 16
+GROUP_N = 16
+GROUP_LANES = 8
+# survivor counts whose one-lane-per-run mapping holds its survivors in
+# registers (kThroughputMaxN)
+THROUGHPUT_MAX_N = 4
+RUN_KERNEL = "renewal_scan_run_kernel"
 
 # launches of the CUDA kernel (not of the plain version), per kernel name
 LAUNCHES = {"renewal_scan": 0}
@@ -111,13 +124,28 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-def kernel_name(n: int, n_levels: int, lanes: int = 1) -> str:
-    """The CUDA kernel a shape launches: ``renewal_scan_kernel<N,G>``
-    (``lanes`` = G lanes per run) within ``FAST_MAX_N``/``FAST_MAX_F``,
-    ``renewal_scan_wide_kernel`` beyond."""
-    if n <= FAST_MAX_N and n_levels <= FAST_MAX_F:
-        return f"renewal_scan_kernel<{n},{lanes}>"
-    return "renewal_scan_wide_kernel"
+def lane_choices(n: int) -> tuple:
+    """Lanes per run of the mappings ``n`` survivors have, in increasing
+    order: one lane per run (up to ``THROUGHPUT_MAX_N`` and past
+    ``FAST_MAX_N``), and a group of lanes (one per survivor up to
+    ``FAST_MAX_N``, ``GROUP_LANES`` up to ``GROUP_N``)."""
+    group = n if n <= FAST_MAX_N else GROUP_LANES if n <= GROUP_N else 1
+    one = n <= THROUGHPUT_MAX_N or n > FAST_MAX_N
+    return tuple(sorted({group} | ({1} if one else set())))
+
+
+def kernel_name(n: int, n_levels: int, lanes: int | None = None) -> str:
+    """The CUDA kernel a shape launches with ``lanes`` lanes per run (the
+    fewest of ``lane_choices`` by default): ``RUN_KERNEL`` for one lane
+    past ``THROUGHPUT_MAX_N`` survivors, else ``renewal_scan_kernel<N,G,F>``
+    with N the survivor count (past ``FAST_MAX_N``, ``GROUP_N``) and F the
+    ladder's unrolled depth."""
+    lanes = min(lane_choices(n)) if lanes is None else lanes
+    if lanes == 1 and n > THROUGHPUT_MAX_N:
+        return RUN_KERNEL
+    depth = FAST_MAX_F if n_levels <= FAST_MAX_F else MAX_F
+    cap = GROUP_N if n > FAST_MAX_N else n
+    return f"renewal_scan_kernel<{cap},{lanes},{depth}>"
 
 
 def pack_lane_params(*, interval, dur, reexec0, t_down, t_restart, mu1, mu2,
@@ -368,10 +396,9 @@ def _launch_cuda(params, nodes, ladder, gaps, felled, compensated: bool,
     """Launch the CUDA kernel on the operands' card (no synchronisation).
     ``lib`` is this package's build of ``csrc/renewal_scan.cu`` unless a
     caller passes another build of the same C interface to compare.  The
-    shape picks the kernel; within ``FAST_MAX_N``/``FAST_MAX_F`` the kernel
-    picks its lanes per run (1, or one per survivor) from the launch size,
-    and ``lanes`` forces one of the two, to compare them (the wide kernel
-    takes only 1)."""
+    shape picks the kernels; where it has two mappings (``lane_choices``:
+    one lane per run, or a group) the kernel picks its lanes per run from
+    the launch size, and ``lanes`` forces one, to compare them."""
     tensors = [params, nodes, ladder, gaps] + ([] if felled is None else [felled])
     dev = params.device
     for t in tensors:
@@ -395,11 +422,9 @@ def _launch_cuda(params, nodes, ladder, gaps, felled, compensated: bool,
     if n_lanes > 65535:
         raise ValueError("renewal_scan supports at most 65535 lanes per launch")
 
-    wide = n > FAST_MAX_N or n_levels > FAST_MAX_F
-    if lanes is not None and lanes not in ((1,) if wide else (1, n)):
-        raise ValueError(f"lanes per run must be 1 or N={n} (1 past "
-                         f"{FAST_MAX_N} survivors or {FAST_MAX_F} levels); "
-                         f"got {lanes}")
+    if lanes is not None and lanes not in lane_choices(n):
+        raise ValueError(f"lanes per run at N={n} must be one of "
+                         f"{lane_choices(n)}; got {lanes}")
     if lib is None:
         lib = _build.load_library(*LIBRARY)
     fn = lib.renewal_scan_launch if lanes is None else lib.renewal_scan_launch_lanes

@@ -67,7 +67,11 @@ def encdec_spec(cfg: ModelConfig) -> dict:
 
 def _sinusoids(length: int, channels: int, device=None) -> torch.Tensor:
     """(length, channels) float32 sin | cos table; the timescale step is a
-    float32 value, as the reference computes it."""
+    float32 value, as the reference computes it.  On a card the table is
+    the CPU's bits (``layers.host_table``)."""
+    if device is not None and torch.device(device).type == "cuda":
+        return layers.host_table(_sinusoids, torch.device(device), length,
+                                 channels)
     log_timescale = torch.log(torch.tensor(10_000.0, dtype=torch.float32,
                                            device=device)) / (channels // 2 - 1)
     inv = torch.exp(-log_timescale * torch.arange(

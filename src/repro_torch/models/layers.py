@@ -9,6 +9,7 @@ atomics land, and the FT runtime's re-executed steps must be bit-identical.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -53,8 +54,22 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return (x * weight.float() + bias.float()).to(dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def host_table(fn, device: torch.device, *args) -> torch.Tensor:
+    """``fn(*args, device="cpu")`` copied to ``device``, once per arguments
+    and device.  A constant table built on a card is not the CPU's bits:
+    CUDA divides by a Python number through its reciprocal, and its pow,
+    exp, sin and cos differ from the CPU's by an ulp on some arguments
+    (ROADMAP.md Queue 3, item 17).  Callers must not write into it."""
+    return fn(*args, device="cpu").to(device)
+
+
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    """(head_dim/2,) float32 inverse frequencies."""
+    """(head_dim/2,) float32 inverse frequencies, on a card the CPU's bits
+    (``host_table``)."""
+    if device is not None and torch.device(device).type == "cuda":
+        return host_table(rope_frequencies, torch.device(device), head_dim,
+                          theta)
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
     return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,

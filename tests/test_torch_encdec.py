@@ -356,6 +356,19 @@ def test_serve_cli_serves_encdec_and_moe(capsys):
 # ---------------------------------------------------------------------------
 
 @requires_cuda
+def test_sinusoids_on_card_equal_cpu():
+    """whisper-medium's 1500 x 1024 table on the card is the CPU's bit for
+    bit: built there, CUDA's exp, sin and cos differ from the CPU's by an
+    ulp on some arguments, a third of the table's entries in all (ROADMAP.md
+    Queue 3, item 17)."""
+    skip_without_cuda()
+    got = encdec._sinusoids(1500, 1024, torch.device("cuda"))
+    want = encdec._sinusoids(1500, 1024)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@requires_cuda
 def test_kernel_path_matches_plain_path_on_card():
     """Decoder self-attention through the flash kernel (one launch per
     decoder layer, none for the encoder or cross-attention) against the

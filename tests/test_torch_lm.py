@@ -123,6 +123,28 @@ def test_rope_matches_reference(R, theta):
         np.asarray(jl.apply_rope(x, pos, theta)), atol=1e-5, rtol=1e-5)
 
 
+def test_host_table_is_built_once_per_device():
+    """``host_table`` returns the CPU function's table, the same tensor on
+    every later call with the same arguments and device."""
+    dev = torch.device("cpu")
+    first = layers.host_table(layers.rope_frequencies, dev, 112, 10_000.0)
+    assert torch.equal(first, layers.rope_frequencies(112, 10_000.0))
+    assert layers.host_table(layers.rope_frequencies, dev, 112, 10_000.0) is first
+
+
+@requires_cuda
+@pytest.mark.parametrize("head_dim,theta", [(112, 10_000.0), (128, 1_000_000.0)])
+def test_rope_frequencies_on_card_equal_cpu(head_dim, theta):
+    """On the card the inverse frequencies are the CPU's bit for bit: at
+    head_dim 112 (zamba2-7b) CUDA's division by the Python number, and at
+    both widths its pow, round otherwise (ROADMAP.md Queue 3, item 17)."""
+    skip_without_cuda()
+    got = layers.rope_frequencies(head_dim, theta, torch.device("cuda"))
+    want = layers.rope_frequencies(head_dim, theta)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
 def test_mrope_matches_reference(R):
     from repro.models import layers as jl
     x = _rand(2, 8, 4, 16)

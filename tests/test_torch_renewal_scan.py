@@ -7,17 +7,18 @@ integer stats exact; the float32 energies and times within 1e-5 relative;
 the saving (a difference of two whole-run energies) within 1e-5 of the
 reference energy.  The port keeps the rendezvous anchors in float64 where
 the reference rounds them to float32 (see kernels/renewal_scan.py), so the
-two need not be bit-equal.  Past the fast kernel's 4 survivors and 4
-ladder levels (the fleet preset's 7 survivors, 16 survivors with 8 levels)
-the same bars hold on every scenario but the first, whose 1800 s
-checkpoint interval puts runs on exact rendezvous wraps: there the
-reference's float32 anchors land a period away (ROADMAP.md, Queue 3,
-item 3), which at 8 levels moves some level choices, so that scenario is
-held to the failure and point counts exactly and to 1e-4 on its floats.
-The CUDA kernels themselves are held against this plain version on the
-card (``requires_cuda``: every survivor count and ladder depth of the fast
-kernel, and wide shapes up to the caps; ``chip_smoke.py`` also does it at
-the paths' shapes).  The kernel's two numerical shortcuts, its fast floor-mod
+two need not be bit-equal.  Past 4 survivors and 4 ladder levels (the
+fleet preset's 7 survivors, 8, 16 with 8 levels, 33 with 5) the same bars
+hold on every scenario but the first, whose 1800 s checkpoint interval
+puts runs on exact rendezvous wraps: there the reference's float32 anchors
+land a period away (ROADMAP.md, Queue 3, item 3), which at 8 levels moves
+some level choices, so that scenario is held to the failure and point
+counts exactly and to 1e-4 on its floats.  The CUDA kernel itself is held
+against this plain version on the card (``requires_cuda``: every survivor
+count up to 8 at every ladder depth up to 4, and the shapes beyond up to
+the caps, each in every mapping it has; ``chip_smoke.py`` also does it at the
+paths' shapes).  On the CPU the dispatch is held here: which kernel and
+mappings a shape takes, and that a CPU call runs the plain version.  The kernel's two numerical shortcuts, its fast floor-mod
 and its early stop of the zero Kahan steps, are held here against what they
 replace through Python twins of the device code.
 """
@@ -146,22 +147,32 @@ def test_dispatch_rejects_bad_operands(packed):
 
 
 def test_kernel_bounds_match_source():
-    """The wrapper's bounds are the kernels' compile-time bounds: the fast
-    kernel's FAST_MAX_N/FAST_MAX_F, the wide kernel's MAX_N/MAX_F."""
+    """The wrapper's bounds are the kernels' compile-time bounds: the exact
+    survivor counts and the shallow ladder (FAST_MAX_N/FAST_MAX_F), the
+    caps (MAX_N/MAX_F), the group past FAST_MAX_N (GROUP_N, GROUP_LANES) and
+    the counts with a register-resident one-lane mapping (THROUGHPUT_MAX_N);
+    the caps are unchanged, the old wide kernel is gone, and no kernel
+    keeps its survivors in per-thread arrays (local memory)."""
     import pathlib
     import re
 
     src = (pathlib.Path(rs.__file__).parent / "csrc" / "renewal_scan.cu").read_text()
     bound = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
     assert (bound("kMaxN"), bound("kMaxF")) == (rs.FAST_MAX_N, rs.FAST_MAX_F)
-    assert (bound("kWideMaxN"), bound("kWideMaxF")) == (rs.MAX_N, rs.MAX_F)
-    assert rs.MAX_N >= 32 and rs.MAX_F >= 8
+    assert (bound("kCapN"), bound("kCapF")) == (rs.MAX_N, rs.MAX_F) == (64, 16)
+    assert (bound("kGroupN"), bound("kGroupG")) == (rs.GROUP_N, rs.GROUP_LANES)
+    assert bound("kThroughputMaxN") == rs.THROUGHPUT_MAX_N
+    assert rs.FAST_MAX_N < rs.GROUP_N < rs.MAX_N
+    assert rs.GROUP_N % rs.GROUP_LANES == 0 and 32 % rs.GROUP_LANES == 0
+    assert "wide_kernel" not in src and f"{rs.RUN_KERNEL}(" in src
+    assert not re.search(r"^\s*(?:float|double|int|bool)\s+\w+\[(?:kCapN|kCapF|\d+)\]",
+                         src, re.M)
 
 
 @pytest.mark.parametrize("n,nf", [(rs.MAX_N + 1, rs.MAX_F),
                                   (rs.MAX_N, rs.MAX_F + 1)])
 def test_launch_rejects_shapes_beyond_kernel_bounds(n, nf):
-    """Survivors or ladder levels past the wide kernel's caps raise, naming
+    """Survivors or ladder levels past the kernels' caps raise, naming
     the caps, before anything is built or launched."""
     ops = (torch.zeros(1, rs.N_PARAMS), torch.zeros(1, 3, n),
            torch.zeros(1, 5, nf), torch.ones(K, 8))
@@ -170,30 +181,105 @@ def test_launch_rejects_shapes_beyond_kernel_bounds(n, nf):
         rs._launch_cuda(*ops, None, True)
 
 
-def test_launch_rejects_a_mapping_the_kernel_lacks():
-    """A run takes one lane or one per survivor; any other count raises
-    before anything is built or launched."""
-    ops = (torch.zeros(1, rs.N_PARAMS), torch.zeros(1, 3, 3),
+@pytest.mark.parametrize("n,lanes", [(3, 2), (5, 1), (8, 1), (8, 4), (9, 9),
+                                     (9, 16), (17, 8), (33, 33), (64, 16)])
+def test_launch_rejects_a_mapping_the_kernel_lacks(n, lanes):
+    """A run takes the lanes of one of its shape's mappings (one lane per
+    run up to 4 survivors and past 8; one lane per survivor up to 8; a
+    group of 8 lanes from 9 to 16); any other count raises before anything
+    is built or launched."""
+    ops = (torch.zeros(1, rs.N_PARAMS), torch.zeros(1, 3, n),
            torch.zeros(1, 5, 4), torch.ones(K, 8))
+    assert lanes not in rs.lane_choices(n)
     with pytest.raises(ValueError, match="lanes per run"):
-        rs._launch_cuda(*ops, None, True, lanes=2)
+        rs._launch_cuda(*ops, None, True, lanes=lanes)
 
 
-@pytest.mark.parametrize("n,nf", [(5, 4), (3, 8)])
+# shapes the old wide kernel took: (survivors, levels) -> the mappings'
+# lanes per run and kernels
+WIDE_DISPATCH = {
+    (5, 4): ((5,), ("renewal_scan_kernel<5,5,4>",)),
+    (3, 8): ((1, 3), ("renewal_scan_kernel<3,1,16>", "renewal_scan_kernel<3,3,16>")),
+    (9, 4): ((1, 8), (rs.RUN_KERNEL, "renewal_scan_kernel<16,8,4>")),
+    (17, 5): ((1,), (rs.RUN_KERNEL,)),
+    (64, 16): ((1,), (rs.RUN_KERNEL,)),
+}
+
+
+@pytest.mark.parametrize("n,nf", sorted(WIDE_DISPATCH))
 def test_wide_kernel_takes_one_lane_per_run(n, nf):
-    """Past the fast kernel's bounds the wide kernel runs, one lane per
-    run: a group of N lanes raises before anything is built or launched."""
+    """The shapes the old wide kernel took (past 4 survivors or 4 levels)
+    now take a register kernel, one lane per survivor up to 8 survivors or
+    a group of 8 lanes up to 16, or one lane per run (in registers up to 4
+    survivors, renewal_scan_run_kernel past 4: the only mapping past 16 and
+    the throughput one from 9 to 16); a lane count between raises before
+    anything is built or launched."""
+    choices, names = WIDE_DISPATCH[n, nf]
+    assert rs.lane_choices(n) == choices
+    assert tuple(rs.kernel_name(n, nf, g) for g in choices) == names
+    assert rs.kernel_name(n, nf) == names[0]
     ops = (torch.zeros(1, rs.N_PARAMS), torch.zeros(1, 3, n),
            torch.zeros(1, 5, nf), torch.ones(K, 8))
     with pytest.raises(ValueError, match="lanes per run"):
-        rs._launch_cuda(*ops, None, True, lanes=n)
+        rs._launch_cuda(*ops, None, True, lanes=max(choices) + 1)
 
 
 def test_kernel_name_follows_the_shape():
-    assert rs.kernel_name(3, 4, 3) == "renewal_scan_kernel<3,3>"
-    assert rs.kernel_name(4, 4) == "renewal_scan_kernel<4,1>"
-    for n, nf in ((5, 4), (3, 5), (rs.MAX_N, rs.MAX_F)):
-        assert rs.kernel_name(n, nf) == "renewal_scan_wide_kernel"
+    """renewal_scan_kernel<N,G,F>: N the survivor count up to 8, 16 from 9
+    to 16; G the lanes per run; F the unrolled ladder; one lane per run
+    past 4 survivors is renewal_scan_run_kernel."""
+    assert rs.kernel_name(3, 4, 3) == "renewal_scan_kernel<3,3,4>"
+    assert rs.kernel_name(4, 4) == "renewal_scan_kernel<4,1,4>"
+    assert rs.kernel_name(7, 4, 7) == "renewal_scan_kernel<7,7,4>"
+    assert rs.kernel_name(7, 4) == "renewal_scan_kernel<7,7,4>"
+    assert rs.kernel_name(3, 5) == "renewal_scan_kernel<3,1,16>"
+    assert rs.kernel_name(9, 4, 8) == "renewal_scan_kernel<16,8,4>"
+    assert rs.kernel_name(16, 8, 8) == "renewal_scan_kernel<16,8,16>"
+    assert rs.kernel_name(9, 4) == rs.kernel_name(33, 8) == rs.RUN_KERNEL
+    assert rs.kernel_name(rs.MAX_N, rs.MAX_F) == rs.RUN_KERNEL
+
+
+# the dispatch at the bounds: (survivors, levels) -> (template survivor
+# count of the group or exact kernel, its lanes per run, unrolled ladder;
+# whether one lane per run is a mapping)
+DISPATCH = {(8, 4): (8, 8, 4, False), (9, 4): (16, 8, 4, True),
+            (8, 5): (8, 8, 16, False), (16, 8): (16, 8, 16, True),
+            (17, 4): (None, None, None, True), (32, 8): (None, None, None, True),
+            (33, 5): (None, None, None, True), (64, 16): (None, None, None, True),
+            (9, 16): (16, 8, 16, True), (1, 16): (1, 1, 16, True),
+            (4, 5): (4, 4, 16, True), (5, 16): (5, 5, 16, False)}
+
+
+@pytest.mark.parametrize("n,nf", sorted(DISPATCH))
+def test_dispatch_at_the_new_bounds(packed, n, nf):
+    """Which kernels and mappings a shape takes at the bounds (4 and 5, 8
+    and 9, 16 and 17, 32 and 33, 64 survivors; 4, 5, 8 and 16 levels),
+    that every survivor sits in exactly one slot of one lane, and that a
+    CPU call runs the plain version (no counted launch, the outputs'
+    shapes)."""
+    cap, lanes, depth, one_lane = DISPATCH[n, nf]
+    choices = rs.lane_choices(n)
+    assert (1 in choices) == one_lane
+    if cap is None:
+        assert choices == (1,)
+    else:
+        assert lanes in choices and len(choices) == 1 + (one_lane and lanes > 1)
+        assert rs.kernel_name(n, nf, lanes) == \
+            f"renewal_scan_kernel<{cap},{lanes},{depth}>"
+        assert cap % lanes == 0 and lanes <= 32
+        slots = {(i % lanes, i // lanes) for i in range(n)}
+        assert len(slots) == n and max(s for _, s in slots) < cap // lanes
+    if one_lane and n > rs.THROUGHPUT_MAX_N:
+        assert rs.kernel_name(n, nf, 1) == rs.RUN_KERNEL
+    ops = _with_shape(tuple(torch.from_numpy(a) for a in packed[0]), n, nf)
+    gaps = torch.from_numpy(packed[1][:4, :9].copy())
+    felled = torch.zeros((4, n, 9))
+    before = rs.LAUNCHES["renewal_scan"]
+    out = rs.renewal_scan(*ops, gaps, felled)
+    assert rs.LAUNCHES["renewal_scan"] == before
+    assert tuple(out["valid"].shape) == (6, 4, 9)
+    assert all(tuple(out[f].shape) == (6, 9) for f, _ in rs.STAT_FIELDS)
+    assert bool(torch.isfinite(out["energy_ref"]).all())
 
 
 def _widen_ladder(ladder, nf: int):
@@ -224,12 +310,13 @@ def _with_shape(ops, n: int, nf: int):
         np.ascontiguousarray(lad)
 
 
-@pytest.mark.parametrize("n,nf", [(7, 4), (16, 8)])
+@pytest.mark.parametrize("n,nf", [(7, 4), (8, 5), (16, 8), (33, 5)])
 def test_plain_version_matches_pallas_wide(ref, packed, n, nf):
-    """The plain version at the fleet preset's 7 survivors and at 16
-    survivors x 8 levels against the reference's Pallas kernel in interpret
-    mode, with shocks, at K = 8 and R = 40 (see the module docstring for
-    the first scenario's bars)."""
+    """The plain version at the fleet preset's 7 survivors, at 8 (the last
+    exact count) x 5 levels, 16 survivors x 8 levels and 33 (the first
+    count past a group of 32) x 5 levels against the reference's Pallas
+    kernel in interpret mode, with shocks, at K = 8 and R = 40 (see the
+    module docstring for the first scenario's bars)."""
     ops = _with_shape(packed[0], n, nf)
     rng = np.random.default_rng(n)
     gaps = rng.exponential(14 * 24 * 3600.0 / (n + 1), (8, 40)).astype(np.float32)
@@ -255,7 +342,8 @@ def test_plain_version_matches_pallas_wide(ref, packed, n, nf):
     assert int(ours["valid"].sum()) > 0
 
 
-WIDE_SHAPES = [(5, 4), (7, 4), (3, 8), (4, 5), (16, 8), (32, 8),
+WIDE_SHAPES = [(3, 8), (4, 5), (8, 5), (8, 16), (9, 4), (12, 4), (16, 8),
+               (17, 5), (32, 8), (33, 4), (33, 8), (48, 8), (rs.MAX_N, 4),
                (rs.MAX_N, rs.MAX_F)]
 
 
@@ -270,9 +358,8 @@ def test_cuda_kernel_matches_plain_version(n, nf, k, r):
     own packing of the Table-4 scenarios (no JAX on the GPU machine) cut or
     widened to N survivors and F ladder levels, with and without shocks,
     compensated and not: every output bit-equal, one counted launch per
-    call.  R = 1 and 31 leave warps and blocks part-filled.  Within the
-    fast kernel's bounds both mappings of runs to lanes (one lane per run,
-    one per survivor) are forced too; past them the wide kernel runs."""
+    call.  R = 1 and 31 leave warps and blocks part-filled.  Both mappings
+    of runs to lanes (``lane_choices``) are forced too."""
     skip_without_cuda()
     from repro_torch.core import scenarios, sweep
 
@@ -292,9 +379,8 @@ def test_cuda_kernel_matches_plain_version(n, nf, k, r):
             want = rs.renewal_scan_reference(*ops, gaps, fel, compensated=comp)
             torch.cuda.synchronize()
             assert rs.LAUNCHES["renewal_scan"] == before + 1
-            fast = n <= rs.FAST_MAX_N and nf <= rs.FAST_MAX_F
             outs = [got] + [rs._launch_cuda(*ops, gaps, fel, comp, lanes=lanes)
-                            for lanes in sorted({1, n} if fast else {1})]
+                            for lanes in rs.lane_choices(n)]
             torch.cuda.synchronize()
             for out in outs:
                 for name, w in want.items():
