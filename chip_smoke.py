@@ -48,8 +48,13 @@ same operands:
   (batch 4, prompt 16, 32 generated tokens).
 * training, at deepseek-7b's published widths cut to 2 of its 30 layers
   (bf16, 8 x 4096 tokens per step in 4 microbatches, AdamW): a kernel
-  launch under grad mode raises (``[train-grad-guard]``); 2 warm-up and 5
-  timed steps, step 1 replayed bit-equal (``[train]``); the same model
+  launch under grad mode raises (``[train-grad-guard]``), and
+  ``force_reference=True`` runs the plain oracles on the card with no launch
+  (``[force-reference]``); 2 warm-up and 5
+  timed steps, step 1 replayed bit-equal (``[train]``); one more step under
+  the per-operation cost walker (``launch.op_analysis``): its flops against
+  6 N tokens, its fused bytes, both roofline terms beside the measured
+  step, and the walk's peak memory against a step's (``[step-cost]``); the same model
   through ``FTTrainer`` on 2 pods with a failure, its rollback to the
   pod's own checkpoint and re-execution bit-equal to a failure-free loop,
   its decisions equal to the CPU's, every checkpoint write and read timed
@@ -83,9 +88,11 @@ same operands:
   both wall times (``[mesh-steps]``); the dry run on the fake 256-rank
   production mesh for mamba2-370m x decode_32k and x train_4k and
   qwen2-72b x decode_32k (a CPU process each, started together after
-  every timed phase): per-device argument and peak bytes against
-  the card's memory, flops, collective counts and wire bytes, train_4k
-  held to the reference test's bars (``[dryrun]``).
+  every timed phase): per-device argument, peak and temporary bytes
+  against the card's memory, flops, fused bytes accessed and both roofline
+  terms at the card's peaks, collective counts and wire bytes, train_4k
+  held to the reference test's bars and its bytes to at least AdamW's
+  writes (``[dryrun]``).
 
 It times each kernel alone, its plain version, its bound, the one-call
 PyTorch equivalent where there is one (SDPA for flash attention), and the
@@ -2265,6 +2272,46 @@ def grad_guard_phase(dev) -> None:
          ssd_scan="raises under grad", under_no_grad="launched")
 
 
+def force_reference_phase(dev, fa, ssd) -> None:
+    """``force_reference=True`` runs the plain oracles (``kernels.ref``) on
+    CUDA tensors and launches nothing; the default launches each kernel
+    once, held to the oracle at the flash kernel's plain tolerance and the
+    SSD bar (atol 2e-3 / rtol 1e-3)."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = (torch.randn((2, 256, 4, 64), generator=gen, device=dev)
+               for _ in range(3))
+    x = torch.randn((2, 256, 4, 64), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((2, 256, 4), generator=gen, device=dev))
+    a = -torch.rand((4,), generator=gen, device=dev) - 0.5
+    bm, cm = (0.3 * torch.randn((2, 256, 1, 64), generator=gen, device=dev)
+              for _ in range(2))
+    with torch.no_grad():
+        fa.reset_launch_counts()
+        ssd.reset_launch_counts()
+        ref_o = ops.flash_attention(q, k, v, force_reference=True)
+        ref_y, ref_s = ops.ssd_scan(x, dt, a, bm, cm, chunk=128,
+                                    force_reference=True)
+        torch.cuda.synchronize()
+        forced = (fa.LAUNCHES["flash_attention"], ssd.LAUNCHES["ssd_scan"])
+        o = ops.flash_attention(q, k, v)
+        y, st = ops.ssd_scan(x, dt, a, bm, cm, chunk=128)
+        torch.cuda.synchronize()
+        default = (fa.LAUNCHES["flash_attention"], ssd.LAUNCHES["ssd_scan"])
+    atol, rtol = fa.PLAIN_TOL[torch.float32]
+    err_o = check_close("force-reference flash", o, ref_o, atol, rtol)
+    err_y = max(check_close("force-reference ssd y", y, ref_y, 2e-3, 1e-3),
+                check_close("force-reference ssd state", st, ref_s, 2e-3, 1e-3))
+    line("force-reference", launches_forced=list(forced),
+         launches_default=list(default), flash_max_abs_err=f"{err_o:.3e}",
+         ssd_max_abs_err=f"{err_y:.3e}")
+    if forced != (0, 0) or default != (1, 1):
+        raise Failed(f"force-reference: launches {forced} forced, "
+                     f"{default} by default")
+
+
 def train_phase(card_line: str, fa, ssd) -> tuple:
     """deepseek-7b at its published widths, 2 layers, bf16, 8 x 4096 per
     step in 4 microbatches, AdamW: 2 warm-up steps (step 1 replayed from
@@ -2292,9 +2339,14 @@ def train_phase(card_line: str, fa, ssd) -> tuple:
     fa.reset_launch_counts()
     ssd.reset_launch_counts()
     losses, times = [], []
+    peak, step_growth = 0, 0           # overall peak; a timed step's own
     for step in range(TRAIN_WARMUP + TRAIN_TIMED):
         batch = pipe.batch_at(step)
         torch.cuda.synchronize()
+        if step >= TRAIN_WARMUP:
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         new = step_fn(*state, batch)
         torch.cuda.synchronize()
@@ -2307,10 +2359,13 @@ def train_phase(card_line: str, fa, ssd) -> tuple:
             if not equal:
                 raise Failed("train: step 1 and its replay differ")
             del again
+        if step >= TRAIN_WARMUP:
+            step_growth = max(step_growth,
+                              torch.cuda.max_memory_allocated() - base)
         state = new[:2]
         losses.append(float(new[2]["total_loss"]))
         del new
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_gb = max(peak, torch.cuda.max_memory_allocated()) / 1e9
     if not all(np.isfinite(losses)):
         raise Failed(f"train: non-finite losses {losses}")
     launches = fa.LAUNCHES["flash_attention"] + ssd.LAUNCHES["ssd_scan"]
@@ -2330,7 +2385,47 @@ def train_phase(card_line: str, fa, ssd) -> tuple:
          model_flop_share=f"{6.0 * n_params * tokens / step_s / PEAK_BF16_FLOP_PER_S:.4f}",
          peak_gb=f"{peak_gb:.3f}", kernel_launches=launches,
          losses=[f"{x:.6f}" for x in losses])
+    step_cost_phase(card_line, step_fn, state,
+                    pipe.batch_at(TRAIN_WARMUP + TRAIN_TIMED + 1),
+                    6.0 * n_params * tokens, step_s, step_growth)
     return cfg, model, opt, step_fn, pipe, state[0]
+
+
+def step_cost_phase(card_line: str, step_fn, state, batch, six_nd: float,
+                    step_s: float, step_growth: int) -> None:
+    """One more [train] step under ``op_analysis.analyze``: its flops
+    against 6 N tokens, its fused bytes, and the flop and byte terms at the
+    card's peaks beside the measured step.  The step runs no kernel, so
+    every operation reaches the dispatcher.  Fails outside 0.8-3.0 x 6ND,
+    or if the walk's peak memory grows past a timed step's own."""
+    from repro_torch.launch.op_analysis import analyze
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out, cost = analyze(step_fn, *state, batch)
+    torch.cuda.synchronize()
+    walk_s = time.perf_counter() - t0
+    growth = torch.cuda.max_memory_allocated() - base
+    del out
+    flop_ms = cost.flops / PEAK_BF16_FLOP_PER_S * 1e3
+    byte_ms = cost.bytes / PEAK_BYTES_PER_S * 1e3
+    line("step-cost", arch=TRAIN_ARCH, card=repr(card_line),
+         flops=f"{cost.flops:.6e}", flops_over_6nd=f"{cost.flops / six_nd:.4f}",
+         bytes=f"{cost.bytes:.6e}", flop_term_ms=f"{flop_ms:.3f}",
+         byte_term_ms=f"{byte_ms:.3f}",
+         bound_by="bytes" if byte_ms > flop_ms else "operations",
+         step_ms_median=f"{step_s * 1e3:.3f}",
+         bound_share=f"{max(flop_ms, byte_ms) / (step_s * 1e3):.4f}",
+         walk_s=f"{walk_s:.3f}", walk_peak_growth=growth,
+         step_peak_growth=step_growth)
+    if not 0.8 * six_nd <= cost.flops <= 3.0 * six_nd:
+        raise Failed(f"step-cost: flops {cost.flops:.6e} outside 0.8-3.0 x "
+                     f"6ND ({six_nd:.6e})")
+    if growth > step_growth:
+        raise Failed(f"step-cost: the walk's peak grew by {growth} B, a "
+                     f"step's by {step_growth} B")
 
 
 def ft_train_phase(card_line: str, model, opt, step_fn, pipe) -> None:
@@ -2599,6 +2694,7 @@ def training_path(card_line: str, fa, ssd) -> float:
     dev = torch.device("cuda")
     free_cuda()
     grad_guard_phase(dev)
+    force_reference_phase(dev, fa, ssd)
     cfg, model, opt, step_fn, pipe, trained = train_phase(card_line, fa, ssd)
     free_cuda()
     ft_train_phase(card_line, model, opt, step_fn, pipe)
@@ -3243,10 +3339,42 @@ def _stop_dryrun(procs: list) -> None:
         log.close()
 
 
+def train_batch_bytes(arch: str, shape_name: str) -> int:
+    """Per-device bytes of a train cell's batch on the single 16 x 16 mesh:
+    the port's batch specs under the dry run's rules (ZeRO-3 cells, which
+    shard the batch otherwise, are refused)."""
+    import math
+
+    from repro_torch.configs import SHAPES, get_config, input_specs
+    from repro_torch.parallel import sharding as shd
+
+    class Mesh:
+        shape = {"data": 16, "model": 16}
+        axis_names = ("data", "model")
+
+    cfg = get_config(arch)
+    if cfg.train_parallelism == "zero3":
+        raise Failed(f"dryrun {arch}: a ZeRO-3 cell's batch is not counted")
+    batch = input_specs(cfg, SHAPES[shape_name])
+    specs = shd.batch_specs(cfg, Mesh, batch, shd.make_rules(cfg, Mesh))
+    total = 0
+    for name, leaf in batch.items():
+        n = leaf.element_size()
+        for d, size in enumerate(leaf.shape):
+            entry = specs[name][d] if d < len(specs[name]) else None
+            axes = entry if isinstance(entry, tuple) else (entry,) if entry else ()
+            n *= size // math.prod(Mesh.shape[a] for a in axes)
+        total += n
+    return total
+
+
 def dryrun_phase(card_line: str, procs: list) -> None:
-    """Each cell's record: per-device argument bytes and peak against the
-    card's memory, flops, collective counts and bytes; ``train_4k`` held to
-    the reference test's bars (tests/test_dryrun.py)."""
+    """Each cell's record: per-device argument, peak and temporary bytes
+    against the card's memory, flops and fused bytes accessed with their
+    roofline terms at the card's peaks, collective counts and bytes;
+    ``train_4k`` held to the reference test's bars (tests/test_dryrun.py)
+    and its bytes accessed to at least AdamW's writes (the new parameters
+    and both moments: the argument bytes less the batch's)."""
     total_memory = torch.cuda.get_device_properties(0).total_memory
     try:
         for arch, shape, out, log, proc in procs:
@@ -3258,11 +3386,19 @@ def dryrun_phase(card_line: str, procs: list) -> None:
             (rec,) = json.loads(out.read_text())
             c, mem = rec["collectives"], rec["memory"]
             model = 6 * rec["active_params"] * 4096 * 256 / rec["num_devices"]
+            adamw_writes = (mem["argument_size_in_bytes"]
+                            - train_batch_bytes(arch, shape)
+                            if shape == "train_4k" else 0)
             line("dryrun", arch=arch, shape=shape, mesh=rec["mesh"],
                  num_devices=rec["num_devices"], trace_s=rec["trace_s"],
                  flops_per_device=f"{rec['flops']:.6e}",
                  flops_over_6nd=(f"{rec['flops'] / model:.4f}"
                                  if shape == "train_4k" else "n/a"),
+                 bytes_accessed=f"{rec['bytes_accessed']:.6e}",
+                 temp_bytes=mem["temp_size_in_bytes"],
+                 flop_term_ms=f"{rec['flops'] / PEAK_BF16_FLOP_PER_S * 1e3:.6f}",
+                 byte_term_ms=f"{rec['bytes_accessed'] / PEAK_BYTES_PER_S * 1e3:.6f}",
+                 adamw_write_bytes=adamw_writes or "n/a",
                  collective_counts=json.dumps(
                      {k: int(v) for k, v in c["counts"].items()}),
                  collective_wire_bytes=json.dumps(
@@ -3273,7 +3409,10 @@ def dryrun_phase(card_line: str, procs: list) -> None:
                  card_total_memory=total_memory,
                  peak_share_of_card=f"{mem['peak_size_in_bytes'] / total_memory:.4f}",
                  card=repr(card_line))
-            if rec["num_devices"] != 256 or not rec["flops"] > 0:
+            if (rec["num_devices"] != 256 or not rec["flops"] > 0
+                    or not rec["bytes_accessed"] > 0
+                    or not mem["temp_size_in_bytes"] > 0
+                    or rec["bytes_accessed"] < adamw_writes):
                 raise Failed(f"dryrun {arch} x {shape}: {rec}")
             if shape == "train_4k" and not (
                     c["counts"]["all-gather"] > 48 and c["total_bytes"] > 1e9

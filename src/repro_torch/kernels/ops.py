@@ -8,6 +8,13 @@ reference's ``ssd_reference`` asserts the same).  A ``DTensor`` operand
 raises: a launch on its local shard would compute on a piece of the
 tensor, and the model's plain path (``use_flash_kernel=False``) is the one
 that runs under a mesh, as the reference never lowers a kernel there.
+
+``force_reference=True`` calls the plain oracles of ``kernels.ref`` on any
+device.  It is an explicit request, never a fallback: without it a CUDA
+tensor launches the kernel or raises.  The reference's ``block_q``,
+``block_k`` and ``interpret`` are not ported: they tile and interpret the
+Pallas kernels, where the CUDA kernels pick their tiles at their C entry
+points and the CPU runs the plain versions instead of an interpreter.
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import ref as kref
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
 from repro_torch.kernels.ssd_scan import ssd_scan_bhsp
 
@@ -24,10 +32,14 @@ __all__ = ["flash_attention", "ssd_scan"]
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
-                    sliding_window: Optional[int] = None) -> torch.Tensor:
+                    sliding_window: Optional[int] = None,
+                    force_reference: bool = False) -> torch.Tensor:
     """Model layout: q (B,S,H,hd), k/v (B,T,K,hd) -> (B,S,H,hd).  The
     softmax scale is applied to q in its own dtype, as the reference does,
     so bfloat16 rounds at the same place."""
+    if force_reference:
+        return kref.flash_attention_ref(q, k, v, causal=causal,
+                                        sliding_window=sliding_window)
     _build.refuse_dtensor("flash_attention", q, k, v)
     b, sq, h, d = q.shape
     _, sk, kh, _ = k.shape
@@ -40,14 +52,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-             bmat: torch.Tensor, cmat: torch.Tensor, *, chunk: int = 256):
+             bmat: torch.Tensor, cmat: torch.Tensor, *, chunk: int = 256,
+             force_reference: bool = False):
     """Model layout: x (b,s,h,p), dt (b,s,h), a (h,), B/C (b,s,g,n).
 
     Returns (y (b,s,h,p) fp32, final_state (b,h,p,n) fp32).
     """
-    _build.refuse_dtensor("ssd_scan", x, dt, a, bmat, cmat)
     s = x.shape[1]
     chunk = min(chunk, s)
+    if force_reference:
+        return kref.ssd_scan_ref(x, dt, a, bmat, cmat, chunk=chunk)
+    _build.refuse_dtensor("ssd_scan", x, dt, a, bmat, cmat)
     if s % chunk:
         raise ValueError(f"the SSD scan needs the sequence ({s}) to be at most "
                          f"one chunk or a multiple of the chunk ({chunk})")

@@ -16,6 +16,9 @@ and a dispatch mode below DTensor sees every local operation:
   * flops      — per device: the local products' flops
                  (``torch.utils.flop_counter``'s formulas on the local
                  shapes); DTensor's own shape propagation is not counted;
+  * bytes_accessed — per device: the HBM-traffic model of the reference's
+                 ``hlo_analysis`` (fusion-boundary bytes), counted op by
+                 op with pointwise chains fused (``op_analysis``);
   * collectives — per kind, the ring-model wire bytes
                  (``wire_bytes``, the reference's ``_wire_bytes``) of the
                  result of every collective DTensor issues, and counts;
@@ -25,15 +28,21 @@ and a dispatch mode below DTensor sees every local operation:
                  as the reference's 4-byte scalar); ``output_size_in_bytes``
                  the outputs' local shards; ``peak_size_in_bytes``: the
                  most local bytes alive at once during the step, arguments
-                 included (storages counted once, freed when dropped).  The
-                 step is functional, so the peak holds old and new
-                 parameters together, where the reference's donation
-                 aliases them.
+                 included (storages counted once, freed when dropped);
+                 ``temp_size_in_bytes``: the most local bytes alive at once
+                 that belong to neither the arguments nor the outputs,
+                 exact for the order in which the ops ran (not a bound on
+                 a schedule a compiler might choose).  The step is
+                 functional, so the peak holds old and new parameters
+                 together, where the reference's donation aliases them.
 
-Where the reference reads optimized HLO (``hlo_analysis``: fused HBM
-traffic, trip counts) the port has no counterpart: there is no
-``bytes_accessed``.  ``--use-flash`` is parsed and ignored, as in the
-reference (``run_cell`` never lowers a kernel under the mesh).
+The walker is ``op_analysis.OpTrace``, the counterpart of the reference's
+``hlo_analysis``.  The record's keys follow the reference's: ``trace_s``
+stands where it has ``lower_s`` and ``compile_s``, and its ``xla_flops``
+and ``xla_bytes_accessed`` (XLA's own numbers, which count a loop body
+once) have no counterpart and are not written.  ``--use-flash`` is parsed
+and ignored, as in the reference (``run_cell`` never lowers a kernel
+under the mesh).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch mamba2-370m --shape train_4k
@@ -53,7 +62,6 @@ import json
 import math
 import pathlib
 import time
-import weakref
 from typing import Optional
 
 import torch
@@ -62,6 +70,8 @@ from repro_torch._tree import leaves, tree_map
 from repro_torch.configs import (SHAPES, cell_is_skipped, get_config, grid,
                                  input_specs)
 from repro_torch.launch import steps as step_lib
+from repro_torch.launch.op_analysis import (COLLECTIVES, OpTrace,
+                                            wire_bytes)
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import abstract_params, build_model
 from repro_torch.optim.adamw import adamw
@@ -70,41 +80,6 @@ from repro_torch.parallel.constraints import (ActivationPolicy,
                                               activation_sharding)
 
 __all__ = ["run_cell", "main", "fake_world", "wire_bytes", "COLLECTIVES"]
-
-COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
-               "collective-permute")
-
-# functional collectives DTensor issues -> the reference's kinds
-_C10D_KINDS = {
-    "all_gather_into_tensor": "all-gather",
-    "all_reduce": "all-reduce",
-    "reduce_scatter_tensor": "reduce-scatter",
-    "all_to_all_single": "all-to-all",
-}
-
-
-def wire_bytes(kind: str, result_bytes: float, k: int) -> float:
-    """Per-device wire bytes under a ring schedule with group size k.
-
-    all-gather     result is the gathered tensor: (k-1)/k x result
-    reduce-scatter result is the shard: input = k x result, wire (k-1) x result
-    all-reduce     RS + AG on the (unsharded) payload: 2 (k-1)/k x result
-    all-to-all     (k-1)/k x result
-    collective-permute  one hop: result
-    """
-    if k <= 1:
-        return 0.0
-    f = (k - 1) / k
-    if kind == "all-gather":
-        return f * result_bytes
-    if kind == "reduce-scatter":
-        return (k - 1) * result_bytes
-    if kind == "all-reduce":
-        return 2.0 * f * result_bytes
-    if kind == "all-to-all":
-        return f * result_bytes
-    return result_bytes
-
 
 @contextlib.contextmanager
 def fake_world(world_size: int):
@@ -119,87 +94,6 @@ def fake_world(world_size: int):
         yield
     finally:
         dist.destroy_process_group()
-
-
-# ---------------------------------------------------------------------------
-# what one rank does: a dispatch mode below DTensor
-# ---------------------------------------------------------------------------
-
-def _tensors(tree):
-    from torch.utils._pytree import tree_leaves
-
-    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
-
-
-def _group_size(args) -> int:
-    from torch.distributed.distributed_c10d import _resolve_process_group
-
-    return _resolve_process_group(args[-1]).size()
-
-
-class _RankTrace:
-    """Counts the local operations of one rank: the ones whose outputs are
-    plain ``meta`` tensors (DTensor's shape propagation runs on fake
-    tensors of its own, and is skipped)."""
-
-    def __init__(self):
-        from torch.utils.flop_counter import flop_registry
-        from torch.utils.weak import WeakIdKeyDictionary
-
-        self.flop_registry = flop_registry
-        self.flops = 0
-        self.coll_bytes = dict.fromkeys(COLLECTIVES, 0.0)
-        self.coll_counts = dict.fromkeys(COLLECTIVES, 0)
-        self._live = WeakIdKeyDictionary()
-        self.live_bytes = 0
-        self.peak_bytes = 0
-
-    def track(self, t: torch.Tensor) -> None:
-        st = t.untyped_storage()
-        if st in self._live:
-            return
-        n = st.nbytes()
-        self._live[st] = n
-        self.live_bytes += n
-        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
-        weakref.finalize(st, self._free, n)
-
-    def _free(self, n: int) -> None:
-        self.live_bytes -= n
-
-    def mode(self):
-        from torch.distributed.tensor import DTensor
-        from torch.utils._python_dispatch import TorchDispatchMode
-
-        trace = self
-
-        class _Mode(TorchDispatchMode):
-            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-                kwargs = kwargs or {}
-                if any(issubclass(t, DTensor) for t in types):
-                    return NotImplemented
-                out = func(*args, **kwargs)
-                outs = _tensors(out)
-                if outs and all(type(t) is torch.Tensor and t.is_meta
-                                for t in outs):
-                    trace.count(func, args, kwargs, out, outs)
-                return out
-
-        return _Mode()
-
-    def count(self, func, args, kwargs, out, outs) -> None:
-        packet = func._overloadpacket
-        if packet in self.flop_registry:
-            self.flops += self.flop_registry[packet](*args, **kwargs,
-                                                     out_val=out)
-        if func.namespace == "_c10d_functional":
-            kind = _C10D_KINDS.get(packet.__name__)
-            if kind is not None:
-                b = sum(t.numel() * t.element_size() for t in outs)
-                self.coll_bytes[kind] += wire_bytes(kind, b, _group_size(args))
-                self.coll_counts[kind] += 1
-        for t in outs:
-            self.track(t)
 
 
 # ---------------------------------------------------------------------------
@@ -236,13 +130,6 @@ def _local_bytes(tree) -> int:
             loc = t.to_local() if isinstance(t, DTensor) else t
             total += loc.numel() * loc.element_size()
     return total
-
-
-def _locals(tree):
-    from torch.distributed.tensor import DTensor
-
-    return [t.to_local() if isinstance(t, DTensor) else t
-            for t in leaves(tree) if isinstance(t, torch.Tensor)]
 
 
 @contextlib.contextmanager
@@ -336,7 +223,7 @@ def run_cell(arch: str, shape_name: str, mesh, mesh_name: str,
     pspecs = shd.param_specs(cfg, mesh, abstract, rules)
     params = _placed(abstract, pspecs, mesh)
     batch_abs = input_specs(cfg, shape)
-    trace = _RankTrace()
+    trace = OpTrace("meta")
 
     if shape.kind in ("train", "prefill"):
         bspecs = shd.batch_specs(cfg, mesh, batch_abs, rules)
@@ -370,12 +257,13 @@ def run_cell(arch: str, shape_name: str, mesh, mesh_name: str,
 
     arg_bytes = _local_bytes(args[:3] if shape.kind == "decode" else args) \
         + extra_bytes
-    for t in _locals(args[:3] if shape.kind == "decode" else args):
-        trace.track(t)
-    with activation_sharding(policy), trace.mode(), _meta_embedding_backward():
+    trace.arguments(args[:3] if shape.kind == "decode" else args)
+    with activation_sharding(policy), trace, _meta_embedding_backward():
         out = fn(*args)
+    trace.outputs(out)
     out_bytes = _local_bytes(out)
     t_trace = time.time() - t0
+    cost = trace.cost
 
     full = get_config(arch)
     return {
@@ -384,16 +272,18 @@ def run_cell(arch: str, shape_name: str, mesh, mesh_name: str,
         "mesh": mesh_name,
         "num_devices": mesh_size,
         "trace_s": round(t_trace, 1),
-        "flops": float(trace.flops),
+        "flops": float(cost.flops),
+        "bytes_accessed": float(cost.bytes),
         "collectives": {
-            "bytes": {k: float(v) for k, v in trace.coll_bytes.items()},
-            "counts": {k: float(v) for k, v in trace.coll_counts.items()},
-            "total_bytes": float(sum(trace.coll_bytes.values())),
+            "bytes": {k: float(v) for k, v in cost.collective_bytes.items()},
+            "counts": {k: float(v) for k, v in cost.collective_counts.items()},
+            "total_bytes": float(cost.total_collective_bytes),
         },
         "memory": {
             "argument_size_in_bytes": int(arg_bytes),
             "output_size_in_bytes": int(out_bytes),
             "peak_size_in_bytes": int(trace.peak_bytes + extra_bytes),
+            "temp_size_in_bytes": int(trace.temp_bytes),
         },
         "params": full.param_count(),
         "active_params": full.active_param_count(),
@@ -447,7 +337,8 @@ def main(argv=None):
                 print(f"FAILED {arch} x {shape_name}: {type(e).__name__}: {e}",
                       flush=True)
                 raise
-            print(json.dumps({k: rec[k] for k in ("flops", "trace_s")}),
+            print(json.dumps({k: rec[k] for k in
+                              ("flops", "bytes_accessed", "trace_s")}),
                   flush=True)
             print("  collectives:", rec["collectives"]["total_bytes"], "B",
                   flush=True)

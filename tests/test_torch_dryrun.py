@@ -9,7 +9,12 @@ the *reference's* spec trees (parameters and cache under the dry run's
 decode rules, the token batch, the 4-byte position).  The slow tier holds
 ``train_4k`` to the reference test's bars (``tests/test_dryrun.py``).  The
 ring model of the collective bytes is the reference's
-``hlo_analysis._wire_bytes``, case by case.
+``hlo_analysis._wire_bytes``, case by case.  Each record has the memory
+term, as the reference's does: ``bytes_accessed > 0`` and
+``temp_size_in_bytes > 0`` (the reference test's bar); on ``train_4k``
+``bytes_accessed`` is at least what AdamW's update must write (the new
+parameters and both moments: the argument bytes less the batch's, from the
+reference's batch specs).
 """
 import dataclasses
 import json
@@ -99,10 +104,33 @@ def _reference_decode_argument_bytes(arch: str, shape_name: str) -> int:
     return total + 4                             # the int32 position
 
 
+def _reference_train_batch_bytes(arch: str, shape_name: str) -> int:
+    """Per-device bytes of the train step's batch, from the reference's
+    rules and batch specs (its dry run's train branch, without ZeRO-3)."""
+    R = load_reference()
+    from repro.parallel import sharding as rshd
+
+    jax = R.jax
+    P = jax.sharding.PartitionSpec
+
+    class Mesh:
+        shape = {"data": 16, "model": 16}
+        axis_names = ("data", "model")
+
+    cfg = R.configs.get_config(arch)
+    assert cfg.train_parallelism != "zero3"
+    batch = R.configs.input_specs(cfg, R.configs.SHAPES[shape_name])
+    specs = rshd.batch_specs(cfg, Mesh, batch, rshd.make_rules(cfg, Mesh))
+    leaves = jax.tree.leaves(specs, is_leaf=lambda x: isinstance(x, P))
+    return _local_bytes(leaves, jax.tree.leaves(batch), Mesh.shape)
+
+
 def test_dryrun_decode_cell(tmp_path):
     rec = _run_cell("mamba2-370m", "decode_32k", tmp_path)
     assert rec["num_devices"] == 256
     assert rec["flops"] > 0
+    assert rec["bytes_accessed"] > 0
+    assert rec["memory"]["temp_size_in_bytes"] > 0
     mem = rec["memory"]
     assert mem["argument_size_in_bytes"] == \
         _reference_decode_argument_bytes("mamba2-370m", "decode_32k")
@@ -128,6 +156,12 @@ def test_dryrun_train_cell_collectives(tmp_path):
     # per-device flops within sane multiples of 6ND (remat <= ~2x)
     model = 6 * rec["active_params"] * 4096 * 256 / rec["num_devices"]
     assert 0.8 * model < rec["flops"] < 3.0 * model
+    # the memory term: at least AdamW's writes of parameters and moments
+    mem = rec["memory"]
+    adamw_writes = mem["argument_size_in_bytes"] - \
+        _reference_train_batch_bytes("mamba2-370m", "train_4k")
+    assert rec["bytes_accessed"] >= adamw_writes > 0
+    assert mem["temp_size_in_bytes"] > 0
 
 
 # ---------------------------------------------------------------------------

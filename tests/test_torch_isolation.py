@@ -10,7 +10,8 @@ optimiser's entry points, the fleet advisor and the campaign runner and
 CLI, the train step, the checkpoint manager, the FT trainer with its
 adaptive controller and the training CLI, the moe and encoder-decoder
 models through the serve and train entry points, gradient compression, the
-dry run on a fake 256-rank mesh) run with ``jax`` and ``repro``
+dry run on a fake 256-rank mesh with its cost walker, the kernels' plain
+oracles through ``force_reference=True``) run with ``jax`` and ``repro``
 unimportable too, and so does importing ``chip_smoke.py``.
 """
 import ast
@@ -82,7 +83,8 @@ def test_every_module_imports_without_jax():
             "repro_torch.parallel", "repro_torch.parallel.compression",
             "repro_torch.parallel.sharding", "repro_torch.parallel.constraints",
             "repro_torch.parallel.dtensor_ops", "repro_torch.launch.mesh",
-            "repro_torch.launch.dryrun"} <= set(mods)
+            "repro_torch.launch.dryrun", "repro_torch.launch.op_analysis",
+            "repro_torch.kernels.ref"} <= set(mods)
 
 
 def test_entry_points_run_without_jax():
@@ -236,6 +238,14 @@ def test_dryrun_and_chip_smoke_run_without_jax(tmp_path):
         sys.argv = ["dryrun", "--arch", "mamba2-370m", "--shape", "decode_32k",
                     "--out", {str(out)!r}]
         runpy.run_module("repro_torch.launch.dryrun", run_name="__main__")
+        import torch
+        from repro_torch.kernels import ops
+        from repro_torch.launch.op_analysis import analyze
+        q = torch.ones((1, 8, 2, 16))
+        out, cost = analyze(ops.flash_attention, q, q, q, force_reference=True)
+        y, st = ops.ssd_scan(q, q[..., 0], -torch.ones(2), q[:, :, :1],
+                             q[:, :, :1], chunk=8, force_reference=True)
+        assert out.shape == y.shape == (1, 8, 2, 16) and cost.flops > 0
         bad = [k for k, v in sys.modules.items() if v is not None
                and k.split(".")[0] in ("jax", "jaxlib", "repro")]
         assert not bad, bad
@@ -249,3 +259,4 @@ def test_dryrun_and_chip_smoke_run_without_jax(tmp_path):
     import json
     (rec,) = json.loads(out.read_text())
     assert rec["num_devices"] == 256 and rec["flops"] > 0
+    assert rec["bytes_accessed"] > 0
