@@ -1210,7 +1210,7 @@ def check_close(what: str, got, want, atol: float, rtol: float) -> float:
 
 def kernel_name(mangled: str) -> str:
     """The kernel's own name and template arguments in a mangled symbol,
-    e.g. ``flash_mma_kernel<112>``: the last length-prefixed identifier
+    e.g. ``flash_wgmma_kernel<112>``: the last length-prefixed identifier
     that names a kernel and ends where a name does (template arguments,
     the end of the nested name or the parameters follow)."""
     found = None
@@ -1271,7 +1271,7 @@ def print_occupancy(fa, ssd, head_dim: int, p: int, n: int, chunk: int) -> None:
         rows = []
         for module, fn_name, shape, names in (
                 (fa, "flash_attention_occupancy", (head_dim,),
-                 [f"flash_mma_kernel<{head_dim}>" if dtype
+                 [f"{fa.BF16_KERNEL[head_dim]}<{head_dim}>" if dtype
                   else f"flash_kernel<{head_dim}>"]),
                 (ssd, "ssd_scan_occupancy", (p, n, chunk),
                  [f"ssd_kernel_chunk_state<{p},{n}>", "ssd_kernel_state_pass",
@@ -1288,6 +1288,29 @@ def print_occupancy(fa, ssd, head_dim: int, p: int, n: int, chunk: int) -> None:
         for name, b, t, sm in rows:
             line("occupancy", kernel=name, dtype=kind, threads=t,
                  dynamic_smem_bytes=sm, blocks_per_sm=b, warps_per_sm=b * t // 32)
+
+
+def check_flash_tiles(fa) -> None:
+    """The bf16 flash kernel and tiles of every head dim, as the C library
+    reports them (flash_attention_bf16_tiles), against the module's
+    BF16_KERNEL and BF16_TILES, which the CPU tests emulate."""
+    import ctypes
+    from repro_torch.kernels import _build
+
+    lib = _build.load_library(*fa.LIBRARY)
+    fn = lib.flash_attention_bf16_tiles
+    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4
+    for d in fa.SUPPORTED_HEAD_DIMS:
+        bq, bk, stages, wgmma = (ctypes.c_int() for _ in range(4))
+        _build.check_launch(lib, "flash_attention", fn(d, bq, bk, stages, wgmma))
+        got = ((bq.value, bk.value, stages.value),
+               "flash_wgmma_kernel" if wgmma.value else "flash_mma_kernel")
+        line("flash-tiles", head_dim=d, kernel=got[1], block_q=bq.value,
+             block_k=bk.value, stages=stages.value)
+        if got != (fa.BF16_TILES[d], fa.BF16_KERNEL[d]):
+            raise Failed(f"flash bf16 tiles at head dim {d}: the library has "
+                         f"{got}, flash_attention.py {fa.BF16_TILES[d]}, "
+                         f"{fa.BF16_KERNEL[d]}")
 
 
 def print_renewal_occupancy(rs, launches: dict) -> None:
@@ -1396,6 +1419,15 @@ def flash_work(q, k, window) -> float:
     return 4.0 * d * bh * float(keys.sum())
 
 
+def flash_issued_ms(q, k, window) -> str:
+    """The bf16 kernels' own ceiling: the products they issue (6 d per kept
+    pair: Q K^T, then P V twice for P's hi and lo parts) at the card's
+    bf16 rate; "n/a" in float32 (CUDA cores)."""
+    if q.dtype != torch.bfloat16:
+        return "n/a"
+    return f"{1.5 * flash_work(q, k, window) / PEAK_BF16_FLOP_PER_S * 1e3:.5f}"
+
+
 def ssd_work(x, bmat, chunk: int) -> float:
     """flop of the chunked scan: per chunk the causal half of C.B^T and of
     its product with dax, the inter-chunk term and the state update."""
@@ -1438,6 +1470,7 @@ def flash_launch_timing(label: str, card_line: str, fa, args, kw, out,
     plain_ms = statistics.median(cuda_ms(plain, reps=3, warmup=1))
     fa_bound, fa_by = bound(nbytes(q, k, v, out), flash_work(q, k, window),
                             q.dtype)
+    issued = flash_issued_ms(q, k, window)
     rec = {"case": label, "shape": tuple(q.shape), "kv": tuple(k.shape),
            "group": group, "window": window, "max_abs_err": err,
            "kernel_ms": fa_ms, "plain_ms": plain_ms, "bound_ms": fa_bound,
@@ -1448,7 +1481,8 @@ def flash_launch_timing(label: str, card_line: str, fa, args, kw, out,
          plain_ms_median=f"{plain_ms:.3f}",
          plain_version="per KV head" if plain_chunks else "whole",
          bound_ms=f"{fa_bound:.5f}", bound_by=fa_by,
-         flop=f"{rec['flop']:.4e}", bytes=nbytes(q, k, v, out),
+         issued_ceiling_ms=issued, flop=f"{rec['flop']:.4e}",
+         bytes=nbytes(q, k, v, out),
          first_launch_max_abs_err=f"{err:.3e}")
     return rec
 
@@ -1538,6 +1572,8 @@ def device_profile(fn) -> dict:
     the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels.flash_attention import KERNEL_NAMES
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1556,7 +1592,7 @@ def device_profile(fn) -> dict:
         n_launch += ev.count
         kernels.append((ms, ev.key[:60], ev.count))
         name = ev.key.lower()
-        if "flash_kernel" in name or "flash_mma_kernel" in name:
+        if any(n in name for n in KERNEL_NAMES):
             classes["flash_attention"] += ms
         elif "ssd_kernel" in name:
             classes["ssd_scan"] += ms
@@ -1630,6 +1666,7 @@ def lm_path(card_line: str, fa, ssd) -> list:
     worst = {"flash_attention": 0.0, "ssd_scan": 0.0}
 
     print_occupancy(fa, ssd, hd, s_cfg.head_dim, s_cfg.state_dim, s_cfg.chunk_size)
+    check_flash_tiles(fa)
     tables_equal_cpu(card_line, hd)
 
     # --- phase 6: kernels against their plain versions on the card ---------
@@ -1639,10 +1676,11 @@ def lm_path(card_line: str, fa, ssd) -> list:
               bf16, None, None),
              ("ragged-4000", PREFILL_BATCH, heads, heads, 4000, hd, bf16,
               None, None),
+             ("sq129", 1, 4, 4, 129, hd, bf16, None, None),
              ("gqa-window", 2, 4, 1, 256, 64, f32, 128, None),
-             ("gqa-window-bf16", 2, 4, 1, 256, 64, bf16, 128, None),
+             ("gqa-window-in-tile-bf16", 2, 4, 1, 384, 64, bf16, 100, None),
              ("gqa-window-nonpow2", 1, 6, 2, 384, 64, f32, 256, None),
-             ("suffix-200-of-1000-bf16", 1, 4, 2, 200, 64, bf16, None, 1000),
+             ("suffix-200-of-1000-bf16", 1, 4, 2, 200, hd, bf16, None, 1000),
              ("float32-d128", 1, 8, 2, 1000, 128, f32, None, None),
              ("bf16-d16", 1, 4, 2, 512, 16, bf16, None, None),
              ("bf16-d256", 1, 4, 2, 512, 256, bf16, None, None)]
@@ -1756,8 +1794,8 @@ def lm_path(card_line: str, fa, ssd) -> list:
          kernel_ms=f"{fa_ms:.5f}", wrapper_host_ms=f"{fa_host:.5f}",
          plain_ms_median=f"{fa_plain_ms:.3f}", sdpa_ms=f"{sdpa_ms:.5f}",
          sdpa_vs_kernel_max_abs=f"{sdpa_err:.3e}", bound_ms=f"{fa_bound:.5f}",
-         bound_by=fa_by, flop=f"{flash_work(q, k, window):.4e}",
-         bytes=nbytes(q, k, v, fa_out))
+         bound_by=fa_by, issued_ceiling_ms=flash_issued_ms(q, k, window),
+         flop=f"{flash_work(q, k, window):.4e}", bytes=nbytes(q, k, v, fa_out))
     line("timing", kernel="ssd_scan", card=repr(card_line),
          kernel_ms=f"{ssd_ms:.5f}", wrapper_host_ms=f"{ssd_host:.5f}",
          plain_ms_median=f"{ssd_plain_ms:.3f}", bound_ms=f"{ssd_bound:.5f}",
@@ -3628,10 +3666,13 @@ def main() -> int:
              cached=info["cached"], fmad=("-fmad=false" not in flags))
         for fn in ptxas_functions(info["ptxas"]):
             line("build", kernel=name, **fn)
-            # every survivor's carry in registers: no renewal kernel spills
-            if name == rs.LIBRARY[0] and (fn["stack_frame"] or fn["spill_stores"]):
+            # no kernel spills; every survivor's carry in registers, so no
+            # renewal kernel has a stack frame either
+            if fn["spill_stores"] or fn["spill_loads"] or (
+                    name == rs.LIBRARY[0] and fn["stack_frame"]):
                 raise Failed(f"{fn['function']}: {fn['stack_frame']} bytes of "
-                             f"stack frame, {fn['spill_stores']} of spill stores")
+                             f"stack frame, {fn['spill_stores']} of spill "
+                             f"stores, {fn['spill_loads']} of spill loads")
 
     scen = list(paper_scenarios().values())
     grid_cfg = sparse_rendezvous_scenario()

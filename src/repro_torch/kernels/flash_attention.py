@@ -14,16 +14,24 @@ Two implementations of one function live here:
   * ``flash_attention_reference`` — the plain PyTorch version: float32
     scores, masked to ``NEG_INF``, one softmax over all keys (the online
     softmax's result in one step), float32 product with v;
-  * the CUDA kernels in ``csrc/flash_attention.cu`` (one block per 64 query
-    rows of one head, the key loop inside the program; design notes in the
-    source).  They take head dims ``SUPPORTED_HEAD_DIMS`` and any Sq, Sk:
-    they mask ragged tails themselves, where the TPU wrapper fell back to
-    the einsum oracle.  The dtype picks the kernel: bfloat16 runs
-    FlashAttention-2 on the tensor cores (``mma.sync``, K/V by
-    ``cp.async``), with P split into two bf16 parts for the P.V product
-    (``_split_bf16`` is that arithmetic in PyTorch); float32 runs the
+  * the CUDA kernels in ``csrc/flash_attention.cu`` (the key loop inside
+    the program; design notes in the source).  They take head dims
+    ``SUPPORTED_HEAD_DIMS`` and any Sq, Sk: they mask ragged tails
+    themselves, where the TPU wrapper fell back to the einsum oracle.  The
+    dtype and head dim pick the kernel (``BF16_KERNEL``): bfloat16 at head
+    dims 64, 112 and 128 runs ``flash_wgmma_kernel`` on Hopper's own
+    instructions — one persistent block per SM over 128-row query tiles, a
+    producer warpgroup feeding Q and a 4-stage ring of 64-key K/V tiles by
+    TMA, two consumer warpgroups of 64 rows issuing ``wgmma`` (the softmax
+    of the next key block beside the current P.V product); bfloat16 at 16,
+    32 and 256 runs ``flash_mma_kernel`` (``mma.sync``, K/V by
+    ``cp.async``).  Both bf16 kernels split P into two bf16 parts for the
+    P.V product (``_split_bf16`` is that arithmetic in PyTorch), issuing
+    6 d flop per kept (query, key) pair where the function needs 4 d;
+    they are bound by the tensor cores and, for the wgmma kernel, by the
+    K/V traffic each 128-row tile reads from L2.  float32 runs the
     CUDA-core kernel, since tensor-core TF32 would miss the float32 bar.
-    Both are hand-written kernels and both count as launches.
+    All are hand-written kernels and all count as launches.
 
 ``flash_attention_bhsd`` dispatches on where the tensors lie: CPU tensors
 take the plain version, CUDA tensors launch the kernel (counted in
@@ -40,11 +48,23 @@ from repro_torch.kernels import _build
 
 __all__ = ["flash_attention_bhsd", "flash_attention_reference", "NEG_INF",
            "LAUNCHES", "reset_launch_counts", "SUPPORTED_HEAD_DIMS",
-           "PLAIN_TOL"]
+           "PLAIN_TOL", "BF16_TILES", "BF16_KERNEL", "KERNEL_NAMES"]
 
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 112, 128, 256)   # csrc dispatch_d
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the bf16 kernel per head dim, and its tiles (query rows per block, keys
+# per step of the loop, ring stages), as csrc/flash_attention.cu's
+# WgLayout / MmaLayout give them (chip_smoke.py holds them equal to the C
+# query flash_attention_bf16_tiles): the wgmma kernel at the LM paths' head
+# dims, the mma.sync kernel at the rest
+BF16_KERNEL = {16: "flash_mma_kernel", 32: "flash_mma_kernel",
+               64: "flash_wgmma_kernel", 112: "flash_wgmma_kernel",
+               128: "flash_wgmma_kernel", 256: "flash_mma_kernel"}
+BF16_TILES = {16: (64, 64, 2), 32: (64, 64, 2), 64: (128, 64, 4),
+              112: (128, 64, 4), 128: (128, 64, 4), 256: (64, 32, 2)}
+# every kernel of the library, as a profiler names them
+KERNEL_NAMES = ("flash_wgmma_kernel", "flash_mma_kernel", "flash_kernel")
 # (atol, rtol) within which the kernel must give its plain version's
 # output.  Both compute in float32 and round once to q's dtype, so they
 # differ by float32 summation order and, in bfloat16, by at most one unit
@@ -109,8 +129,11 @@ def _split_bf16(x: torch.Tensor) -> tuple:
     return hi, (x - hi.float()).to(torch.bfloat16)
 
 
-def _launch_cuda(q, k, v, group: int, causal: bool, window: Optional[int]):
-    """Launch the CUDA kernel on the operands' card (no synchronisation)."""
+def _launch_cuda(q, k, v, group: int, causal: bool, window: Optional[int],
+                 lib: Optional[ctypes.CDLL] = None):
+    """Launch the CUDA kernel on the operands' card (no synchronisation).
+    ``lib`` is this package's library unless a caller passes another build
+    of the same C interface (another checkout's, to compare the two)."""
     _build.refuse_dtensor("flash_attention", q, k, v)
     _build.refuse_grad("flash_attention", q, k, v)
     _check(q, k, v, group, window)
@@ -133,7 +156,8 @@ def _launch_cuda(q, k, v, group: int, causal: bool, window: Optional[int]):
         raise ValueError("the bf16 flash kernel copies 16-byte rows: q, k and "
                          "v must start 16-byte aligned")
 
-    lib = _build.load_library(*LIBRARY)
+    if lib is None:
+        lib = _build.load_library(*LIBRARY)
     fn = lib.flash_attention_launch
     if fn.argtypes is None:                  # first call: bind the signature
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \

@@ -337,6 +337,9 @@ CARD_FLASH_CASES = FLASH_CASES + [
     (2, 256, 4, 1, 64, 128, "bfloat16"),         # GQA + sliding window
     (1, 512, 4, 2, 16, None, "bfloat16"),        # smallest head dim
     (1, 512, 4, 2, 256, None, "bfloat16"),       # largest head dim
+    # the wgmma kernel's tile edges (128-row blocks, 128-key ring stages)
+    (1, 129, 4, 4, 112, None, "bfloat16"),       # one row past a block
+    (1, 384, 4, 1, 64, 100, "bfloat16"),         # window ends inside a block
 ]
 CARD_SSD_CASES = SSD_CASES + [
     (2, 4096, 112, 1, 64, 64, 256),              # zamba2-7b prefill (16 chunks)
@@ -371,15 +374,17 @@ def test_flash_kernel_matches_plain_on_card(case):
 
 
 @requires_cuda
+@pytest.mark.parametrize("d", [64, 112])
 @pytest.mark.parametrize("window", [None, 100])
-def test_flash_kernel_suffix_queries_match_plain_on_card(window):
-    """bf16 queries that are the last 200 of 1000 keys (q_offset 800),
-    GQA group 2, on the tensor-core kernel."""
+def test_flash_kernel_suffix_queries_match_plain_on_card(window, d):
+    """bf16 queries that are the last 200 of 1000 keys (q_offset 800, not a
+    multiple of the kernel's 128-key blocks), GQA group 2, on the
+    tensor-core kernel."""
     skip_without_cuda()
     rng = np.random.default_rng(8)
     to = lambda shape, scale=1.0: torch.from_numpy(
         rng.standard_normal(shape, np.float32) * scale).to("cuda", torch.bfloat16)
-    q, k, v = to((4, 200, 64), 64 ** -0.5), to((2, 1000, 64)), to((2, 1000, 64))
+    q, k, v = to((4, 200, d), d ** -0.5), to((2, 1000, d)), to((2, 1000, d))
     fa.reset_launch_counts()
     got = fa.flash_attention_bhsd(q, k, v, group=2, window=window)
     torch.cuda.synchronize()
