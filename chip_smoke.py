@@ -40,6 +40,13 @@ same operands:
 * the models' constant tables on the card against the CPU's bits
   (``[card-vs-cpu]``: RoPE's inverse frequencies at head_dim 112, the
   1500 x 1024 sinusoids);
+* the LM kernels against their plain versions (``[lm-kernel-vs-plain]``):
+  flash attention at the path's shapes and edges, the SSD scan at
+  zamba2-7b's prefill in both dtypes, four groups, mamba2-370m's
+  (P, N) = (64, 128) and chunks 13, 48, 100, 192 and 512, with the bf16
+  chunk-scan kernel of each (P, N, chunk) held equal to the module's
+  ``BF16_CHUNK_SCAN`` (``[ssd-tiles]``) as flash's tiles are
+  (``[flash-tiles]``);
 * Zamba2-7B serving at its published widths with seeded weights: a bf16
   prefill of 2 x 4096 tokens (13 ``flash_attention`` and 81 ``ssd_scan``
   launches), a float32 prefill of 2 x 512 tokens (cut to 15 of the 81
@@ -1211,14 +1218,16 @@ def check_close(what: str, got, want, atol: float, rtol: float) -> float:
 def kernel_name(mangled: str) -> str:
     """The kernel's own name and template arguments in a mangled symbol,
     e.g. ``flash_wgmma_kernel<112>``: the last length-prefixed identifier
-    that names a kernel and ends where a name does (template arguments,
-    the end of the nested name or the parameters follow)."""
+    that names a kernel (``kernel`` or ``chunk_scan`` in it) and ends where
+    a name does (template arguments, the end of the nested name or the
+    parameters follow)."""
     found = None
     for m in re.finditer(r"\d+", mangled):
         for i in range(len(m.group())):
             n, start = int(m.group()[i:]), m.end()
             ident, rest = mangled[start:start + n], mangled[start + n:]
-            if len(ident) == n and "kernel" in ident and \
+            if len(ident) == n and ("kernel" in ident or
+                                    "chunk_scan" in ident) and \
                     re.fullmatch(r"[A-Za-z_]\w*", ident) and \
                     not re.match(r"[a-z0-9_]", rest):
                 found = (ident, rest)
@@ -1275,7 +1284,7 @@ def print_occupancy(fa, ssd, head_dim: int, p: int, n: int, chunk: int) -> None:
                   else f"flash_kernel<{head_dim}>"]),
                 (ssd, "ssd_scan_occupancy", (p, n, chunk),
                  [f"ssd_kernel_chunk_state<{p},{n}>", "ssd_kernel_state_pass",
-                  f"ssd_kernel_chunk_scan<{p},{n}>"] if dtype
+                  f"{ssd.chunk_scan_kernel(p, n, chunk)}<{p},{n}>"] if dtype
                  else [f"ssd_kernel<{p},{n}>"])):
             lib = _build.load_library(*module.LIBRARY)
             fn = getattr(lib, fn_name)
@@ -1311,6 +1320,40 @@ def check_flash_tiles(fa) -> None:
             raise Failed(f"flash bf16 tiles at head dim {d}: the library has "
                          f"{got}, flash_attention.py {fa.BF16_TILES[d]}, "
                          f"{fa.BF16_KERNEL[d]}")
+
+
+def check_ssd_tiles(ssd, shapes) -> None:
+    """The bf16 chunk-scan kernel of each (P, N, chunk) in ``shapes``, and
+    for the wgmma kernel the query tiles of its first consumer and its
+    ring, as the C library reports them (ssd_scan_bf16_chunk_scan), against
+    the module's BF16_CHUNK_SCAN, consumer_tiles and WGMMA_RING, which the
+    CPU tests emulate."""
+    import ctypes
+    from repro_torch.kernels import _build
+
+    lib = _build.load_library(*ssd.LIBRARY)
+    fn = lib.ssd_scan_bf16_chunk_scan
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 4
+    for p, n, chunk in sorted(set(shapes)):
+        wgmma, first, slots, s_bufs = (ctypes.c_int() for _ in range(4))
+        _build.check_launch(lib, "ssd_scan", fn(p, n, chunk, wgmma, first,
+                                                slots, s_bufs))
+        kernel = "ssd_wgmma_chunk_scan" if wgmma.value else "ssd_kernel_chunk_scan"
+        tiles = tuple(t for t in range(4) if first.value >> t & 1)
+        got = (kernel, tiles if wgmma.value else None,
+               (slots.value, s_bufs.value) if wgmma.value else None)
+        want_kernel = ssd.chunk_scan_kernel(p, n, chunk)
+        wgmma_want = want_kernel == "ssd_wgmma_chunk_scan"
+        want = (want_kernel,
+                ssd.consumer_tiles(-(-chunk // 64))[0] if wgmma_want else None,
+                ssd.WGMMA_RING[(p, n)] if wgmma_want else None)
+        line("ssd-tiles", p=p, n=n, chunk=chunk, kernel=kernel,
+             consumer_tiles=(tiles, ssd.consumer_tiles(-(-chunk // 64))[1])
+             if wgmma.value else None,
+             tile_slots=slots.value, s_in_buffers=s_bufs.value)
+        if got != want:
+            raise Failed(f"SSD bf16 chunk scan at (P, N, chunk) {(p, n, chunk)}: "
+                         f"the library has {got}, ssd_scan.py {want}")
 
 
 def print_renewal_occupancy(rs, launches: dict) -> None:
@@ -1573,6 +1616,7 @@ def device_profile(fn) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.flash_attention import KERNEL_NAMES
+    from repro_torch.kernels.ssd_scan import KERNEL_NAMES as SSD_KERNELS
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1582,8 +1626,10 @@ def device_profile(fn) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     classes = {"flash_attention": 0.0, "ssd_scan": 0.0, "matmul": 0.0,
                "other": 0.0}
-    # the SSD scan's kernels: three per bf16 call, one per float32 call
+    # the SSD scan's kernels: three per bf16 call, one per float32 call;
+    # the kernels that ran each part, as the profiler names them
     ssd_parts = {part: 0.0 for part in SSD_PARTS}
+    ssd_names = {part: set() for part in SSD_PARTS}
     kernels, n_launch = [], 0
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -1594,11 +1640,13 @@ def device_profile(fn) -> dict:
         name = ev.key.lower()
         if any(n in name for n in KERNEL_NAMES):
             classes["flash_attention"] += ms
-        elif "ssd_kernel" in name:
+        elif any(n in name for n in SSD_KERNELS):
             classes["ssd_scan"] += ms
-            part = next((p for p in SSD_PARTS if f"ssd_kernel_{p}" in name),
-                        "float32")
+            part = SSD_KERNELS[next(n for n in SSD_KERNELS if n in name)]
             ssd_parts[part] += ms
+            found = re.search(r"ssd_\w+(<[^>]*>)?", ev.key)
+            ssd_names[part].add(found.group(0).replace(" ", "") if found
+                                else ev.key[:60])
         elif any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma", "gemv")):
             classes["matmul"] += ms
         else:
@@ -1608,7 +1656,9 @@ def device_profile(fn) -> dict:
         return {"wall_ms": wall_ms, "device_ms": None}
     return {"wall_ms": wall_ms, "device_ms": device_ms, "launches": n_launch,
             "busy_share": device_ms / wall_ms, "classes": classes,
-            "ssd_parts": ssd_parts, "top": sorted(kernels, reverse=True)[:8]}
+            "ssd_parts": ssd_parts,
+            "ssd_kernels": {p: sorted(v) for p, v in ssd_names.items() if v},
+            "top": sorted(kernels, reverse=True)[:8]}
 
 
 def print_profile(phase: str, card_line: str, prof: dict) -> None:
@@ -1620,7 +1670,8 @@ def print_profile(phase: str, card_line: str, prof: dict) -> None:
          device_ms=f"{prof['device_ms']:.3f}", kernel_launches=prof["launches"],
          busy_share=f"{prof['busy_share']:.4f}",
          **{f"{k}_ms": f"{v:.3f}" for k, v in prof["classes"].items()},
-         **{f"ssd_{k}_ms": f"{v:.3f}" for k, v in prof["ssd_parts"].items()})
+         **{f"ssd_{k}_ms": f"{v:.3f}" for k, v in prof["ssd_parts"].items()},
+         **{f"ssd_{k}_kernel": "+".join(v) for k, v in prof["ssd_kernels"].items()})
     for ms, name, count in prof["top"]:
         line(phase, kernel=repr(name), count=count, device_ms=f"{ms:.3f}")
 
@@ -1689,18 +1740,28 @@ def lm_path(card_line: str, fa, ssd) -> list:
         worst["flash_attention"] = max(worst["flash_attention"],
                                        flash_vs_plain(fa, label, q, k, v,
                                                       h // kh, win))
-    # (label, dtype, batch, heads, groups, S, chunk); zamba2-prefill takes
-    # 16 chunks through the state-passing kernel, chunk-13 is a 13-token
-    # prompt (ops.ssd_scan takes min(chunk, S))
-    q_cfg = s_cfg.chunk_size
-    for i, (label, dtype, b, h, g, s, chunk) in enumerate((
-            ("zamba2-prefill", bf16, PREFILL_BATCH, ssm_heads, 1, PREFILL_LEN, q_cfg),
-            ("zamba2-float32", f32, PREFILL_BATCH, ssm_heads, 1, PREFILL_LEN, q_cfg),
-            ("groups-4", bf16, PREFILL_BATCH, 8, 4, 1024, q_cfg),
-            ("chunk-13", bf16, 1, 8, 1, 13, 13),
-            ("chunk-48", bf16, PREFILL_BATCH, 8, 1, 96, 48))):
-        ops_ = ssd_operands(b, h, g, s, s_cfg.head_dim, s_cfg.state_dim, dtype,
-                            200 + i, dev)
+    # (label, dtype, batch, heads, groups, S, chunk, P, N); zamba2-prefill
+    # takes 16 chunks through the state-passing kernel, chunk-13 is a
+    # 13-token prompt (ops.ssd_scan takes min(chunk, S)); mamba2-370m's
+    # (P, N) = (64, 128) at its 32 heads; chunks 13, 48, 100 and 192 end
+    # inside a 64-row tile, 512 is past the wgmma kernel's chunks
+    q_cfg, p_cfg, n_cfg = s_cfg.chunk_size, s_cfg.head_dim, s_cfg.state_dim
+    ssd_cases = (
+        ("zamba2-prefill", bf16, PREFILL_BATCH, ssm_heads, 1, PREFILL_LEN, q_cfg,
+         p_cfg, n_cfg),
+        ("zamba2-float32", f32, PREFILL_BATCH, ssm_heads, 1, PREFILL_LEN, q_cfg,
+         p_cfg, n_cfg),
+        ("groups-4", bf16, PREFILL_BATCH, 8, 4, 1024, q_cfg, p_cfg, n_cfg),
+        ("chunk-13", bf16, 1, 8, 1, 13, 13, p_cfg, n_cfg),
+        ("chunk-48", bf16, PREFILL_BATCH, 8, 1, 96, 48, p_cfg, n_cfg),
+        ("pn-64x128", bf16, PREFILL_BATCH, 32, 1, PREFILL_LEN, 256, 64, 128),
+        ("chunk-100", bf16, PREFILL_BATCH, 8, 1, 400, 100, p_cfg, n_cfg),
+        ("chunk-192-pn-64x128", bf16, PREFILL_BATCH, 8, 4, 768, 192, 64, 128),
+        ("chunk-512", bf16, PREFILL_BATCH, 8, 1, 2048, 512, p_cfg, n_cfg))
+    check_ssd_tiles(ssd, [(p, n, chunk) for _, dtype, *_, chunk, p, n in ssd_cases
+                          if dtype == bf16])
+    for i, (label, dtype, b, h, g, s, chunk, p, n) in enumerate(ssd_cases):
+        ops_ = ssd_operands(b, h, g, s, p, n, dtype, 200 + i, dev)
         worst["ssd_scan"] = max(worst["ssd_scan"], ssd_vs_plain(
             ssd, label, *ops_, chunk))
     del q, k, v, ops_

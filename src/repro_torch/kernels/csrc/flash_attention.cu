@@ -68,10 +68,10 @@
 // past the tensor's edge arrive as zeros, P V uses N = 112.  The tensor
 // maps are 3-D (D, rows, heads), so a box at a head's ragged tail reads
 // zeros, never the next head's rows; they are built on every launch by
-// cuTensorMapEncodeTiled, taken from the driver at run time (no -lcuda),
-// and passed as __grid_constant__ parameters.  The output is staged in
-// the consumer's Q rows (its last read of them done) and stored by TMA,
-// which clips rows past Sq and columns past D.
+// cuTensorMapEncodeTiled, taken from the driver at run time (no -lcuda;
+// tma_sm90.cuh), and passed as __grid_constant__ parameters.  The output
+// is staged in the consumer's Q rows (its last read of them done) and
+// stored by TMA, which clips rows past Sq and columns past D.
 // Tiles (why 64 keys and 4 stages): ptxas allocates the whole kernel
 // within the launch bound's 168 registers (setmaxnreg raises a
 // warpgroup's allocation at run time, not ptxas's budget).  With 128-key
@@ -117,12 +117,12 @@
 // registers, 2 blocks of 128 threads.
 //
 // Built without -fmad=false (contraction allowed) and without fast-math.
-#include <cuda.h>   // CUtensorMap and its enums (types only; no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_sm90.cuh"
+#include "tma_sm90.cuh"
 #include "wgmma_sm90.cuh"
 
 namespace {
@@ -786,61 +786,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver at run time (no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-constexpr int kErrNoEncoder = -1;   // the driver has no cuTensorMapEncodeTiled
-constexpr int kErrEncode = -2;      // it refused a map
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// 3-D map (d, rows, heads) of a contiguous (heads, rows, d) bf16 tensor, in
-// boxes of 64 columns x box_rows rows x 1 head, 128-byte swizzle; a box
-// reaching past a head's rows or past column d reads zeros there
-int bf16_map(CUtensorMap* map, const void* ptr, int d, int rows, int heads,
-             int box_rows) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return kErrNoEncoder;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)rows * d * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : kErrEncode;
-}
-
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out, int bh,
                  int sq, int sk, int group, int causal, int window,
                  cudaStream_t stream) {
   CUtensorMap tq, tk, tv, to;
-  int err = bf16_map(&tq, q, D, sq, bh, 64);
-  if (!err) err = bf16_map(&tk, k, D, sk, bh / group, WgLayout<D>::BK);
-  if (!err) err = bf16_map(&tv, v, D, sk, bh / group, WgLayout<D>::BK);
-  if (!err) err = bf16_map(&to, out, D, sq, bh, 64);
+  int err = tma::bf16_map(&tq, q, D, sq, bh, 64);
+  if (!err) err = tma::bf16_map(&tk, k, D, sk, bh / group, WgLayout<D>::BK);
+  if (!err) err = tma::bf16_map(&tv, v, D, sk, bh / group, WgLayout<D>::BK);
+  if (!err) err = tma::bf16_map(&to, out, D, sq, bh, 64);
   if (err) return err;
   const int bytes = WgLayout<D>::bytes;
   auto kernel = flash_wgmma_kernel<D>;
@@ -1134,10 +1088,7 @@ int flash_attention_bf16_tiles(int d, int* bq, int* bk, int* stages, int* wgmma)
 }
 
 const char* flash_attention_error_string(int err) {
-  if (err == kErrNoEncoder)
-    return "the CUDA driver has no cuTensorMapEncodeTiled (TMA needs CUDA 12)";
-  if (err == kErrEncode)
-    return "cuTensorMapEncodeTiled refused a tensor map of the operands";
+  if (const char* text = tma::error_string(err)) return text;
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

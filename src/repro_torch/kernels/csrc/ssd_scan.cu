@@ -20,14 +20,15 @@
 // The TPU kernel makes the chunk axis the innermost, sequential grid axis
 // and carries S in VMEM scratch.  Only that P x N state is carried from
 // chunk to chunk; everything else is independent across chunks.  The dtype
-// picks the design at the C entry point (never a failure):
+// and (P, N, Q) pick the kernels at the C entry point (never a failure;
+// ../ssd_scan.py BF16_CHUNK_SCAN names the chunk scan's):
 //
 // bfloat16: three kernels on the current stream, Mamba2's own chunked-scan
-// structure, the products on the tensor cores (mma.sync m16n8k16, bf16 in,
-// float32 out; mma_sm90.cuh):
-//   (a) ssd_kernel_chunk_state, grid (nc, B*H), 4 warps.  The chunk's
-//       cum (block scan; written to a float32 scratch (B, H, S)) and its
-//       local state  sum_j (w_j x_j) (x) B_j  as the product (w x)^T B,
+// structure, the products on the tensor cores (bf16 in, float32 out):
+//   (a) ssd_kernel_chunk_state, grid (nc, B*H), 4 warps, mma.sync
+//       m16n8k16 (mma_sm90.cuh).  The chunk's cum (block scan; written to
+//       a float32 scratch (B, H, S)) and its local state
+//       sum_j (w_j x_j) (x) B_j  as the product (w x)^T B,
 //       w_j = exp(cum_end - cum_j) dt_j: each x fragment is scaled by w in
 //       registers and split hi + lo; B is an exact bf16 operand.  To a
 //       float32 scratch (B, H, nc, P, N).  x and B arrive 64 steps at a
@@ -37,20 +38,68 @@
 //       per (b, h): S_c = exp(cum_end,c) S_{c-1} + local_c.  The state
 //       entering chunk c goes to a bf16 scratch (B, H, nc, 2, P, N),
 //       already split hi and lo; the last is the final state.
-//   (c) ssd_kernel_chunk_scan, grid (nc * ceil(Q/64), B*H), 4 warps of 16
-//       query rows.  y_i = exp(cum_i) C_i . S_in^T (S_in split hi/lo)
-//       + sum over key tiles j <= i of G_ij x_j, with G = C B^T on the
-//       tensor cores (both exact bf16), decay and dt applied to the float32
-//       accumulator in registers (exp2 of cum scaled by log2 e), and G
-//       split hi/lo against x.  Key tile t+1 loads by cp.async while
-//       tile t computes, into the room S_in held; on the diagonal tile a
-//       warp skips the 16-key groups past its rows.
+//   (c) the chunk scan, y_i = exp(cum_i) C_i . S_in^T (S_in split hi/lo)
+//       + sum over key tiles j <= i of G_ij x_j, G = (C B^T) exp(cum_i -
+//       cum_j) dt_j (split hi/lo against the exact bf16 x).  Most of the
+//       call's time (78 % with the mma.sync kernel below).
+//       * ssd_wgmma_chunk_scan, at (P, N) = (64, 64) (zamba2-7b) and
+//         (64, 128) (mamba2-370m), chunks up to kWgMaxChunk = 256, on
+//         Hopper's own instructions.  The unit of work is one chunk of one
+//         (batch, head), all its 64-row query tiles in one block, so each
+//         C, B and x tile and the entering state leave device memory once
+//         a chunk (the mma.sync kernel's per-tile blocks read ~2.2x that
+//         from L2).  One persistent block per SM walks the units in
+//         memory order (chunks fastest), 384 threads in three warpgroups:
+//          - warpgroup 0, the producer (setmaxnreg.dec to 40): one thread
+//            issues TMA copies of each unit's S_in hi and lo, then of its
+//            64-step tiles (C, B and x rows, 64-column 128-byte-swizzled
+//            boxes) through a ring of slots with "full" and "empty"
+//            mbarriers; warp 1 loads the unit's cum (times log2 e), dt and
+//            w_j = exp2(cum_e - cum_j) dt_j (cum_e the last step of j's
+//            tile) into one of two buffers, every load of a unit issued
+//            before it waits for the buffer.  The tensor maps are 4-D
+//            (columns, Q, nc, banks or heads; tma_sm90.cuh): a box past the
+//            chunk's last step reads zeros, as the other kernels' tiles do,
+//            never the next chunk's rows, so every Q takes this kernel.
+//          - warpgroups 1 and 2, the consumers (setmaxnreg.inc to 232),
+//            64 query rows at a time, the tiles dealt by consumer_tiles
+//            (the heaviest first, each to the consumer with fewer pairs:
+//            {0, 3} and {1, 2} at four tiles, 5 pairs each).  Per query
+//            tile q: S of key tile 0 and then the inter-chunk product C_q
+//            (S_hi + S_lo)^T are issued together (wgmma m64n64k16, both
+//            operands in shared memory, K-major), key tile 0's decay runs
+//            while the inter-chunk product is on the tensor cores, and y
+//            is scaled by exp2(cum_i log2 e), 0 past Q.  Then per key tile
+//            j <= q: S of tile j + 1 is issued before (G_hi + G_lo) x_j
+//            (register-A wgmma, x read MN-major through the transpose bit;
+//            the accumulator layout of S is the A fragment), and its decay
+//            runs while that product is on the tensor cores.  The decay on
+//            the diagonal tile is exp2(cum_i - cum_j) dt_j, selected where
+//            j <= i < Q; below it, where every pair is kept, it is the row
+//            factor exp2(cum_i - cum_e) times the unit's w_j: 2
+//            exponentials a thread in place of 32, and both factors at
+//            most 1 where cum does not increase (a <= 0, dt >= 0).  G's hi
+//            is G truncated to bf16 (a byte permute), lo = bf16(G - hi):
+//            one conversion a pair.  y leaves by streaming stores straight
+//            from the accumulator, 256 contiguous bytes a row.  A consumer
+//            frees each tile after its last product on it and passes
+//            through those it never reads (every consumer warp arrives
+//            once on each "empty" barrier, after its "full" phase).
+//         The ring: 7 tile slots (24 KB each) and 2 S_in buffers at (64,
+//         64); 4 slots (40 KB) and 1 buffer at (64, 128), where two would
+//         not fit in 227 KB.  A slot count of at least a chunk's 4 tiles
+//         keeps the ring free of deadlock.  Registers: y, S and G's hi/lo
+//         fragments are 96 a thread; ptxas fits the kernel in the launch
+//         bound's 168 with no spill (it allocates within the launch bound,
+//         not within what setmaxnreg grants at run time).
+//       * ssd_kernel_chunk_scan, the other (P, N) and chunks past 256:
+//         grid (nc * ceil(Q/64), B*H), 4 warps of 16 query rows on
+//         mma.sync, C, key tiles and S_in by cp.async into padded rows,
+//         key tile t + 1 loading while tile t computes.
 // One bf16 rounding of w x, S_in or G would miss the bar against the plain
 // version (which keeps them float32, as the TPU kernel does); the other
 // operand of each product is exact bf16, so each split costs one product
-// and no load.  Rows of every shared tile are padded by 16 bytes: each
-// starts 16-byte aligned and the row addresses of an ldmatrix phase fall in
-// distinct banks.
+// and no load.
 //
 // float32: ssd_kernel, the CUDA-core kernel of the first port, kept as it
 // was: tensor-core TF32 would miss the float32 bars, and float32 SSD serves
@@ -64,17 +113,21 @@
 // P = N = 64, chunk 256) the function moves ~362 MB (y in float32 is
 // 235 MB of it) against ~4.5e10 flop, so it is bound by bytes (~0.11 ms at
 // 3.35 TB/s).  The bf16 design adds ~235 MB of scratch traffic (the local
-// states written by (a), read and rewritten by (b), read by (c)) and reads
-// x again in (c) for every query tile at or after its key tile (from L2
-// mostly: the query tiles of one chunk are neighbouring blocks).
+// states written by (a), read and rewritten by (b), read by (c)).  The
+// wgmma chunk scan moves ~335 MB of device memory (y, x, S_in, cum and
+// dt; B and C once a chunk), ~0.10 ms, and issues ~7.1e10 flop with the
+// splits, ~0.072 ms; it takes ~0.18 ms.  clock64 probes put each
+// consumer's time in the decay and split of every key tile and in waiting
+// for the tensor cores, which the two consumers share (PERF.md section 6).
 //
 // Resources (ptxas for sm_90a and CUDA's occupancy calculator, printed by
 // chip_smoke.py's [build] and [occupancy] lines; table in PERF.md), bf16 at
 // (P, N) = (64, 64), chunk 256, no spills: chunk_state 80 registers and
 // 38,912 B of shared memory, 5 blocks per SM (shared memory); state_pass
-// 57 registers, 4 blocks of 256 threads (registers); chunk_scan held to
-// 128 registers by its launch bounds (4 blocks of 128 threads; 130 without)
-// and 48,128 B, 4 blocks per SM.
+// 57 registers, 4 blocks of 256 threads (registers); ssd_wgmma_chunk_scan
+// the launch bound's 168 registers, 176 B static and 211,968 B dynamic
+// shared memory, 1 block of 12 warps per SM; ssd_kernel_chunk_scan held
+// to 128 registers by its launch bounds (4 blocks of 128 threads).
 //
 // Built without -fmad=false (contraction allowed) and without fast-math.
 #include <cuda_bf16.h>
@@ -82,6 +135,8 @@
 #include <stdint.h>
 
 #include "mma_sm90.cuh"
+#include "tma_sm90.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
@@ -512,6 +567,479 @@ ssd_kernel_chunk_scan(const bf16* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 chunk scan at (P, N) = (64, 64), (64, 128), chunks up to 256:
+// one persistent block per SM over whole chunks, TMA, wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 384;        // producer warpgroup + two consumer warpgroups
+constexpr int kWgMaxChunk = 256;       // ../ssd_scan.py WGMMA_MAX_CHUNK
+constexpr int kTileBytes = 64 * 128;   // 64 rows of one 64-column swizzled bf16 tile
+
+template <int P, int N>
+constexpr bool wgmma_pn() {
+  return P == 64 && (N == 64 || N == 128);
+}
+
+template <int P, int N>
+struct WgLayout {
+  static_assert(wgmma_pn<P, N>(), "the wgmma chunk scan takes P 64, N 64 or 128");
+  static constexpr int NB = N / 64;          // 64-column tiles of a row of B, C, S_in
+  // tile i of a chunk (steps 64 i .. 64 i + 63): C rows, B rows, x rows
+  static constexpr int tile = (2 * NB + 1) * kTileBytes;
+  static constexpr int s_in = 2 * NB * kTileBytes;   // S_in (P = 64 rows) hi, then lo
+  // ring depths (why: the note at the top): tile slots and S_in buffers
+  static constexpr int slots = N == 64 ? 7 : 4;
+  static constexpr int s_bufs = N == 64 ? 2 : 1;
+  static constexpr int cd = 3 * kWgMaxChunk * 4;     // cum * log2 e, dt, w of a chunk
+  // registers per thread after setmaxnreg: launched at 168 (65536 / 384),
+  // the producer's threads keep 40 and the consumers' take 232
+  // (40 x 128 + 232 x 256 = 64,512 of the 65,536)
+  static constexpr int producer_regs = 40;
+  static constexpr int consumer_regs = 232;
+  // 1024 bytes of slack align the swizzled tiles; two cum/dt/w buffers
+  static constexpr int bytes = 1024 + slots * tile + s_bufs * s_in + 2 * cd;
+  static_assert(slots * 64 >= kWgMaxChunk, "a chunk's tiles fit in the ring");
+  static_assert(bytes <= 232448 - 1024, "dynamic shared memory of one block");
+};
+
+// The query tiles (bit t: rows 64 t .. 64 t + 63) of consumer c among a
+// chunk's nq tiles: from the heaviest (tile nq - 1, nq key tiles) down,
+// each to the consumer with fewer (query tile, key tile) pairs so far,
+// consumer 0 on a tie.  At 4 tiles: consumer 0 {0, 3}, consumer 1 {1, 2},
+// 5 pairs each.  ../ssd_scan.py consumer_tiles is the same rule.
+__host__ __device__ __forceinline__ unsigned consumer_tiles(int nq, int c) {
+  int load0 = 0, load1 = 0;
+  unsigned mask0 = 0u, mask1 = 0u;
+  for (int t = nq - 1; t >= 0; --t) {
+    if (load1 < load0) {
+      load1 += t + 1;
+      mask1 |= 1u << t;
+    } else {
+      load0 += t + 1;
+      mask0 |= 1u << t;
+    }
+  }
+  return c ? mask1 : mask0;
+}
+
+// unit u of a launch: chunk c of head bh, chunks fastest (the order of x
+// and y in memory); bank = b G + h / (H / G)
+struct Unit {
+  int bh, c, bank;
+};
+
+__device__ __forceinline__ Unit unit_at(int u, int H, int G, int nc) {
+  const int c = u % nc, bh = u / nc;
+  const int b = bh / H, h = bh % H;
+  return Unit{bh, c, b * G + h / (H / G)};
+}
+
+// the per-warp arrival that frees a buffer (barriers freed by the consumers
+// count 8 arrivals: 4 warps of each)
+__device__ __forceinline__ void warp_arrive(uint32_t bar, int lane) {
+  __syncwarp();
+  if (lane == 0) wg::mbar_arrive(bar);
+}
+
+// acc (64 x 64) [+]= A (64 x N, K-major, NB tiles at a) B^T (64 x N,
+// K-major, NB tiles at b) over N / 16 k-steps; scale_first 0 drops acc
+template <int N>
+__device__ __forceinline__ void mma_kmajor(float (&acc)[32], uint32_t a, uint32_t b,
+                                           int scale_first) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    // 16 columns are 32 bytes; the next 64 columns are the next tile
+    const uint32_t off = (kk >> 2) * kTileBytes + (kk & 3) * 32;
+    wg::mma_ss_n64(acc, wg::desc(a + off, 16, 1024), wg::desc(b + off, 16, 1024),
+                   kk > 0 || scale_first);
+  }
+}
+
+// x0, x1 as bf16 hi + lo, packed (x0 in the low half): hi is x truncated
+// to bf16 (its upper 16 bits, one byte permute), lo = bf16(x - hi) (x - hi
+// is exact in float32), so hi + lo carries x to ~2^-16 of its size with
+// one conversion a pair (../ssd_scan.py _split_trunc)
+__device__ __forceinline__ void split_trunc(float x0, float x1, uint32_t& hi,
+                                            uint32_t& lo) {
+  const uint32_t b0 = __float_as_uint(x0), b1 = __float_as_uint(x1);
+  hi = __byte_perm(b0, b1, 0x7632);
+  const float r0 = x0 - __uint_as_float(b0 & 0xffff0000u);
+  const float r1 = x1 - __uint_as_float(b1 & 0xffff0000u);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(r0, r1);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// 2^x, flushing a result below 2^-126 to zero (a decay that small adds
+// nothing at float32's precision)
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// S (64 x 64, the accumulator of C_q B_j^T) on the diagonal key tile ->
+// G = S exp(cum_i - cum_j) dt_j where j <= i < Q, else 0: selected, never
+// multiplied by the mask (exp(cum_i - cum_j) is inf for some j > i).  Rows
+// i0 and i0 + 8 (cum ci), key tile from step k0; cum and dt of the unit
+__device__ __forceinline__ void decay_diagonal(float (&s)[32], const float* cum,
+                                               const float* dts, const float (&ci)[2],
+                                               int i0, int k0, int t, int Q) {
+#pragma unroll
+  for (int jb = 0; jb < 8; ++jb) {
+    const int kj = k0 + 8 * jb + 2 * t;
+    const float2 cj = *reinterpret_cast<const float2*>(cum + kj);
+    const float2 dj = *reinterpret_cast<const float2*>(dts + kj);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + 8 * (e >> 1), kk = kj + (e & 1);
+      const float cjv = (e & 1) ? cj.y : cj.x, djv = (e & 1) ? dj.y : dj.x;
+      const float v = s[4 * jb + e] * ex2_ftz(ci[e >> 1] - cjv) * djv;
+      s[4 * jb + e] = kk <= i && i < Q ? v : 0.f;
+    }
+  }
+}
+
+// S on a key tile below the diagonal (every step j of it before every row
+// i): exp(cum_i - cum_j) dt_j = exp(cum_i - cum_e) w_j with cum_e the key
+// tile's last step and w_j = exp(cum_e - cum_j) dt_j, which the unit's w
+// holds.  Exact for any cum, and where cum does not increase (a <= 0,
+// dt >= 0, as Mamba2's parametrisation gives) both factors are at most 1.
+// Two exponentials a thread (its rows) in place of 32; a row at or past Q
+// takes factor 0 (its C row is zero, and exp(0 - cum_e) may be inf)
+__device__ __forceinline__ void decay_below(float (&s)[32], const float* cum,
+                                            const float* w, const float (&ci)[2],
+                                            int i0, int k0, int t, int Q) {
+  const float ce = cum[k0 + 63];
+  const float r0 = i0 < Q ? ex2_ftz(ci[0] - ce) : 0.f;
+  const float r1 = i0 + 8 < Q ? ex2_ftz(ci[1] - ce) : 0.f;
+#pragma unroll
+  for (int jb = 0; jb < 8; ++jb) {
+    const float2 wj = *reinterpret_cast<const float2*>(w + k0 + 8 * jb + 2 * t);
+    s[4 * jb] *= wj.x * r0;
+    s[4 * jb + 1] *= wj.y * r0;
+    s[4 * jb + 2] *= wj.x * r1;
+    s[4 * jb + 3] *= wj.y * r1;
+  }
+}
+
+// G (the accumulator layout of S is the A fragment of G x) as bf16 hi + lo
+__device__ __forceinline__ void split_g(const float (&s)[32], uint32_t (&ph)[4][4],
+                                        uint32_t (&pl)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split_trunc(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], ph[kk][r], pl[kk][r]);
+}
+
+// y += (G_hi + G_lo) x_j: two register-A products per 16 steps on the x
+// tile at xt ((64 steps, P), MN-major: 16 steps are 2048 bytes)
+__device__ __forceinline__ void gx(float (&y)[32], const uint32_t (&ph)[4][4],
+                                   const uint32_t (&pl)[4][4], uint32_t xt) {
+  wg::mma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t dx = wg::desc(xt + kk * 2048, kTileBytes, 1024);
+    wg::mma_rs_n64(y, ph[kk], dx);
+    wg::mma_rs_n64(y, pl[kk], dx);
+  }
+}
+
+template <int P, int N>
+__global__ void __launch_bounds__(kWgThreads, 1)
+ssd_wgmma_chunk_scan(const __grid_constant__ CUtensorMap tx,
+                     const __grid_constant__ CUtensorMap tb,
+                     const __grid_constant__ CUtensorMap tc,
+                     const __grid_constant__ CUtensorMap ts,
+                     const float* __restrict__ dt, const float* __restrict__ cum_g,
+                     float* __restrict__ y, int H, int G, int S, int Q, int n_units) {
+  using L = WgLayout<P, N>;
+  constexpr int NB = L::NB, SLOTS = L::slots, SB = L::s_bufs;
+  extern __shared__ unsigned char smem_raw[];
+  // s_full[SB], s_empty[SB], t_full[SLOTS], t_empty[SLOTS], cd_full[2], cd_empty[2]
+  __shared__ __align__(8) uint64_t bars[2 * SB + 2 * SLOTS + 4];
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t tiles = base;                        // [slot][C, B, x]
+  const uint32_t s_in = base + SLOTS * L::tile;       // [buffer][hi, lo]
+  float* const cd = reinterpret_cast<float*>(smem_raw + (s_in + SB * L::s_in - raw));
+  const uint32_t s_full0 = wg::smem_u32(&bars[0]);
+  const uint32_t s_empty0 = wg::smem_u32(&bars[SB]);
+  const uint32_t t_full0 = wg::smem_u32(&bars[2 * SB]);
+  const uint32_t t_empty0 = wg::smem_u32(&bars[2 * SB + SLOTS]);
+  const uint32_t cd_full0 = wg::smem_u32(&bars[2 * SB + 2 * SLOTS]);
+  const uint32_t cd_empty0 = wg::smem_u32(&bars[2 * SB + 2 * SLOTS + 2]);
+  const int nc = S / Q, nq = (Q + 63) / 64;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int b = 0; b < SB; ++b) {
+      wg::mbar_init(s_full0 + 8 * b, 1);
+      wg::mbar_init(s_empty0 + 8 * b, 8);
+    }
+    for (int s = 0; s < SLOTS; ++s) {
+      wg::mbar_init(t_full0 + 8 * s, 1);
+      wg::mbar_init(t_empty0 + 8 * s, 8);
+    }
+    for (int b = 0; b < 2; ++b) {
+      wg::mbar_init(cd_full0 + 8 * b, 32);   // one arrival per lane of warp 1
+      wg::mbar_init(cd_empty0 + 8 * b, 8);
+    }
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the warpgroup, read from lane 0 so that the compiler sees it uniform
+  // across each warp: setmaxnreg then takes hold for the branch it opens
+  const int role = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  if (role == 0) {
+    wg::setmaxnreg_dec<L::producer_regs>();
+    if (warp == 0 && lane == 0) {
+      // ---- TMA: each unit's S_in, then its tiles through the ring --------
+      int e = 0;   // tiles through the ring so far
+      for (int k = 0;; ++k) {
+        const int u = k * gridDim.x + blockIdx.x;
+        if (u >= n_units) break;
+        const Unit un = unit_at(u, H, G, nc);
+        const int sb = k % SB;
+        // a fresh barrier passes the wait for parity 1: the first pass over
+        // each buffer finds it free
+        wg::mbar_wait(s_empty0 + 8 * sb, ((k / SB) & 1) ^ 1);
+        wg::mbar_arrive_expect_tx(s_full0 + 8 * sb, L::s_in);
+        for (int half = 0; half < 2; ++half)
+          for (int b = 0; b < NB; ++b)
+            wg::tma_load_3d(s_in + sb * L::s_in + (half * NB + b) * kTileBytes, &ts,
+                            s_full0 + 8 * sb, 64 * b, P * half, un.bh * nc + un.c);
+        for (int i = 0; i < nq; ++i, ++e) {
+          const int s = e % SLOTS;
+          wg::mbar_wait(t_empty0 + 8 * s, ((e / SLOTS) & 1) ^ 1);
+          wg::mbar_arrive_expect_tx(t_full0 + 8 * s, L::tile);
+          const uint32_t dst = tiles + s * L::tile;
+          for (int b = 0; b < NB; ++b) {
+            wg::tma_load_4d(dst + b * kTileBytes, &tc, t_full0 + 8 * s, 64 * b, 64 * i,
+                            un.c, un.bank);
+            wg::tma_load_4d(dst + (NB + b) * kTileBytes, &tb, t_full0 + 8 * s, 64 * b,
+                            64 * i, un.c, un.bank);
+          }
+          wg::tma_load_4d(dst + 2 * NB * kTileBytes, &tx, t_full0 + 8 * s, 0, 64 * i,
+                          un.c, un.bh);
+        }
+      }
+    } else if (warp == 1) {
+      // ---- cum * log2 e, dt and w_j = exp(cum_e - cum_j) dt_j (cum_e the
+      // last step of j's tile) of each unit, zero past Q: every load of a
+      // unit is issued at once, before the wait for its buffer -------------
+      constexpr int R = kWgMaxChunk / 32;
+      for (int k = 0;; ++k) {
+        const int u = k * gridDim.x + blockIdx.x;
+        if (u >= n_units) break;
+        const Unit un = unit_at(u, H, G, nc);
+        const size_t off = (size_t)un.bh * S + (size_t)un.c * Q;
+        float cv[R], dv[R];
+#pragma unroll
+        for (int m = 0; m < R; ++m) {
+          const int r = lane + 32 * m;
+          cv[m] = r < Q ? cum_g[off + r] : 0.f;
+          dv[m] = r < Q ? dt[off + r] : 0.f;
+        }
+        const int b = k & 1;
+        wg::mbar_wait(cd_empty0 + 8 * b, ((k >> 1) & 1) ^ 1);
+        float* cum = cd + b * 3 * kWgMaxChunk;
+#pragma unroll
+        for (int m = 0; m < R; ++m) {
+          const int r = lane + 32 * m;
+          const float cl = cv[m] * kLog2e;
+          // step 64 (m / 2) + 63 is lane 31 of m | 1
+          const float ce = __shfl_sync(0xffffffffu, cv[m | 1], 31) * kLog2e;
+          if (r < nq * 64) {
+            cum[r] = cl;
+            cum[kWgMaxChunk + r] = dv[m];
+            cum[2 * kWgMaxChunk + r] = ex2_ftz(ce - cl) * dv[m];
+          }
+        }
+        wg::mbar_arrive(cd_full0 + 8 * b);   // releases this lane's stores
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: query tiles of 64 rows, by consumer_tiles --------------
+  wg::setmaxnreg_inc<L::consumer_regs>();
+  const int g = lane >> 2, t = lane & 3;
+  const unsigned mine = consumer_tiles(nq, role - 1);
+  const int q_last = mine ? 31 - __clz(mine) : -1;   // its last query tile
+  float yacc[32], sacc[32];
+  uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+  for (int r = 0; r < 32; ++r) yacc[r] = sacc[r] = 0.f;
+  for (int k = 0;; ++k) {
+    const int u = k * gridDim.x + blockIdx.x;
+    if (u >= n_units) break;
+    const Unit un = unit_at(u, H, G, nc);
+    const int sb = k % SB, e0 = k * nq;
+    const uint32_t sd = s_in + sb * L::s_in;
+    wg::mbar_wait(cd_full0 + 8 * (k & 1), (k >> 1) & 1);
+    const float* cum = cd + (k & 1) * 3 * kWgMaxChunk;
+    const float* dts = cum + kWgMaxChunk;
+    const float* w = cum + 2 * kWgMaxChunk;
+    float* yg = y + ((size_t)un.bh * S + (size_t)un.c * Q) * P;
+
+    for (int q = 0; q < nq; ++q) {
+      if (!((mine >> q) & 1u)) continue;
+      const int eq = e0 + q;
+      const uint32_t ct = tiles + (eq % SLOTS) * L::tile;   // C rows of tile q
+      wg::mbar_wait(t_full0 + 8 * (eq % SLOTS), (eq / SLOTS) & 1);
+      wg::mbar_wait(s_full0 + 8 * sb, (k / SB) & 1);
+      wg::mbar_wait(t_full0 + 8 * (e0 % SLOTS), (e0 / SLOTS) & 1);
+      const uint32_t b0 = tiles + (e0 % SLOTS) * L::tile + NB * kTileBytes;
+
+      // S of key tile 0, then y = C_q . (S_hi + S_lo)^T (S_in is (P, N),
+      // K-major): S's decay runs while the inter-chunk product is on the
+      // tensor cores
+      wg::fence_regs(yacc);
+      wg::fence_regs(sacc);
+      wg::mma_fence();
+      mma_kmajor<N>(sacc, ct, b0, 0);
+      wg::mma_commit();
+      mma_kmajor<N>(yacc, ct, sd, 0);
+      mma_kmajor<N>(yacc, ct, sd + NB * kTileBytes, 1);
+      wg::mma_commit();
+      const int i0 = 64 * q + 16 * warp + g;             // rows i0, i0 + 8
+      const float ci[2] = {cum[i0], cum[i0 + 8]};
+      wg::mma_wait<1>();
+      wg::fence_regs(sacc);
+      if (q == 0)
+        decay_diagonal(sacc, cum, dts, ci, i0, 0, t, Q);
+      else
+        decay_below(sacc, cum, w, ci, i0, 0, t, Q);
+      wg::mma_wait<0>();
+      wg::fence_regs(yacc);
+      if (q == q_last) warp_arrive(s_empty0 + 8 * sb, lane);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {                      // times exp(cum_i), 0 past Q
+        const float scale = i0 + 8 * h < Q ? exp2f(ci[h]) : 0.f;
+#pragma unroll
+        for (int jb = 0; jb < 8; ++jb) {
+          yacc[4 * jb + 2 * h] *= scale;
+          yacc[4 * jb + 2 * h + 1] *= scale;
+        }
+      }
+      split_g(sacc, ph, pl);
+
+      // y += sum over key tiles j <= q of (G_hi + G_lo) x_j.  S of tile
+      // j + 1 is issued before G x_j, and its decay runs while that product
+      // is on the tensor cores; G is split once the product is done (the
+      // last product is issued after the loop: a loop body without
+      // branches around a wgmma keeps both in flight)
+      for (int j = 0; j < q; ++j) {
+        const int ej = e0 + j, s0 = ej % SLOTS, s1 = (ej + 1) % SLOTS;
+        wg::mbar_wait(t_full0 + 8 * s1, ((ej + 1) / SLOTS) & 1);
+        const uint32_t bt1 = tiles + s1 * L::tile + NB * kTileBytes;
+        wg::fence_regs(sacc);
+        wg::mma_fence();
+        mma_kmajor<N>(sacc, ct, bt1, 0);
+        wg::mma_commit();
+        wg::fence_regs(yacc);
+        gx(yacc, ph, pl, tiles + s0 * L::tile + 2 * NB * kTileBytes);
+        wg::mma_commit();
+        wg::mma_wait<1>();
+        wg::fence_regs(sacc);
+        if (j + 1 == q)
+          decay_diagonal(sacc, cum, dts, ci, i0, 64 * (j + 1), t, Q);
+        else
+          decay_below(sacc, cum, w, ci, i0, 64 * (j + 1), t, Q);
+        wg::mma_wait<0>();
+        wg::fence_regs(yacc);
+        // this consumer's last query tile is its last use of every tile j
+        if (q == q_last) warp_arrive(t_empty0 + 8 * s0, lane);
+        split_g(sacc, ph, pl);
+      }
+      {
+        const int s0 = eq % SLOTS;
+        wg::fence_regs(yacc);
+        gx(yacc, ph, pl, tiles + s0 * L::tile + 2 * NB * kTileBytes);
+        wg::mma_commit();
+        wg::mma_wait<0>();
+        wg::fence_regs(yacc);
+        if (q == q_last) warp_arrive(t_empty0 + 8 * s0, lane);
+      }
+
+      // y is written once and read by the next layer's glue: streaming
+      // stores straight from the accumulator (256 contiguous bytes a row)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = i0 + 8 * h;
+        if (i >= Q) continue;
+#pragma unroll
+        for (int jb = 0; jb < 8; ++jb)
+          __stcs(reinterpret_cast<float2*>(yg + (size_t)i * P + jb * 8 + 2 * t),
+                 make_float2(yacc[4 * jb + 2 * h], yacc[4 * jb + 2 * h + 1]));
+      }
+    }
+
+    // pass through what this consumer does not read: the tiles past its
+    // last query tile and, with no query tile, S_in (every consumer warp
+    // arrives once on each buffer's "empty" barrier, after its "full" phase)
+    for (int j = q_last + 1; j < nq; ++j) {
+      const int ej = e0 + j;
+      wg::mbar_wait(t_full0 + 8 * (ej % SLOTS), (ej / SLOTS) & 1);
+      warp_arrive(t_empty0 + 8 * (ej % SLOTS), lane);
+    }
+    if (q_last < 0) {
+      wg::mbar_wait(s_full0 + 8 * sb, (k / SB) & 1);
+      warp_arrive(s_empty0 + 8 * sb, lane);
+    }
+    warp_arrive(cd_empty0 + 8 * (k & 1), lane);
+  }
+}
+
+template <int P, int N>
+int launch_wgmma_scan(const bf16* x, const float* dt, const bf16* bm, const bf16* cm,
+                      const float* cum, const bf16* states_in, float* y, int B, int H,
+                      int G, int S, int Q, cudaStream_t stream) {
+  using L = WgLayout<P, N>;
+  const int nc = S / Q;
+  // 4-D maps (columns, Q, nc, banks or heads): a box past a chunk's last
+  // step reads zeros, never the next chunk's rows
+  const cuuint64_t xd[4] = {(cuuint64_t)P, (cuuint64_t)Q, (cuuint64_t)nc,
+                            (cuuint64_t)B * H};
+  const cuuint64_t bd[4] = {(cuuint64_t)N, (cuuint64_t)Q, (cuuint64_t)nc,
+                            (cuuint64_t)B * G};
+  const cuuint64_t sd[3] = {(cuuint64_t)N, 2 * (cuuint64_t)P, (cuuint64_t)B * H * nc};
+  CUtensorMap tx, tb, tc, ts;
+  int err = tma::bf16_map(&tx, x, 4, xd, 64);
+  if (!err) err = tma::bf16_map(&tb, bm, 4, bd, 64);
+  if (!err) err = tma::bf16_map(&tc, cm, 4, bd, 64);
+  if (!err) err = tma::bf16_map(&ts, states_in, 3, sd, 64);
+  if (err) return err;
+  auto kernel = ssd_wgmma_chunk_scan<P, N>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
+  if (e != cudaSuccess) return (int)e;
+  // one persistent block per SM (at most one per unit)
+  int device = 0, sms = 0;
+  e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return (int)e;
+  const long long units = (long long)B * H * nc;
+  if (units > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(units < sms ? units : sms);
+  kernel<<<grid, kWgThreads, L::bytes, stream>>>(tx, tb, tc, ts, dt, cum, y, H, G, S, Q,
+                                                 (int)units);
+  return (int)cudaGetLastError();
+}
+
+// which chunk-scan kernel a bf16 call of (P, N, Q) runs: the wgmma kernel
+// at (64, 64) and (64, 128) up to kWgMaxChunk, else ssd_kernel_chunk_scan
+// (../ssd_scan.py BF16_CHUNK_SCAN)
+template <int P, int N>
+constexpr bool use_wgmma_scan(int Q) {
+  return wgmma_pn<P, N>() && Q <= kWgMaxChunk;
+}
+
 template <int P, int N>
 int launch_mma(const void* x, const float* dt, const float* a, const void* bm,
                const void* cm, float* y, float* state, float* cum,
@@ -537,6 +1065,10 @@ int launch_mma(const void* x, const float* dt, const float* a, const void* bm,
       cum, states, states_in, state, S, Q, P * N);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
+  if constexpr (wgmma_pn<P, N>())
+    if (use_wgmma_scan<P, N>(Q))
+      return launch_wgmma_scan<P, N>(xb, dt, bb, cb, cum, states_in, y, B, H, G, S, Q,
+                                     stream);
   const size_t scan_bytes = L::scan_bytes(Q);
   err = cudaFuncSetAttribute(ssd_kernel_chunk_scan<P, N>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -802,6 +1334,12 @@ int occupancy(int Q, int dtype, int* blocks, int* threads, int* smem_bytes) {
     threads[1] = kPassThreads;
     smem_bytes[0] = (int)L::state_bytes(Q);
     smem_bytes[2] = (int)L::scan_bytes(Q);
+    if constexpr (wgmma_pn<P, N>())
+      if (use_wgmma_scan<P, N>(Q)) {
+        fns[2] = (const void*)ssd_wgmma_chunk_scan<P, N>;
+        threads[2] = kWgThreads;
+        smem_bytes[2] = WgLayout<P, N>::bytes;
+      }
   } else if (dtype != 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -815,6 +1353,22 @@ int occupancy(int Q, int dtype, int* blocks, int* threads, int* smem_bytes) {
                                                           threads[i], smem_bytes[i]);
     if (err != cudaSuccess) return (int)err;
   }
+  return 0;
+}
+
+// the bf16 chunk-scan kernel of (P, N, Q): 1 for ssd_wgmma_chunk_scan
+// (with the query tiles of consumer 0 as a bit mask, the ring's tile slots
+// and S_in buffers), 0 for ssd_kernel_chunk_scan (the other three 0)
+template <int P, int N>
+int bf16_chunk_scan(int Q, int* wgmma, int* consumer0, int* slots, int* s_bufs) {
+  *wgmma = *consumer0 = *slots = *s_bufs = 0;
+  if constexpr (wgmma_pn<P, N>())
+    if (use_wgmma_scan<P, N>(Q)) {
+      *wgmma = 1;
+      *consumer0 = (int)consumer_tiles((Q + 63) / 64, 0);
+      *slots = WgLayout<P, N>::slots;
+      *s_bufs = WgLayout<P, N>::s_bufs;
+    }
   return 0;
 }
 
@@ -874,7 +1428,20 @@ int ssd_scan_occupancy(int P, int N, int chunk, int dtype, int* blocks,
   return (int)cudaErrorInvalidValue;
 }
 
+// the bf16 chunk-scan kernel of a call (bf16_chunk_scan above)
+int ssd_scan_bf16_chunk_scan(int P, int N, int chunk, int* wgmma, int* consumer0,
+                             int* slots, int* s_bufs) {
+  if (chunk < 1 || chunk > kMaxChunk) return (int)cudaErrorInvalidValue;
+#define SSD_PICK(PP, NN)                                                   \
+  if (P == PP && N == NN)                                                  \
+    return bf16_chunk_scan<PP, NN>(chunk, wgmma, consumer0, slots, s_bufs);
+  SSD_SHAPES(SSD_PICK)
+#undef SSD_PICK
+  return (int)cudaErrorInvalidValue;
+}
+
 const char* ssd_scan_error_string(int err) {
+  if (const char* text = tma::error_string(err)) return text;
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -1,6 +1,7 @@
-// Hopper's own building blocks (sm_90a) for flash_attention.cu's bf16
-// kernel: mbarriers, TMA tile copies, warpgroup matrix products (wgmma) and
-// register reallocation between warpgroups.
+// Hopper's own building blocks (sm_90a) for the bf16 kernels of
+// flash_attention.cu (flash_wgmma_kernel) and ssd_scan.cu
+// (ssd_wgmma_chunk_scan): mbarriers, TMA tile copies, warpgroup matrix
+// products (wgmma) and register reallocation between warpgroups.
 //
 // Shared-memory operands of wgmma are 64-column bf16 tiles in the 128-byte
 // swizzle that TMA writes (CU_TENSOR_MAP_SWIZZLE_128B): row r of a tile
@@ -88,6 +89,19 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// box (c0, c1, c2, c3) of a 4-D tensor map -> shared memory at dst, as
+// tma_load_3d
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 

@@ -19,15 +19,25 @@ Two implementations of one function live here:
     the chunks on (B, H, ...) tensors, the TPU kernel body written out;
   * the CUDA kernels in ``csrc/ssd_scan.cu`` (design notes in the source),
     compiled for the ``(P, N)`` pairs in ``SUPPORTED_PN`` and chunks up to
-    ``MAX_CHUNK``.  The dtype picks the design: bfloat16 runs three kernels
-    with the products on the tensor cores (``mma.sync``) and the chunk axis
-    parallel — chunk state, state passing, chunk scan — over three
-    scratches this wrapper allocates; the float32 operand of each product
-    (the decay-weighted x, the entering state, the masked scores) is split
-    into two bf16 parts (``_split_bf16`` is that arithmetic in PyTorch).
-    float32 runs the CUDA-core kernel, one block per (batch, head) looping
-    over the chunks, since tensor-core TF32 would miss the float32 bars.
-    Both are hand-written kernels; one call counts one launch.
+    ``MAX_CHUNK``.  The dtype picks the design.  bfloat16 runs three
+    kernels with the products on the tensor cores and the chunk axis
+    parallel, over three scratches this wrapper allocates: chunk state
+    and state passing (``mma.sync``), then the chunk scan, which is most
+    of the call's time.  ``BF16_CHUNK_SCAN`` names the chunk-scan kernel of
+    each (P, N, chunk): at (64, 64) (zamba2-7b) and (64, 128) (mamba2-370m)
+    up to ``WGMMA_MAX_CHUNK`` steps ``ssd_wgmma_chunk_scan``, on Hopper's
+    own instructions — one persistent block per SM over whole chunks, a
+    producer warpgroup feeding C, B and x tiles and the entering state by
+    TMA, two consumer warpgroups issuing ``wgmma``, each taking the query
+    tiles that ``consumer_tiles`` deals it; elsewhere
+    ``ssd_kernel_chunk_scan`` (``mma.sync``, one block per 64-row query
+    tile).  The float32 operand of each product (the decay-weighted x, the
+    entering state, the masked scores) is split into two bf16 parts
+    (``_split_bf16`` is that arithmetic in PyTorch; the wgmma chunk scan
+    takes the scores' hi part by truncation, ``_split_trunc``).  float32 runs the
+    CUDA-core kernel, one block per (batch, head) looping over the chunks,
+    since tensor-core TF32 would miss the float32 bars.  All are
+    hand-written kernels; one call counts one launch.
 
 ``ssd_scan_bhsp`` dispatches on where the tensors lie: CPU tensors take the
 plain version, CUDA tensors launch the kernels (counted in ``LAUNCHES``,
@@ -36,6 +46,7 @@ one per call).  Anything else raises — a CUDA call never falls back.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -48,11 +59,33 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import _split_bf16  # noqa: F401
 
 __all__ = ["ssd_scan_bhsp", "ssd_scan_reference", "LAUNCHES",
-           "reset_launch_counts", "SUPPORTED_PN", "MAX_CHUNK"]
+           "reset_launch_counts", "SUPPORTED_PN", "MAX_CHUNK",
+           "WGMMA_MAX_CHUNK", "BF16_CHUNK_SCAN", "KERNEL_NAMES",
+           "WGMMA_RING", "chunk_scan_kernel", "consumer_tiles"]
 
 SUPPORTED_PN = ((16, 16), (32, 64), (64, 64), (64, 128), (128, 128))  # csrc SSD_SHAPES
 MAX_CHUNK = 1024                                                      # csrc kMaxChunk
+WGMMA_MAX_CHUNK = 256                                                 # csrc kWgMaxChunk
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The bf16 chunk-scan kernel of each (P, N): (longest chunk, kernel) bands,
+# the first band that holds a call's chunk runs it.  The C entry point picks
+# the same (chip_smoke.py holds it equal to the library's
+# ssd_scan_bf16_chunk_scan).
+BF16_CHUNK_SCAN = {
+    pn: (((WGMMA_MAX_CHUNK, "ssd_wgmma_chunk_scan"),) if pn in ((64, 64), (64, 128))
+         else ()) + ((MAX_CHUNK, "ssd_kernel_chunk_scan"),)
+    for pn in SUPPORTED_PN}
+# the wgmma kernel's ring at each of its (P, N): 64-step tiles (C, B and x
+# rows) and buffers of the entering state, as csrc WgLayout sizes them to
+# fit a block's shared memory
+WGMMA_RING = {(64, 64): (7, 2), (64, 128): (4, 1)}
+# every kernel of the library, as a profiler names them, and the part of a
+# bf16 call each runs (the float32 kernel is a call of its own)
+KERNEL_NAMES = {"ssd_kernel_chunk_state": "chunk_state",
+                "ssd_kernel_state_pass": "state_pass",
+                "ssd_wgmma_chunk_scan": "chunk_scan",
+                "ssd_kernel_chunk_scan": "chunk_scan",
+                "ssd_kernel": "float32"}
 
 # launches of the CUDA kernel (not of the plain version)
 LAUNCHES = {"ssd_scan": 0}
@@ -61,9 +94,39 @@ LAUNCHES = {"ssd_scan": 0}
 LIBRARY = ("ssd_scan", "ssd_scan.cu", _build.FMA_FLAGS)
 
 
+def _split_trunc(x: torch.Tensor) -> tuple:
+    """``x`` (float32) as ``hi + lo``, both bfloat16, as the wgmma chunk
+    scan splits G (``csrc/ssd_scan.cu`` ``split_trunc``): ``hi`` is x
+    truncated to bf16 (its upper 16 bits), ``lo = bf16(x - hi)``; hi + lo
+    carries x to ~2^-16 of its size.  The tests use this to hold that
+    arithmetic in PyTorch; no path here calls it."""
+    hi = (x.view(torch.int32) & -65536).view(torch.float32)
+    return hi.to(torch.bfloat16), (x - hi).to(torch.bfloat16)
+
+
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def chunk_scan_kernel(p: int, n: int, chunk: int) -> str:
+    """The kernel that runs the chunk scan of a bf16 call (``BF16_CHUNK_SCAN``)."""
+    return next(name for longest, name in BF16_CHUNK_SCAN[(p, n)] if chunk <= longest)
+
+
+def consumer_tiles(n_tiles: int) -> tuple:
+    """The 64-row query tiles of a chunk that each of the wgmma kernel's two
+    consumer warpgroups computes, as two tuples in ascending order: from
+    the heaviest tile down (tile t pairs with key tiles 0..t), each tile goes
+    to the consumer with fewer (query tile, key tile) pairs so far, the
+    first on a tie.  At 4 tiles: (0, 3) and (1, 2), 5 pairs each.  The C
+    kernel's ``consumer_tiles`` is the same rule."""
+    load, mine = [0, 0], ([], [])
+    for t in range(n_tiles - 1, -1, -1):
+        who = 1 if load[1] < load[0] else 0
+        load[who] += t + 1
+        mine[who].append(t)
+    return tuple(sorted(mine[0])), tuple(sorted(mine[1]))
 
 
 def _check(x, dt, a, bmat, cmat, chunk: int) -> None:
@@ -110,8 +173,11 @@ def ssd_scan_reference(x, dt, a, bmat, cmat, *, chunk: int):
     return y, state
 
 
-def _launch_cuda(x, dt, a, bmat, cmat, chunk: int):
-    """Launch the CUDA kernel on the operands' card (no synchronisation)."""
+def _launch_cuda(x, dt, a, bmat, cmat, chunk: int,
+                 lib: Optional[ctypes.CDLL] = None):
+    """Launch the CUDA kernel on the operands' card (no synchronisation).
+    ``lib`` is this package's library unless a caller passes another build
+    of the same C interface (another checkout's, to compare the two)."""
     _build.refuse_dtensor("ssd_scan", x, dt, a, bmat, cmat)
     _build.refuse_grad("ssd_scan", x, dt, a, bmat, cmat)
     _check(x, dt, a, bmat, cmat, chunk)
@@ -140,7 +206,8 @@ def _launch_cuda(x, dt, a, bmat, cmat, chunk: int):
         raise ValueError("the bf16 SSD kernels copy 16-byte rows: x, B and C "
                          "must start 16-byte aligned")
 
-    lib = _build.load_library(*LIBRARY)
+    if lib is None:
+        lib = _build.load_library(*LIBRARY)
     fn = lib.ssd_scan_launch
     if fn.argtypes is None:                  # first call: bind the signature
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 \

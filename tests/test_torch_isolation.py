@@ -1,7 +1,8 @@
 """PyTorch port: the package stands alone.
 
-``repro_torch``, ``chip_smoke.py`` and ``renewal_scan_ab.py`` import
-neither ``jax`` nor any part of the reference package ``repro``; every
+``repro_torch``, ``chip_smoke.py`` and the A/B scripts
+(``renewal_scan_ab.py``, ``flash_attention_ab.py``, ``ssd_scan_ab.py``)
+import neither ``jax`` nor any part of the reference package ``repro``; every
 module imports with ``jax`` made unimportable, and importing them builds no
 kernel.  The entry points that import lazily (the event oracle, the sweep,
 the Monte-Carlo, the planners, both renewal engines, the correlated
@@ -45,8 +46,9 @@ def _imported_names(path):
 
 
 def test_sources_import_no_jax_and_no_reference():
-    files = [p for _, p in _modules()] + [ROOT / "chip_smoke.py",
-                                          ROOT / "renewal_scan_ab.py"]
+    files = [p for _, p in _modules()] + [
+        ROOT / name for name in ("chip_smoke.py", "renewal_scan_ab.py",
+                                 "flash_attention_ab.py", "ssd_scan_ab.py")]
     for path in files:
         for name in _imported_names(path):
             top = name.split(".")[0]

@@ -346,6 +346,11 @@ CARD_SSD_CASES = SSD_CASES + [
     (2, 1024, 8, 4, 64, 64, 256),                # four groups
     (1, 13, 4, 1, 64, 64, 256),                  # chunk 13 (a 13-token prompt)
     (2, 96, 4, 1, 64, 64, 48),                   # chunk 48, not a multiple of 16
+    # the wgmma chunk scan's edges, and past its chunks
+    (2, 1024, 8, 1, 64, 128, 256),               # mamba2-370m's (P, N)
+    (2, 400, 4, 1, 64, 64, 100),                 # chunk 100: a tile ends mid-way
+    (1, 768, 8, 4, 64, 128, 192),                # chunk 192, four groups
+    (1, 1024, 4, 1, 64, 64, 512),                # chunk 512: the mma.sync scan
 ]
 
 
