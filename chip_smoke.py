@@ -43,13 +43,16 @@ same operands:
 * the LM kernels against their plain versions (``[lm-kernel-vs-plain]``):
   flash attention at the path's shapes and edges, the SSD scan at
   zamba2-7b's prefill in both dtypes, four groups, mamba2-370m's
-  (P, N) = (64, 128) and chunks 13, 48, 100, 192 and 512, with the bf16
-  chunk-scan kernel of each (P, N, chunk) held equal to the module's
+  (P, N) = (64, 128), chunks 13, 48, 100, 192 and 512, and the fused
+  chunk state's chain (one (batch, head) of 64 chunks; 3,584 units at
+  chunk 100), with the bf16 chunk-state and chunk-scan kernels of each
+  (P, N, chunk) held equal to the module's ``BF16_CHUNK_STATE`` and
   ``BF16_CHUNK_SCAN`` (``[ssd-tiles]``) as flash's tiles are
   (``[flash-tiles]``);
 * Zamba2-7B serving at its published widths with seeded weights: a bf16
   prefill of 2 x 4096 tokens (13 ``flash_attention`` and 81 ``ssd_scan``
-  launches), a float32 prefill of 2 x 512 tokens (cut to 15 of the 81
+  launches; its profile holds that they ran the wgmma chunk state and
+  chunk scan and no state-passing kernel), a float32 prefill of 2 x 512 tokens (cut to 15 of the 81
   layers: 2 of the 13 super-blocks and the tail) against the same tokens
   decoded one at a time and against the plain path, and the serve loop
   (batch 4, prompt 16, 32 generated tokens).
@@ -225,8 +228,8 @@ LM_KERNEL_REPS = 10
 # test_decode_matches_forward (5e-3 / 1e-3)
 TOL_SSD = (2e-3, 1e-3)
 TOL_DECODE = (5e-3, 1e-3)
-# kernels of one bf16 ssd_scan call (csrc/ssd_scan.cu ssd_kernel_<part>);
-# a float32 call runs ssd_kernel alone
+# the parts of one bf16 ssd_scan call (ssd_scan.KERNEL_NAMES; the fused
+# chunk state leaves state_pass empty); a float32 call runs ssd_kernel alone
 SSD_PARTS = ("chunk_state", "state_pass", "chunk_scan", "float32")
 
 
@@ -1218,16 +1221,16 @@ def check_close(what: str, got, want, atol: float, rtol: float) -> float:
 def kernel_name(mangled: str) -> str:
     """The kernel's own name and template arguments in a mangled symbol,
     e.g. ``flash_wgmma_kernel<112>``: the last length-prefixed identifier
-    that names a kernel (``kernel`` or ``chunk_scan`` in it) and ends where
-    a name does (template arguments, the end of the nested name or the
-    parameters follow)."""
+    that names a kernel (``kernel``, ``chunk_scan`` or ``chunk_state`` in
+    it) and ends where a name does (template arguments, the end of the
+    nested name or the parameters follow)."""
     found = None
     for m in re.finditer(r"\d+", mangled):
         for i in range(len(m.group())):
             n, start = int(m.group()[i:]), m.end()
             ident, rest = mangled[start:start + n], mangled[start + n:]
-            if len(ident) == n and ("kernel" in ident or
-                                    "chunk_scan" in ident) and \
+            if len(ident) == n and any(w in ident for w in (
+                    "kernel", "chunk_scan", "chunk_state")) and \
                     re.fullmatch(r"[A-Za-z_]\w*", ident) and \
                     not re.match(r"[a-z0-9_]", rest):
                 found = (ident, rest)
@@ -1283,7 +1286,8 @@ def print_occupancy(fa, ssd, head_dim: int, p: int, n: int, chunk: int) -> None:
                  [f"{fa.BF16_KERNEL[head_dim]}<{head_dim}>" if dtype
                   else f"flash_kernel<{head_dim}>"]),
                 (ssd, "ssd_scan_occupancy", (p, n, chunk),
-                 [f"ssd_kernel_chunk_state<{p},{n}>", "ssd_kernel_state_pass",
+                 [f"{ssd.chunk_state_kernel(p, n, chunk)}<{p},{n}>",
+                  "ssd_kernel_state_pass",
                   f"{ssd.chunk_scan_kernel(p, n, chunk)}<{p},{n}>"] if dtype
                  else [f"ssd_kernel<{p},{n}>"])):
             lib = _build.load_library(*module.LIBRARY)
@@ -1292,8 +1296,10 @@ def print_occupancy(fa, ssd, head_dim: int, p: int, n: int, chunk: int) -> None:
             blocks, threads, smem = ((ctypes.c_int * 3)() for _ in range(3))
             _build.check_launch(lib, module.LIBRARY[0],
                                 fn(*shape, dtype, blocks, threads, smem))
+            # a kernel the call does not launch reports 0 threads (the
+            # fused chunk state leaves no state-passing kernel)
             rows += [(name, blocks[i], threads[i], smem[i])
-                     for i, name in enumerate(names)]
+                     for i, name in enumerate(names) if threads[i]]
         for name, b, t, sm in rows:
             line("occupancy", kernel=name, dtype=kind, threads=t,
                  dynamic_smem_bytes=sm, blocks_per_sm=b, warps_per_sm=b * t // 32)
@@ -1327,17 +1333,27 @@ def check_ssd_tiles(ssd, shapes) -> None:
     for the wgmma kernel the query tiles of its first consumer and its
     ring, as the C library reports them (ssd_scan_bf16_chunk_scan), against
     the module's BF16_CHUNK_SCAN, consumer_tiles and WGMMA_RING, which the
-    CPU tests emulate."""
+    CPU tests emulate; and its chunk-state kernel
+    (ssd_scan_bf16_chunk_state) against BF16_CHUNK_STATE."""
     import ctypes
     from repro_torch.kernels import _build
 
     lib = _build.load_library(*ssd.LIBRARY)
     fn = lib.ssd_scan_bf16_chunk_scan
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 4
+    fs = lib.ssd_scan_bf16_chunk_state
+    fs.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     for p, n, chunk in sorted(set(shapes)):
-        wgmma, first, slots, s_bufs = (ctypes.c_int() for _ in range(4))
+        wgmma, first, slots, s_bufs, fused = (ctypes.c_int() for _ in range(5))
         _build.check_launch(lib, "ssd_scan", fn(p, n, chunk, wgmma, first,
                                                 slots, s_bufs))
+        _build.check_launch(lib, "ssd_scan", fs(p, n, chunk, fused))
+        state_kernel = "ssd_wgmma_chunk_state" if fused.value \
+            else "ssd_kernel_chunk_state"
+        if state_kernel != ssd.chunk_state_kernel(p, n, chunk):
+            raise Failed(f"SSD bf16 chunk state at (P, N, chunk) {(p, n, chunk)}: "
+                         f"the library runs {state_kernel}, ssd_scan.py "
+                         f"{ssd.chunk_state_kernel(p, n, chunk)}")
         kernel = "ssd_wgmma_chunk_scan" if wgmma.value else "ssd_kernel_chunk_scan"
         tiles = tuple(t for t in range(4) if first.value >> t & 1)
         got = (kernel, tiles if wgmma.value else None,
@@ -1347,7 +1363,8 @@ def check_ssd_tiles(ssd, shapes) -> None:
         want = (want_kernel,
                 ssd.consumer_tiles(-(-chunk // 64))[0] if wgmma_want else None,
                 ssd.WGMMA_RING[(p, n)] if wgmma_want else None)
-        line("ssd-tiles", p=p, n=n, chunk=chunk, kernel=kernel,
+        line("ssd-tiles", p=p, n=n, chunk=chunk, chunk_state_kernel=state_kernel,
+             kernel=kernel,
              consumer_tiles=(tiles, ssd.consumer_tiles(-(-chunk // 64))[1])
              if wgmma.value else None,
              tile_slots=slots.value, s_in_buffers=s_bufs.value)
@@ -1741,10 +1758,13 @@ def lm_path(card_line: str, fa, ssd) -> list:
                                        flash_vs_plain(fa, label, q, k, v,
                                                       h // kh, win))
     # (label, dtype, batch, heads, groups, S, chunk, P, N); zamba2-prefill
-    # takes 16 chunks through the state-passing kernel, chunk-13 is a
+    # passes the state along 224 chains of 16 chunks, chunk-13 is a
     # 13-token prompt (ops.ssd_scan takes min(chunk, S)); mamba2-370m's
     # (P, N) = (64, 128) at its 32 heads; chunks 13, 48, 100 and 192 end
-    # inside a 64-row tile, 512 is past the wgmma kernel's chunks
+    # inside a 64-row tile, 512 is past the wgmma kernels' chunks.  The
+    # fused chunk state's chain: chain-63 is one (batch, head) of 64 chunks
+    # (63 links, one after another); units-3584 at chunk 100 holds 3,584
+    # units, 13.6 times the 264 blocks resident at once
     q_cfg, p_cfg, n_cfg = s_cfg.chunk_size, s_cfg.head_dim, s_cfg.state_dim
     ssd_cases = (
         ("zamba2-prefill", bf16, PREFILL_BATCH, ssm_heads, 1, PREFILL_LEN, q_cfg,
@@ -1757,7 +1777,9 @@ def lm_path(card_line: str, fa, ssd) -> list:
         ("pn-64x128", bf16, PREFILL_BATCH, 32, 1, PREFILL_LEN, 256, 64, 128),
         ("chunk-100", bf16, PREFILL_BATCH, 8, 1, 400, 100, p_cfg, n_cfg),
         ("chunk-192-pn-64x128", bf16, PREFILL_BATCH, 8, 4, 768, 192, 64, 128),
-        ("chunk-512", bf16, PREFILL_BATCH, 8, 1, 2048, 512, p_cfg, n_cfg))
+        ("chunk-512", bf16, PREFILL_BATCH, 8, 1, 2048, 512, p_cfg, n_cfg),
+        ("chain-63", bf16, 1, 1, 1, 64 * q_cfg, q_cfg, p_cfg, n_cfg),
+        ("units-3584", bf16, PREFILL_BATCH, ssm_heads, 1, 1600, 100, p_cfg, n_cfg))
     check_ssd_tiles(ssd, [(p, n, chunk) for _, dtype, *_, chunk, p, n in ssd_cases
                           if dtype == bf16])
     for i, (label, dtype, b, h, g, s, chunk, p, n) in enumerate(ssd_cases):
@@ -1874,8 +1896,16 @@ def lm_path(card_line: str, fa, ssd) -> list:
          tokens_per_s=f"{PREFILL_BATCH * PREFILL_LEN / (wall_ms * 1e-3):.1f}")
     del cap_fa, cap_ssd, fa_args, ssd_args, fa_out, ssd_y, ssd_st, q, k, v
     del q4, k4, v4
-    print_profile("prefill-profile", card_line,
-                  device_profile(lambda: prefill(params, batch)))
+    prof = device_profile(lambda: prefill(params, batch))
+    print_profile("prefill-profile", card_line, prof)
+    # the 81 launches ran the wgmma chunk state and chunk scan, and no
+    # state-passing kernel
+    p_cfg, n_cfg, q_cfg = s_cfg.head_dim, s_cfg.state_dim, s_cfg.chunk_size
+    want = {"chunk_state": [f"{ssd.chunk_state_kernel(p_cfg, n_cfg, q_cfg)}<{p_cfg},{n_cfg}>"],
+            "chunk_scan": [f"{ssd.chunk_scan_kernel(p_cfg, n_cfg, q_cfg)}<{p_cfg},{n_cfg}>"]}
+    if prof["device_ms"] is not None and prof["ssd_kernels"] != want:
+        raise Failed(f"the prefill's SSD kernels were {prof['ssd_kernels']}, "
+                     f"expected {want}")
 
     # --- phase 9 (run here, on the bf16 weights): the serve loop -----------
     prompts = np.random.default_rng(2).integers(

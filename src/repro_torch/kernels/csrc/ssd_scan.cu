@@ -21,24 +21,58 @@
 // and carries S in VMEM scratch.  Only that P x N state is carried from
 // chunk to chunk; everything else is independent across chunks.  The dtype
 // and (P, N, Q) pick the kernels at the C entry point (never a failure;
-// ../ssd_scan.py BF16_CHUNK_SCAN names the chunk scan's):
+// ../ssd_scan.py BF16_CHUNK_STATE and BF16_CHUNK_SCAN name them):
 //
-// bfloat16: three kernels on the current stream, Mamba2's own chunked-scan
-// structure, the products on the tensor cores (bf16 in, float32 out):
-//   (a) ssd_kernel_chunk_state, grid (nc, B*H), 4 warps, mma.sync
-//       m16n8k16 (mma_sm90.cuh).  The chunk's cum (block scan; written to
-//       a float32 scratch (B, H, S)) and its local state
-//       sum_j (w_j x_j) (x) B_j  as the product (w x)^T B,
-//       w_j = exp(cum_end - cum_j) dt_j: each x fragment is scaled by w in
-//       registers and split hi + lo; B is an exact bf16 operand.  To a
-//       float32 scratch (B, H, nc, P, N).  x and B arrive 64 steps at a
-//       time, the next tile by cp.async while this one computes.
-//   (b) ssd_kernel_state_pass, grid (P*N / 1024, B*H): the only
-//       sequential part, P*N independent float32 recurrences of length nc
-//       per (b, h): S_c = exp(cum_end,c) S_{c-1} + local_c.  The state
-//       entering chunk c goes to a bf16 scratch (B, H, nc, 2, P, N),
-//       already split hi and lo; the last is the final state.
-//   (c) the chunk scan, y_i = exp(cum_i) C_i . S_in^T (S_in split hi/lo)
+// bfloat16: Mamba2's own chunked-scan structure on the current stream, the
+// products on the tensor cores (bf16 in, float32 out).  First the chunk
+// state and state passing, then the chunk scan:
+//   (a) ssd_wgmma_chunk_state, at (P, N) = (64, 64) (zamba2-7b) and
+//       (64, 128) (mamba2-370m), chunks up to kWgMaxChunk = 256: both in
+//       one launch, on Hopper's own instructions.  A unit is one chunk of
+//       one (batch, head).  Persistent blocks (as many as are resident at
+//       once) claim units from a ticket counter in chunk-slowest order
+//       (ticket t: chunk t / (B H) of head t % (B H)), so a unit's
+//       predecessor, the chunk before it of the same head, was claimed
+//       B H tickets earlier by a block that is running: waiting for it
+//       cannot deadlock at any number of resident blocks (blockIdx order
+//       could not promise that).  Per block, on two (64, 64) or one
+//       (64, 128) of them per SM:
+//        - a producer warp claims each unit, loads its dt and a, and one
+//          thread issues TMA copies of its 64-step B and x tiles into a
+//          ring of 4 slots (a whole chunk) with "full" and "empty"
+//          mbarriers; the 4-D tensor maps of the chunk scan (columns, Q,
+//          nc, banks or heads) read zeros past the chunk's last step;
+//        - the consumer warpgroup computes the unit's cum with
+//          ssd_kernel_chunk_state's block scan over the same 128 threads
+//          (a serial run per thread, then shuffles and warp totals: the
+//          cum scratch the chunk scan reads keeps its bits), writes it,
+//          and forms the local state L = sum_j (w_j x_j) (x) B_j as the
+//          product (w x)^T B, w_j = exp(cum_end - cum_j) dt_j, with M = P:
+//          A = (w x)^T in registers (ldmatrix.trans from the swizzled x
+//          tile, scaled by w, split hi + lo), B the exact bf16 B tile read
+//          MN-major through wgmma's transpose bit, float32 accumulation.
+//          It hands L to the linker through one of two (64, 64) or one
+//          (64, 128) shared-memory buffers and goes on to the next unit;
+//        - the linker warps pass the state along: wait until flags[bh] ==
+//          c (an acquire load, polled with a bound that traps rather than
+//          hangs), read S_c in float32 from `state` (B, H, P, N), which is
+//          the carry (chunk 0 starts from zeros and reads nothing), store
+//          S_{c+1} = S_c exp(cum_end) + L there in ssd_kernel_state_pass's
+//          expression order, write S_c split into bf16 hi and lo to the
+//          scratch (B, H, nc, 2, P, N) that the chunk scan's tensor map
+//          reads, and after a fence release flags[bh] = c + 1.  The last
+//          chunk's store is the final state.  The carry of one (b, h) is
+//          16 KB (32 KB at N 128), so the chain runs through L2: no local
+//          state goes to device memory.  The flags (B H int32) and the
+//          ticket counter are a scratch the wrapper zeroes for each call.
+//   (a') elsewhere, ssd_kernel_chunk_state, grid (nc, B*H), 4 warps,
+//       mma.sync m16n8k16 (mma_sm90.cuh): the same cum and local state as a
+//       float32 scratch (B, H, nc, P, N), x and B 64 steps at a time by
+//       cp.async; then ssd_kernel_state_pass, grid (P*N / 1024, B*H), P*N
+//       independent float32 recurrences of length nc per (b, h): S_c =
+//       exp(cum_end,c) S_{c-1} + local_c, the state entering chunk c to the
+//       same split scratch, the last to the final state.
+//   (b) the chunk scan, y_i = exp(cum_i) C_i . S_in^T (S_in split hi/lo)
 //       + sum over key tiles j <= i of G_ij x_j, G = (C B^T) exp(cum_i -
 //       cum_j) dt_j (split hi/lo against the exact bf16 x).  Most of the
 //       call's time (78 % with the mma.sync kernel below).
@@ -112,9 +146,15 @@
 // What bounds it.  At zamba2-7b's prefill (B = 2, H = 112, S = 4096,
 // P = N = 64, chunk 256) the function moves ~362 MB (y in float32 is
 // 235 MB of it) against ~4.5e10 flop, so it is bound by bytes (~0.11 ms at
-// 3.35 TB/s).  The bf16 design adds ~235 MB of scratch traffic (the local
-// states written by (a), read and rewritten by (b), read by (c)).  The
-// wgmma chunk scan moves ~335 MB of device memory (y, x, S_in, cum and
+// 3.35 TB/s).  ssd_wgmma_chunk_state moves ~188 MB of device memory (x
+// 117 MB, S_in hi + lo 59 MB, dt, cum, the final state and B), ~0.056 ms;
+// the two kernels it replaces moved ~305 MB, 117 MB of it the local
+// states written and read back.  What holds it back is the chain: 16
+// links a head, one after another, each a poll of the flag, an L2 round
+// trip to read S_c, the stores and the fence before the next flag, slower
+// under the load of the other units' streams than on a lone chain
+// (ssd_scan_ab.py at the repository root times one, chain-63; PERF.md
+// section 6).  The wgmma chunk scan moves ~335 MB (y, x, S_in, cum and
 // dt; B and C once a chunk), ~0.10 ms, and issues ~7.1e10 flop with the
 // splits, ~0.072 ms; it takes ~0.18 ms.  clock64 probes put each
 // consumer's time in the decay and split of every key tile and in waiting
@@ -122,12 +162,14 @@
 //
 // Resources (ptxas for sm_90a and CUDA's occupancy calculator, printed by
 // chip_smoke.py's [build] and [occupancy] lines; table in PERF.md), bf16 at
-// (P, N) = (64, 64), chunk 256, no spills: chunk_state 80 registers and
+// (P, N) = (64, 64), chunk 256, no spills: ssd_wgmma_chunk_state 128
+// registers (the launch bound's two blocks of 224 threads), 107,520 B of
+// dynamic shared memory, 2 blocks per SM; ssd_wgmma_chunk_scan the launch
+// bound's 168 registers, 176 B static and 211,968 B dynamic shared memory,
+// 1 block of 12 warps per SM; elsewhere chunk_state 80 registers and
 // 38,912 B of shared memory, 5 blocks per SM (shared memory); state_pass
-// 57 registers, 4 blocks of 256 threads (registers); ssd_wgmma_chunk_scan
-// the launch bound's 168 registers, 176 B static and 211,968 B dynamic
-// shared memory, 1 block of 12 warps per SM; ssd_kernel_chunk_scan held
-// to 128 registers by its launch bounds (4 blocks of 128 threads).
+// 57 registers, 4 blocks of 256 threads (registers); ssd_kernel_chunk_scan
+// held to 128 registers by its launch bounds (4 blocks of 128 threads).
 //
 // Built without -fmad=false (contraction allowed) and without fast-math.
 #include <cuda_bf16.h>
@@ -145,7 +187,8 @@ constexpr int kMaxChunk = 1024;  // ../ssd_scan.py MAX_CHUNK
 constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
-// bfloat16: chunk state, state passing, chunk scan on the tensor cores
+// bfloat16 on mma.sync: chunk state, state passing, chunk scan (all that
+// the wgmma kernels below do not take, and the chunk state of any shape)
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
@@ -1032,18 +1075,383 @@ int launch_wgmma_scan(const bf16* x, const float* dt, const bf16* bm, const bf16
   return (int)cudaGetLastError();
 }
 
-// which chunk-scan kernel a bf16 call of (P, N, Q) runs: the wgmma kernel
-// at (64, 64) and (64, 128) up to kWgMaxChunk, else ssd_kernel_chunk_scan
-// (../ssd_scan.py BF16_CHUNK_SCAN)
+// ---------------------------------------------------------------------------
+// bfloat16 chunk state and state passing in one kernel at (P, N) = (64, 64),
+// (64, 128), chunks up to 256: persistent blocks claiming units in chunk
+// order, TMA, wgmma, the carried state passed along a chain of flags
+// ---------------------------------------------------------------------------
+
 template <int P, int N>
-constexpr bool use_wgmma_scan(int Q) {
-  return wgmma_pn<P, N>() && Q <= kWgMaxChunk;
+struct StLayout {
+  static_assert(wgmma_pn<P, N>(), "the wgmma chunk state takes P 64, N 64 or 128");
+  static constexpr int NB = N / 64;          // 64-column tiles of a row of B
+  // one slot: 64 steps of B rows (NB tiles), then of x rows
+  static constexpr int slot = (NB + 1) * kTileBytes;
+  static constexpr int slots = kWgMaxChunk / 64;   // a whole chunk in flight
+  // the linker's warps: 64 state elements a thread
+  static constexpr int link_warps = P * N / (64 * 32);
+  static constexpr int threads = 128 + 32 + 32 * link_warps;
+  // L buffers (float32 rows of N + 8: the consumer's stores from the
+  // accumulator layout miss each other's banks)
+  static constexpr int ls = N + 8;
+  static constexpr int l_bufs = N == 64 ? 2 : 1;
+  static constexpr int min_blocks = N == 64 ? 2 : 1;
+  // 1024 bytes of slack align the swizzled tiles; the L buffers; two dt
+  // buffers, then the unit's cum and w
+  static constexpr int bytes =
+      1024 + slots * slot + l_bufs * P * ls * 4 + 4 * kWgMaxChunk * 4;
+  static_assert(min_blocks * (bytes + 1024) <= 233472, "blocks fit an SM's shared memory");
+};
+
+// ldmatrix x4 .trans at a shared-memory address
+__device__ __forceinline__ void ldsm_x4_trans_at(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// d (64 x N, float32) += A (64 x 16, bf16 in registers) B (16 x N), B in
+// shared memory, MN-major
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                       uint64_t desc_b) {
+  if constexpr (N == 64)
+    wg::mma_rs_n64(d, a, desc_b);
+  else
+    wg::mma_rs_n128(d, a, desc_b);
+}
+
+// Wait until *flag == want: an acquire load at GPU scope, polled.  A wait
+// that has not ended after 2^26 polls traps: a fault in the chain then
+// fails the launch instead of holding the card.
+__device__ __forceinline__ void wait_flag(const int* flag, int want) {
+  for (uint32_t polls = 0;; ++polls) {
+    int v;
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(flag) : "memory");
+    if (v == want) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+// *flag = v, after every write that the threads which met at the barrier
+// before it made (the fence makes them visible at GPU scope first)
+__device__ __forceinline__ void release_flag(int* flag, int v) {
+  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+  asm volatile("st.relaxed.gpu.global.b32 [%0], %1;\n" ::"l"(flag), "r"(v) : "memory");
 }
 
 template <int P, int N>
+__global__ void __launch_bounds__(StLayout<P, N>::threads, StLayout<P, N>::min_blocks)
+ssd_wgmma_chunk_state(const __grid_constant__ CUtensorMap tx,
+                      const __grid_constant__ CUtensorMap tb,
+                      const float* __restrict__ dt, const float* __restrict__ a,
+                      float* __restrict__ cum_out, bf16* __restrict__ states_in,
+                      float* __restrict__ state, int* __restrict__ flags, int n_bh,
+                      int H, int G, int S, int Q) {
+  using L = StLayout<P, N>;
+  constexpr int NB = L::NB, SLOTS = L::slots, LB = L::l_bufs, LS = L::ls;
+  constexpr int LINK = 32 * L::link_warps;   // the linker's threads
+  extern __shared__ unsigned char smem_raw[];
+  // t_full[SLOTS], t_empty[SLOTS], d_full[2], d_empty[2], l_full[LB], l_empty[LB]
+  __shared__ __align__(8) uint64_t bars[2 * SLOTS + 4 + 2 * LB];
+  __shared__ int unit_of[2];         // the unit of each dt buffer, -1: none left
+  __shared__ float a_of[2];          // its head's a
+  __shared__ int l_unit[LB];         // the unit of each L buffer, -1: none left
+  __shared__ float l_decay[LB];      // its exp(cum_end)
+  __shared__ float warp_total[4];
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  const uint32_t tiles = (raw + 1023u) & ~1023u;     // [slot][B, x]
+  float* const lbuf = reinterpret_cast<float*>(smem_raw + (tiles + SLOTS * L::slot - raw));
+  float* const dbuf = lbuf + LB * P * LS;              // [2][kWgMaxChunk]
+  float* const cum = dbuf + 2 * kWgMaxChunk;           // the unit's cum
+  float* const wdec = cum + kWgMaxChunk;               // w, zero past Q
+  const uint32_t t_full0 = wg::smem_u32(&bars[0]);
+  const uint32_t t_empty0 = wg::smem_u32(&bars[SLOTS]);
+  const uint32_t d_full0 = wg::smem_u32(&bars[2 * SLOTS]);
+  const uint32_t d_empty0 = wg::smem_u32(&bars[2 * SLOTS + 2]);
+  const uint32_t l_full0 = wg::smem_u32(&bars[2 * SLOTS + 4]);
+  const uint32_t l_empty0 = wg::smem_u32(&bars[2 * SLOTS + 4 + LB]);
+  const int nc = S / Q, nq = (Q + 63) / 64, n_units = n_bh * nc;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < SLOTS; ++s) {
+      wg::mbar_init(t_full0 + 8 * s, 1);
+      wg::mbar_init(t_empty0 + 8 * s, 4);   // one arrival per consumer warp
+    }
+    for (int b = 0; b < 2; ++b) {
+      wg::mbar_init(d_full0 + 8 * b, 32);   // one per producer lane
+      wg::mbar_init(d_empty0 + 8 * b, 4);
+    }
+    for (int b = 0; b < LB; ++b) {
+      wg::mbar_init(l_full0 + 8 * b, 128);  // one per consumer thread
+      wg::mbar_init(l_empty0 + 8 * b, L::link_warps);
+    }
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // ---- the producer: claims each unit, loads its dt and a, and issues
+    // TMA copies of its 64-step B and x tiles through the ring ------------
+    int e = 0;   // tiles through the ring so far (lane 0)
+    for (int k = 0;; ++k) {
+      const int kb = k & 1;
+      // a fresh barrier passes the wait for parity 1
+      wg::mbar_wait(d_empty0 + 8 * kb, ((k >> 1) & 1) ^ 1);
+      int t = 0;
+      if (lane == 0) t = atomicAdd(flags + n_bh, 1);
+      t = __shfl_sync(0xffffffffu, t, 0);
+      const int u = t < n_units ? t : -1;
+      // ticket t is chunk t / (B H) of head t % (B H): chunks slowest
+      const int c = u / n_bh, bh = u % n_bh;
+      if (u >= 0) {
+        const float* src = dt + (size_t)bh * S + (size_t)c * Q;
+        for (int r = lane; r < Q; r += 32) dbuf[kb * kWgMaxChunk + r] = src[r];
+        if (lane == 0) a_of[kb] = a[bh % H];
+      }
+      if (lane == 0) unit_of[kb] = u;
+      wg::mbar_arrive(d_full0 + 8 * kb);   // releases this lane's stores
+      if (u < 0) break;
+      if (lane == 0) {
+        const int b = bh / H, bank = b * G + (bh % H) / (H / G);
+        for (int i = 0; i < nq; ++i, ++e) {
+          const int s = e % SLOTS;
+          wg::mbar_wait(t_empty0 + 8 * s, ((e / SLOTS) & 1) ^ 1);
+          wg::mbar_arrive_expect_tx(t_full0 + 8 * s, L::slot);
+          const uint32_t dst = tiles + s * L::slot;
+          for (int nb = 0; nb < NB; ++nb)
+            wg::tma_load_4d(dst + nb * kTileBytes, &tb, t_full0 + 8 * s, 64 * nb, 64 * i, c,
+                            bank);
+          wg::tma_load_4d(dst + NB * kTileBytes, &tx, t_full0 + 8 * s, 0, 64 * i, c, bh);
+        }
+      }
+      __syncwarp();
+    }
+    return;
+  }
+
+  if (warp > 4) {
+    // ---- the linker: S_c from the chain, S_{c+1} = S_c exp(cum_end) + L,
+    // for each unit the consumer hands over, in the order it claimed them.
+    // `state` is the carry: chunk c - 1's block stored S_c there before it
+    // set flags[bh] = c; chunk 0 starts from zeros.  Thread l holds
+    // elements 4 (LINK i + l) .. + 3 of the (P, N) state; loads and stores
+    // bypass L1. ----------------------------------------------------------
+    constexpr int R = P * N / (4 * LINK);
+    const int l = tid - 160;
+    for (int k = 0;; ++k) {
+      const int lb = k % LB;
+      wg::mbar_wait(l_full0 + 8 * lb, (k / LB) & 1);
+      const int u = l_unit[lb];
+      if (u < 0) break;
+      const int c = u / n_bh, bh = u % n_bh;
+      const float decay = l_decay[lb];
+      const float* lt = lbuf + lb * P * LS;
+      float* sg = state + (size_t)bh * P * N;
+      if (l == 0 && c > 0) wait_flag(flags + bh, c);
+      wg::named_sync(2, LINK);
+      float4 sv[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        sv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (c > 0) sv[i] = __ldcg(reinterpret_cast<const float4*>(sg) + LINK * i + l);
+      }
+      // S_{c+1} to the carry, and S_c split hi and lo for the chunk scan
+      bf16* si = states_in + ((size_t)bh * nc + c) * 2 * P * N;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int e4 = 4 * (LINK * i + l), p = e4 / N, n = e4 % N;
+        const float4 lv = *reinterpret_cast<const float4*>(lt + p * LS + n);
+        // ssd_kernel_state_pass's expression
+        __stcg(reinterpret_cast<float4*>(sg) + LINK * i + l,
+               make_float4(sv[i].x * decay + lv.x, sv[i].y * decay + lv.y,
+                           sv[i].z * decay + lv.z, sv[i].w * decay + lv.w));
+        uint32_t h01, l01, h23, l23;
+        mma::split_bf16(sv[i].x, sv[i].y, h01, l01);
+        mma::split_bf16(sv[i].z, sv[i].w, h23, l23);
+        *reinterpret_cast<uint2*>(si + e4) = make_uint2(h01, h23);
+        *reinterpret_cast<uint2*>(si + P * N + e4) = make_uint2(l01, l23);
+      }
+      wg::named_sync(2, LINK);
+      if (l == 0) release_flag(flags + bh, c + 1);
+      warp_arrive(l_empty0 + 8 * lb, lane);   // L is read
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroup: cum and L of one unit at a time ------------
+  const int g = lane >> 2, t4 = lane & 3;
+  int e = 0;
+  for (int k = 0;; ++k) {
+    const int kb = k & 1, lb = k % LB;
+    wg::mbar_wait(d_full0 + 8 * kb, (k >> 1) & 1);
+    const int u = unit_of[kb];
+    if (u < 0) {
+      // tell the linker: wait for its buffer, then mark it empty
+      wg::mbar_wait(l_empty0 + 8 * lb, ((k / LB) & 1) ^ 1);
+      if (tid == 0) l_unit[lb] = -1;
+      wg::mbar_arrive(l_full0 + 8 * lb);
+      break;
+    }
+    const int c = u / n_bh, bh = u % n_bh;
+    const float* dts = dbuf + kb * kWgMaxChunk;
+
+    // cum = inclusive cumsum of dt * a, ssd_kernel_chunk_state's block scan
+    // over the same 128 threads (the same bits in the cum scratch)
+    const float a_h = a_of[kb];
+    const int per = (Q + 127) / 128;
+    float run = 0.f;
+    for (int m = 0; m < per; ++m) {
+      const int i = tid * per + m;
+      if (i < Q) {
+        const float d = dts[i];
+        wdec[i] = d;
+        run += __fmul_rn(d, a_h);
+        cum[i] = run;
+      }
+    }
+    float incl = run;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float up = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += up;
+    }
+    if (lane == 31) warp_total[warp] = incl;
+    wg::named_sync(1, 128);
+    warp_arrive(d_empty0 + 8 * kb, lane);   // the unit's dt is read
+    float base = incl - run;
+    for (int w = 0; w < warp; ++w) base += warp_total[w];
+    for (int m = 0; m < per; ++m) {
+      const int i = tid * per + m;
+      if (i < Q) cum[i] += base;
+    }
+    wg::named_sync(1, 128);
+    const float cum_end = cum[Q - 1];
+    for (int i = tid; i < nq * 64; i += 128) {
+      if (i < Q) {
+        cum_out[(size_t)bh * S + (size_t)c * Q + i] = cum[i];
+        wdec[i] = expf(cum_end - cum[i]) * wdec[i];   // exp(cum_end - cum_j) dt_j
+      } else {
+        wdec[i] = 0.f;                                // the tail's zero rows
+      }
+    }
+    wg::named_sync(1, 128);
+
+    // L = (w x)^T B over the chunk's tiles: M = P, A = (w x)^T in
+    // registers, x read from the swizzled [step][p] tile by ldmatrix.trans
+    // (row step 16 kk + lane % 8 + 8 (lane / 16), 16-byte column 2 warp +
+    // (lane / 8) % 2), scaled by w of its steps and split hi + lo; B the
+    // exact bf16 B rows, MN-major through the transpose bit
+    float acc[N / 2];
+#pragma unroll
+    for (int r = 0; r < N / 2; ++r) acc[r] = 0.f;
+    for (int i = 0; i < nq; ++i, ++e) {
+      const int s = e % SLOTS;
+      const uint32_t bt = tiles + s * L::slot, xt = bt + NB * kTileBytes;
+      wg::mbar_wait(t_full0 + 8 * s, (e / SLOTS) & 1);
+      uint32_t ah[4][4], al[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int r = kk * 16 + (lane & 7) + ((lane >> 4) << 3);
+        const int cc = 2 * warp + ((lane >> 3) & 1);
+        uint32_t xf[4];
+        ldsm_x4_trans_at(xf, xt + r * 128 + ((cc ^ (r & 7)) << 4));
+        const float* wj = wdec + 64 * i + kk * 16 + 2 * t4;
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const float w0 = wj[(f >> 1) * 8], w1 = wj[(f >> 1) * 8 + 1];
+          // a bf16 is the top half of its float32
+          mma::split_bf16(__uint_as_float(xf[f] << 16) * w0,
+                          __uint_as_float(xf[f] & 0xffff0000u) * w1, ah[kk][f], al[kk][f]);
+        }
+      }
+      wg::fence_regs(acc);
+      wg::mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = wg::desc(bt + kk * 2048, kTileBytes, 1024);
+        mma_rs<N>(acc, ah[kk], db);
+        mma_rs<N>(acc, al[kk], db);
+      }
+      wg::mma_commit();
+      wg::mma_wait<0>();
+      wg::fence_regs(acc);
+      warp_arrive(t_empty0 + 8 * s, lane);
+    }
+
+    // hand L to the linker: rows p = 16 warp + g + 8 hh, columns n = 8 j +
+    // 2 t4, + 1 of the accumulator
+    wg::mbar_wait(l_empty0 + 8 * lb, ((k / LB) & 1) ^ 1);
+    float* lt = lbuf + lb * P * LS;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(lt + (16 * warp + g + 8 * hh) * LS + 8 * j + 2 * t4) =
+            make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+    if (tid == 0) {
+      l_unit[lb] = u;
+      l_decay[lb] = expf(cum_end);
+    }
+    wg::mbar_arrive(l_full0 + 8 * lb);   // releases this thread's stores
+  }
+}
+
+template <int P, int N>
+int launch_wgmma_state(const bf16* x, const float* dt, const float* a, const bf16* bm,
+                       float* cum, bf16* states_in, float* state, int* flags, int B,
+                       int H, int G, int S, int Q, cudaStream_t stream) {
+  using L = StLayout<P, N>;
+  const int nc = S / Q;
+  // the chunk scan's 4-D maps (columns, Q, nc, heads or banks)
+  const cuuint64_t xd[4] = {(cuuint64_t)P, (cuuint64_t)Q, (cuuint64_t)nc,
+                            (cuuint64_t)B * H};
+  const cuuint64_t bd[4] = {(cuuint64_t)N, (cuuint64_t)Q, (cuuint64_t)nc,
+                            (cuuint64_t)B * G};
+  CUtensorMap tx, tb;
+  int err = tma::bf16_map(&tx, x, 4, xd, 64);
+  if (!err) err = tma::bf16_map(&tb, bm, 4, bd, 64);
+  if (err) return err;
+  auto kernel = ssd_wgmma_chunk_state<P, N>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
+  if (e != cudaSuccess) return (int)e;
+  // persistent: as many blocks as are resident at once (at most one per
+  // unit); units are claimed by ticket, so any count is free of deadlock
+  int device = 0, sms = 0, per_sm = 0;
+  e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, L::threads, L::bytes);
+  if (e != cudaSuccess) return (int)e;
+  const long long units = (long long)B * H * nc;
+  if (units > 0x7fffffffLL || per_sm < 1) return (int)cudaErrorInvalidValue;
+  const long long resident = (long long)per_sm * sms;
+  const int grid = (int)(units < resident ? units : resident);
+  kernel<<<grid, L::threads, L::bytes, stream>>>(tx, tb, dt, a, cum, states_in, state,
+                                                 flags, B * H, H, G, S, Q);
+  return (int)cudaGetLastError();
+}
+
+// which kernels a bf16 call of (P, N, Q) runs: the wgmma chunk state and
+// chunk scan at (64, 64) and (64, 128) up to kWgMaxChunk, else
+// ssd_kernel_chunk_state + ssd_kernel_state_pass and ssd_kernel_chunk_scan
+// (../ssd_scan.py BF16_CHUNK_STATE, BF16_CHUNK_SCAN)
+template <int P, int N>
+constexpr bool use_wgmma(int Q) {
+  return wgmma_pn<P, N>() && Q <= kWgMaxChunk;
+}
+
+// `states` is the scratch of the chunk state: at the wgmma kernels' shapes
+// B * H + 1 int32 (the chain's flags, then the ticket counter), zeroed by
+// the caller; elsewhere the local states, (B, H, nc, P, N) float32
+template <int P, int N>
 int launch_mma(const void* x, const float* dt, const float* a, const void* bm,
                const void* cm, float* y, float* state, float* cum,
-               float* states, bf16* states_in, int B, int H, int G, int S,
+               void* states, bf16* states_in, int B, int H, int G, int S,
                int Q, cudaStream_t stream) {
   using L = MmaLayout<P, N>;
   const int nc = S / Q, n_bh = B * H;
@@ -1051,24 +1459,31 @@ int launch_mma(const void* x, const float* dt, const float* a, const void* bm,
   const bf16* bb = static_cast<const bf16*>(bm);
   const bf16* cb = static_cast<const bf16*>(cm);
 
+  if constexpr (wgmma_pn<P, N>())
+    if (use_wgmma<P, N>(Q)) {
+      const int err = launch_wgmma_state<P, N>(xb, dt, a, bb, cum, states_in, state,
+                                               static_cast<int*>(states), B, H, G, S, Q,
+                                               stream);
+      if (err) return err;
+      return launch_wgmma_scan<P, N>(xb, dt, bb, cb, cum, states_in, y, B, H, G, S, Q,
+                                     stream);
+    }
+
+  float* local = static_cast<float*>(states);
   const size_t state_bytes = L::state_bytes(Q);
   cudaError_t err = cudaFuncSetAttribute(ssd_kernel_chunk_state<P, N>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)state_bytes);
   if (err != cudaSuccess) return (int)err;
   ssd_kernel_chunk_state<P, N><<<dim3(nc, n_bh), kMmaThreads, state_bytes, stream>>>(
-      xb, dt, a, bb, cum, states, H, G, S, Q);
+      xb, dt, a, bb, cum, local, H, G, S, Q);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const int pass_blocks = (P * N / 4 + kPassThreads - 1) / kPassThreads;
   ssd_kernel_state_pass<<<dim3(pass_blocks, n_bh), kPassThreads, 0, stream>>>(
-      cum, states, states_in, state, S, Q, P * N);
+      cum, local, states_in, state, S, Q, P * N);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  if constexpr (wgmma_pn<P, N>())
-    if (use_wgmma_scan<P, N>(Q))
-      return launch_wgmma_scan<P, N>(xb, dt, bb, cb, cum, states_in, y, B, H, G, S, Q,
-                                     stream);
   const size_t scan_bytes = L::scan_bytes(Q);
   err = cudaFuncSetAttribute(ssd_kernel_chunk_scan<P, N>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1317,8 +1732,9 @@ int launch_f32(const void* x, const float* dt, const float* a, const void* bm,
 
 // blocks resident per SM of each kernel a call of (P, N, Q, dtype) runs,
 // as the occupancy calculator derives them from registers and shared
-// memory: bf16 chunk_state, state_pass, chunk_scan; float32 ssd_kernel
-// alone (the other two entries 0)
+// memory: bf16 chunk_state, state_pass, chunk_scan (state_pass 0 where the
+// wgmma chunk state runs it too); float32 ssd_kernel alone (the other two
+// entries 0)
 template <int P, int N>
 int occupancy(int Q, int dtype, int* blocks, int* threads, int* smem_bytes) {
   using L = MmaLayout<P, N>;
@@ -1335,7 +1751,12 @@ int occupancy(int Q, int dtype, int* blocks, int* threads, int* smem_bytes) {
     smem_bytes[0] = (int)L::state_bytes(Q);
     smem_bytes[2] = (int)L::scan_bytes(Q);
     if constexpr (wgmma_pn<P, N>())
-      if (use_wgmma_scan<P, N>(Q)) {
+      if (use_wgmma<P, N>(Q)) {
+        fns[0] = (const void*)ssd_wgmma_chunk_state<P, N>;
+        fns[1] = nullptr;   // no state-passing kernel
+        threads[0] = StLayout<P, N>::threads;
+        threads[1] = 0;
+        smem_bytes[0] = StLayout<P, N>::bytes;
         fns[2] = (const void*)ssd_wgmma_chunk_scan<P, N>;
         threads[2] = kWgThreads;
         smem_bytes[2] = WgLayout<P, N>::bytes;
@@ -1363,12 +1784,23 @@ template <int P, int N>
 int bf16_chunk_scan(int Q, int* wgmma, int* consumer0, int* slots, int* s_bufs) {
   *wgmma = *consumer0 = *slots = *s_bufs = 0;
   if constexpr (wgmma_pn<P, N>())
-    if (use_wgmma_scan<P, N>(Q)) {
+    if (use_wgmma<P, N>(Q)) {
       *wgmma = 1;
       *consumer0 = (int)consumer_tiles((Q + 63) / 64, 0);
       *slots = WgLayout<P, N>::slots;
       *s_bufs = WgLayout<P, N>::s_bufs;
     }
+  return 0;
+}
+
+// the bf16 chunk-state kernel of (P, N, Q): 1 for ssd_wgmma_chunk_state
+// (chunk state and state passing in one), 0 for ssd_kernel_chunk_state +
+// ssd_kernel_state_pass
+template <int P, int N>
+int bf16_chunk_state(int Q, int* fused) {
+  *fused = 0;
+  if constexpr (wgmma_pn<P, N>())
+    if (use_wgmma<P, N>(Q)) *fused = 1;
   return 0;
 }
 
@@ -1381,9 +1813,11 @@ extern "C" {
 
 // dtype of x, bmat and cmat: 0 float32, 1 bfloat16.  chunk (Q) divides S
 // and is at most kMaxChunk.  The bfloat16 path takes three scratches from
-// the caller, cum (B, H, S) float32, states (B, H, S / Q, P, N) float32 and
-// states_in (B, H, S / Q, 2, P, N) bfloat16, and bfloat16 operands that
-// start 16-byte aligned (the wrapper checks); float32 ignores them.
+// the caller, cum (B, H, S) float32, states, and states_in (B, H, S / Q,
+// 2, P, N) bfloat16, and bfloat16 operands that start 16-byte aligned (the
+// wrapper checks); float32 ignores them.  states is B * H + 1 int32, all
+// zero, where ssd_scan_bf16_chunk_state reports the fused kernel, else
+// (B, H, S / Q, P, N) float32.
 // Returns 0 or the first cudaError_t of an attribute call or a launch.
 int ssd_scan_launch(const void* x, const void* dt, const void* a,
                     const void* bm, const void* cm, void* y, void* state,
@@ -1405,7 +1839,7 @@ int ssd_scan_launch(const void* x, const void* dt, const void* a,
     if (dtype == 1)                                                            \
       return launch_mma<PP, NN>(x, dtf, af, bm, cm, yf, sf,                    \
                                 static_cast<float*>(cum),                      \
-                                static_cast<float*>(states),                   \
+                                states,                                        \
                                 static_cast<bf16*>(states_in), B, H, G, S,     \
                                 chunk, s);                                     \
     return (int)cudaErrorInvalidValue;                                         \
@@ -1435,6 +1869,16 @@ int ssd_scan_bf16_chunk_scan(int P, int N, int chunk, int* wgmma, int* consumer0
 #define SSD_PICK(PP, NN)                                                   \
   if (P == PP && N == NN)                                                  \
     return bf16_chunk_scan<PP, NN>(chunk, wgmma, consumer0, slots, s_bufs);
+  SSD_SHAPES(SSD_PICK)
+#undef SSD_PICK
+  return (int)cudaErrorInvalidValue;
+}
+
+// the bf16 chunk-state kernel of a call (bf16_chunk_state above)
+int ssd_scan_bf16_chunk_state(int P, int N, int chunk, int* fused) {
+  if (chunk < 1 || chunk > kMaxChunk) return (int)cudaErrorInvalidValue;
+#define SSD_PICK(PP, NN)                                                   \
+  if (P == PP && N == NN) return bf16_chunk_state<PP, NN>(chunk, fused);
   SSD_SHAPES(SSD_PICK)
 #undef SSD_PICK
   return (int)cudaErrorInvalidValue;

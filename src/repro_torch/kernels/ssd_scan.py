@@ -19,17 +19,32 @@ Two implementations of one function live here:
     the chunks on (B, H, ...) tensors, the TPU kernel body written out;
   * the CUDA kernels in ``csrc/ssd_scan.cu`` (design notes in the source),
     compiled for the ``(P, N)`` pairs in ``SUPPORTED_PN`` and chunks up to
-    ``MAX_CHUNK``.  The dtype picks the design.  bfloat16 runs three
-    kernels with the products on the tensor cores and the chunk axis
-    parallel, over three scratches this wrapper allocates: chunk state
-    and state passing (``mma.sync``), then the chunk scan, which is most
-    of the call's time.  ``BF16_CHUNK_SCAN`` names the chunk-scan kernel of
-    each (P, N, chunk): at (64, 64) (zamba2-7b) and (64, 128) (mamba2-370m)
-    up to ``WGMMA_MAX_CHUNK`` steps ``ssd_wgmma_chunk_scan``, on Hopper's
-    own instructions — one persistent block per SM over whole chunks, a
-    producer warpgroup feeding C, B and x tiles and the entering state by
-    TMA, two consumer warpgroups issuing ``wgmma``, each taking the query
-    tiles that ``consumer_tiles`` deals it; elsewhere
+    ``MAX_CHUNK``.  The dtype picks the design.  bfloat16 runs Mamba2's
+    chunked structure with the products on the tensor cores, over three
+    scratches this wrapper allocates: first the chunk state and state
+    passing, then the chunk scan.  At (64, 64) (zamba2-7b) and (64, 128)
+    (mamba2-370m) up to ``WGMMA_MAX_CHUNK`` steps both run on Hopper's own
+    instructions (``BF16_CHUNK_STATE`` and ``BF16_CHUNK_SCAN`` name the
+    kernels of each (P, N, chunk)):
+
+      - ``ssd_wgmma_chunk_state``, one launch for the chunk state and the
+        state passing.  Persistent blocks claim units (one chunk of one
+        (batch, head)) from a ticket counter, chunks slowest; a producer
+        warp feeds B and x tiles by TMA, a consumer warpgroup computes the
+        chunk's cum and its local state on ``wgmma``, and linker warps
+        pass the float32 state along a chain of flags through L2 (a flag
+        per (batch, head) and the counter: the scratch this wrapper zeroes
+        per call), writing the state entering each chunk split into bf16
+        hi + lo and, at the last chunk, the final state.  It moves ~188 MB
+        at zamba2-7b's prefill call against the ~305 MB of the two kernels
+        it replaces, whose local states went to device memory and back;
+      - ``ssd_wgmma_chunk_scan``: one persistent block per SM over whole
+        chunks, a producer warpgroup feeding C, B and x tiles and the
+        entering state by TMA, two consumer warpgroups issuing ``wgmma``,
+        each taking the query tiles that ``consumer_tiles`` deals it.
+
+    Elsewhere ``ssd_kernel_chunk_state`` and ``ssd_kernel_state_pass``
+    (``mma.sync``, a float32 scratch of the local states between them) and
     ``ssd_kernel_chunk_scan`` (``mma.sync``, one block per 64-row query
     tile).  The float32 operand of each product (the decay-weighted x, the
     entering state, the masked scores) is split into two bf16 parts
@@ -60,8 +75,9 @@ from repro_torch.kernels.flash_attention import _split_bf16  # noqa: F401
 
 __all__ = ["ssd_scan_bhsp", "ssd_scan_reference", "LAUNCHES",
            "reset_launch_counts", "SUPPORTED_PN", "MAX_CHUNK",
-           "WGMMA_MAX_CHUNK", "BF16_CHUNK_SCAN", "KERNEL_NAMES",
-           "WGMMA_RING", "chunk_scan_kernel", "consumer_tiles"]
+           "WGMMA_MAX_CHUNK", "BF16_CHUNK_SCAN", "BF16_CHUNK_STATE",
+           "KERNEL_NAMES", "WGMMA_RING", "chunk_scan_kernel",
+           "chunk_state_kernel", "consumer_tiles"]
 
 SUPPORTED_PN = ((16, 16), (32, 64), (64, 64), (64, 128), (128, 128))  # csrc SSD_SHAPES
 MAX_CHUNK = 1024                                                      # csrc kMaxChunk
@@ -75,13 +91,22 @@ BF16_CHUNK_SCAN = {
     pn: (((WGMMA_MAX_CHUNK, "ssd_wgmma_chunk_scan"),) if pn in ((64, 64), (64, 128))
          else ()) + ((MAX_CHUNK, "ssd_kernel_chunk_scan"),)
     for pn in SUPPORTED_PN}
+# The bf16 chunk-state kernel of each (P, N), in the same bands: the wgmma
+# kernel computes the chunk state and passes the state on in one launch
+# (ssd_scan_bf16_chunk_state in the C library picks the same); elsewhere
+# ssd_kernel_chunk_state and ssd_kernel_state_pass run.
+BF16_CHUNK_STATE = {
+    pn: (((WGMMA_MAX_CHUNK, "ssd_wgmma_chunk_state"),) if pn in ((64, 64), (64, 128))
+         else ()) + ((MAX_CHUNK, "ssd_kernel_chunk_state"),)
+    for pn in SUPPORTED_PN}
 # the wgmma kernel's ring at each of its (P, N): 64-step tiles (C, B and x
 # rows) and buffers of the entering state, as csrc WgLayout sizes them to
 # fit a block's shared memory
 WGMMA_RING = {(64, 64): (7, 2), (64, 128): (4, 1)}
 # every kernel of the library, as a profiler names them, and the part of a
 # bf16 call each runs (the float32 kernel is a call of its own)
-KERNEL_NAMES = {"ssd_kernel_chunk_state": "chunk_state",
+KERNEL_NAMES = {"ssd_wgmma_chunk_state": "chunk_state",
+                "ssd_kernel_chunk_state": "chunk_state",
                 "ssd_kernel_state_pass": "state_pass",
                 "ssd_wgmma_chunk_scan": "chunk_scan",
                 "ssd_kernel_chunk_scan": "chunk_scan",
@@ -112,6 +137,27 @@ def reset_launch_counts() -> None:
 def chunk_scan_kernel(p: int, n: int, chunk: int) -> str:
     """The kernel that runs the chunk scan of a bf16 call (``BF16_CHUNK_SCAN``)."""
     return next(name for longest, name in BF16_CHUNK_SCAN[(p, n)] if chunk <= longest)
+
+
+def chunk_state_kernel(p: int, n: int, chunk: int) -> str:
+    """The kernel that runs the chunk state of a bf16 call
+    (``BF16_CHUNK_STATE``); ``ssd_wgmma_chunk_state`` passes the state on
+    too, ``ssd_kernel_chunk_state`` leaves that to ``ssd_kernel_state_pass``."""
+    return next(name for longest, name in BF16_CHUNK_STATE[(p, n)] if chunk <= longest)
+
+
+def _fused_state(lib: ctypes.CDLL, p: int, n: int, chunk: int) -> bool:
+    """Whether another build ``lib`` of this C interface runs the fused
+    chunk state at (p, n, chunk), and so takes the chain's flags in place of
+    the local states' scratch.  A build without
+    ``ssd_scan_bf16_chunk_state`` predates the fused kernel."""
+    fn = getattr(lib, "ssd_scan_bf16_chunk_state", None)
+    if fn is None:
+        return False
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fused = ctypes.c_int()
+    _build.check_launch(lib, "ssd_scan", fn(p, n, chunk, ctypes.byref(fused)))
+    return bool(fused.value)
 
 
 def consumer_tiles(n_tiles: int) -> tuple:
@@ -208,6 +254,9 @@ def _launch_cuda(x, dt, a, bmat, cmat, chunk: int,
 
     if lib is None:
         lib = _build.load_library(*LIBRARY)
+        fused = chunk_state_kernel(p, n, chunk) == "ssd_wgmma_chunk_state"
+    else:
+        fused = bf16 and _fused_state(lib, p, n, chunk)
     fn = lib.ssd_scan_launch
     if fn.argtypes is None:                  # first call: bind the signature
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 \
@@ -215,17 +264,19 @@ def _launch_cuda(x, dt, a, bmat, cmat, chunk: int,
         fn.restype = ctypes.c_int
     y = torch.empty((b, h, s, p), dtype=torch.float32, device=x.device)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
-    # bf16 scratches: cum per step; per chunk its local state (float32) and
-    # the state entering it, split into bf16 hi and lo.  They are held until
-    # the kernels are queued; memory reused later on this stream is ordered
-    # after them.
+    # bf16 scratches: cum per step; the chunk state's, either the fused
+    # kernel's chain (a flag per (batch, head), then the ticket counter, all
+    # zero) or per chunk its local state (float32); the state entering each
+    # chunk, split into bf16 hi and lo.  They are held until the kernels are
+    # queued; memory reused later on this stream is ordered after them.
     scratch = []
     if bf16:
         nc = s // chunk
-        scratch = [torch.empty(shape, dtype=dtype, device=x.device)
-                   for shape, dtype in (((b, h, s), torch.float32),
-                                        ((b, h, nc, p, n), torch.float32),
-                                        ((b, h, nc, 2, p, n), torch.bfloat16))]
+        chain = torch.zeros(b * h + 1, dtype=torch.int32, device=x.device) if fused \
+            else torch.empty((b, h, nc, p, n), dtype=torch.float32, device=x.device)
+        scratch = [torch.empty((b, h, s), dtype=torch.float32, device=x.device), chain,
+                   torch.empty((b, h, nc, 2, p, n), dtype=torch.bfloat16,
+                               device=x.device)]
     ptrs = [t.data_ptr() for t in scratch] or [None] * 3
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),

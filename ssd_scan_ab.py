@@ -6,18 +6,21 @@ Builds this checkout's ``src/repro_torch/kernels/csrc/ssd_scan.cu`` and
 the same file of another checkout ``DIR`` (a commit unpacked with
 ``git archive <commit> src/repro_torch/kernels/csrc | tar -x -C DIR``; its
 shared headers come from the same directory), both with this checkout's
-flags, one nvcc each, started together.  At three bf16 shapes
+flags, one nvcc each, started together.  At four bf16 shapes
 (``SHAPES``: zamba2-7b's prefill call, mamba2-370m's (P, N) = (64, 128) at
-the same batch, heads and length, and zamba2's heads over four groups of
-B and C) it makes seeded operands as ``chip_smoke.py`` does, holds both
+the same batch, heads and length, zamba2's heads over four groups of B
+and C, and one (batch, head) of 64 chunks: the fused chunk state's chain
+alone, 63 links one after another) it makes seeded operands as
+``chip_smoke.py`` does, holds both
 builds within ``TOL_SSD`` of the plain version (y and the final state),
 times each whole call with ``chip_smoke.py``'s ``kernel_only_ms`` in the
 order baseline, this, this, baseline, per round, and profiles one call of
 each build for the device time of its three parts (chunk state, state
-passing, chunk scan) and the kernel that ran each.  Prints each build's
-ptxas lines for the SSD kernels, one ``[ab]`` and two ``[ab-parts]``
-lines per shape with the bound (bytes or flop at the card's peaks), and
-the card as ``nvidia-smi`` names it.  Exits non-zero without a result when
+passing, chunk scan), the kernel that ran each, and the chunk state and
+state passing together (``state_ms``: one fused kernel, or two).  Prints
+each build's ptxas lines for the SSD kernels, one ``[ab]`` and two
+``[ab-parts]`` lines per shape with the bound (bytes or flop at the card's
+peaks), and the card as ``nvidia-smi`` names it.  Exits non-zero without a result when
 no CUDA device is present or a build disagrees with the plain version.
 """
 from __future__ import annotations
@@ -37,6 +40,7 @@ SHAPES = {
     "zamba2": (2, 112, 1, 4096, 64, 64, 256),
     "pn-64x128": (2, 112, 1, 4096, 64, 128, 256),
     "groups-4": (2, 112, 4, 4096, 64, 64, 256),
+    "chain-63": (1, 1, 1, 64 * 256, 64, 64, 256),
 }
 
 
@@ -93,7 +97,8 @@ def main() -> int:
         med = {who: statistics.median(t) for who, t in times.items()}
         cs.line("ab", shape=label, card=repr(card_line), x=tuple(ops[0].shape),
                 bc=tuple(ops[3].shape), chunk=chunk,
-                kernel=f"{ssd.chunk_scan_kernel(p, n, chunk)}<{p},{n}>",
+                kernel=f"{ssd.chunk_state_kernel(p, n, chunk)}<{p},{n}>+"
+                       f"{ssd.chunk_scan_kernel(p, n, chunk)}<{p},{n}>",
                 baseline_ms=[f"{t:.5f}" for t in times["baseline"]],
                 this_ms=[f"{t:.5f}" for t in times["this"]],
                 baseline_median_ms=f"{med['baseline']:.5f}",
@@ -110,9 +115,11 @@ def main() -> int:
                 cs.line("ab-parts", shape=label, build=who,
                         device_time="not measured (the trace holds no device time)")
                 continue
+            parts = prof["ssd_parts"]
             cs.line("ab-parts", shape=label, build=who, card=repr(card_line),
-                    **{f"{k}_ms": f"{v:.5f}" for k, v in prof["ssd_parts"].items()
+                    **{f"{k}_ms": f"{v:.5f}" for k, v in parts.items()
                        if k != "float32"},
+                    state_ms=f"{parts['chunk_state'] + parts['state_pass']:.5f}",
                     **{f"{k}_kernel": "+".join(v)
                        for k, v in prof["ssd_kernels"].items()})
         if label == "zamba2":

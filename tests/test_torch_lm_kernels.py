@@ -351,6 +351,10 @@ CARD_SSD_CASES = SSD_CASES + [
     (2, 400, 4, 1, 64, 64, 100),                 # chunk 100: a tile ends mid-way
     (1, 768, 8, 4, 64, 128, 192),                # chunk 192, four groups
     (1, 1024, 4, 1, 64, 64, 512),                # chunk 512: the mma.sync scan
+    # the fused chunk state's chain: one (batch, head) of 64 chunks (63
+    # links one after another), and 3,584 units at chunk 100
+    (1, 16384, 1, 1, 64, 64, 256),
+    (2, 1600, 112, 1, 64, 64, 100),
 ]
 
 

@@ -11,14 +11,18 @@ decode against its own forward at ``tests/test_models.py``'s bar (atol
 5e-3, rtol 1e-3; the smoke configs' capacity factor 4.0 drops no slot, so
 the dense decode path computes what the capacity path does); the
 auxiliary loss 1e-6; train-step losses at ``test_torch_train.py``'s bar
-(1e-5 relative at each of three steps).  Parameters after three AdamW steps
-at learning rate 1e-3 are held within 1e-4 absolute, not the dense
-family's 1e-5: Adam's first update of an element is lr * g / (|g| + 1e-8),
-and where an element's gradient is float32 noise near that epsilon its
-update is anywhere in (-lr, lr) on either side.  Measured worst 8.4e-5:
-olmoe smoke, layer 1 ``attn/wq[53, 1]``, whose first gradient is
--4.5e-10 in the reference and -1.4e-9 here; the routes of both runs are
-the same at every step and the losses agree within 1e-6 relative.
+(1e-5 relative at each of three steps).  Parameters after each of three
+AdamW steps at learning rate 1e-3 are held within 1e-4 absolute, not the
+dense family's 1e-5, except where the first gradient is float32 noise
+(0 < |g| <= 1e-6): Adam's first update of an element is lr * g / (|g| +
+1e-8), and where an element's gradient is noise near that epsilon its
+update is anywhere in (-lr, lr) on either side, so such an element is held
+to 2 * steps * lr (``torch_port_ref.assert_params_close``; ROADMAP.md
+Queue 3 item 14).  Olmoe smoke, layer 1 ``attn/wq[53, 1]``: its first
+gradient is ~4.5e-11, and Adam's first step moves it by 0.0045 lr in the
+reference and 0.154 lr here (1.5e-4 apart); steps 2 and 3 agree within
+8e-6 lr.  The routes of both runs are the same at every step and the
+losses agree within 1e-6 relative.
 """
 import dataclasses
 
@@ -26,7 +30,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_ref import load_reference, requires_cuda, skip_without_cuda
+from torch_port_ref import (assert_params_close, first_step_grads,
+                            load_reference, requires_cuda, skip_without_cuda)
 
 from repro_torch import configs as tconfigs
 from repro_torch._tree import items, leaves
@@ -305,6 +310,10 @@ def _batches(n, seed=1):
 @pytest.mark.parametrize("accum", ["inside", "outside"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_step_matches_reference(R, arch, accum):
+    """Three steps: losses within 1e-5 relative; parameters within 1e-4
+    where the port's first gradient is clear of float32 noise, the noise
+    elements within 2 * steps * lr (under 1 % of each leaf; ROADMAP.md
+    Queue 3 item 14)."""
     jax, jnp = R.jax, R.jax.numpy
     jcfg = R.configs.get_smoke_config(arch, train_microbatches=2)
     jm = R.models.build_model(jcfg)
@@ -317,18 +326,20 @@ def test_train_step_matches_reference(R, arch, accum):
     jst, tst = jo.init(jp), to.init(tp)
     jstep = jax.jit(R.steps.make_train_step(jm, jo, grad_accum=accum))
     tstep = tsteps.make_train_step(tm, to, grad_accum=accum)
-    for toks in _batches(3):
+    tbatch = lambda toks: {"tokens": torch.from_numpy(toks[:, :-1].copy()),
+                           "labels": torch.from_numpy(toks[:, 1:].copy())}
+    batches = _batches(3)
+    g1 = first_step_grads(tm, tp, tbatch(batches[0]), grad_accum=accum)
+    for step, toks in enumerate(batches, 1):
         jp, jst, jmet = jstep(jp, jst, {"tokens": jnp.asarray(toks[:, :-1]),
                                         "labels": jnp.asarray(toks[:, 1:])})
-        tp, tst, tmet = tstep(tp, tst, {"tokens": torch.from_numpy(toks[:, :-1].copy()),
-                                        "labels": torch.from_numpy(toks[:, 1:].copy())})
+        tp, tst, tmet = tstep(tp, tst, tbatch(toks))
         assert float(tmet["aux_loss"]) > 0.0
         for k in ("loss", "aux_loss", "total_loss"):
             want = float(jmet[k])
             assert abs(float(tmet[k]) - want) <= 1e-5 * abs(want), k
-        for (path, t), j in zip(items(tp), jax.tree.leaves(jp)):
-            np.testing.assert_allclose(_np(t), np.asarray(j), atol=1e-4,
-                                       rtol=0, err_msg=str(path))
+        assert_params_close(items(tp), jax.tree.leaves(jp), g1, atol=1e-4,
+                            steps=step, lr=LR)
 
 
 def test_train_cli_trains_a_moe_smoke_model(tmp_path):

@@ -3,10 +3,14 @@ and (64, 128) (``ssd_wgmma_chunk_scan`` in ``csrc/ssd_scan.cu``), written
 out in PyTorch and held to the reference on the CPU.
 
 The kernel cannot run here, so ``_emulate`` repeats the bf16 call's
-arithmetic.  The two kernels before the chunk scan are unchanged: per
-chunk its local state ``(w x)^T B`` with ``w = exp(cum_end - cum) dt``
-split into bf16 hi + lo, the state passed on in float32, and the state
-entering each chunk split into hi + lo (S_in).  The chunk scan then works
+arithmetic.  Before the chunk scan, ``_chunk_states`` repeats the fused
+chunk state (``ssd_wgmma_chunk_state``): per chunk its cum as
+``ssd_kernel_chunk_state``'s block scan adds it (``_block_cum``), its local
+state ``L = (w x)^T B`` with ``w = exp(cum_end - cum) dt`` split into bf16
+hi + lo, then the link: the state entering the chunk split into hi + lo on
+the way out (S_in), and ``S <- S exp(cum_end) + L`` in float32, in
+``ssd_kernel_state_pass``'s order (``tests/test_torch_ssd_state.py`` holds
+it over longer chains and its ticket schedule).  The chunk scan then works
 on units of one chunk of one (batch, head): the chunk's steps padded with
 zero rows to whole 64-row tiles (a TMA box past Q reads zeros), query
 tiles dealt to the two consumer warpgroups by ``ssd.consumer_tiles``;
@@ -55,6 +59,59 @@ def _split(t, split=ssd._split_bf16):
     return [u.float() for u in split(t)]
 
 
+def _block_cum(dtc, a, threads: int = 128):
+    """cum = the inclusive cumsum of ``dtc * a`` (float32, over the last
+    axis) as ``ssd_kernel_chunk_state``'s block scan adds it, which the
+    fused kernel keeps: a serial run of ceil(Q / threads) steps per thread,
+    an inclusive shuffle scan of the runs within each warp of 32, then the
+    totals of the warps before, one at a time."""
+    q = dtc.shape[-1]
+    per = -(-q // threads)
+    la = torch.nn.functional.pad(dtc * a[..., None], (0, threads * per - q))
+    la = la.view(*dtc.shape[:-1], threads, per)
+    run, parts = torch.zeros(la.shape[:-1]), []
+    for m in range(per):
+        run = run + la[..., m]
+        parts.append(run)
+    incl = run.view(*run.shape[:-1], threads // 32, 32)
+    lane = torch.arange(32)
+    for off in (1, 2, 4, 8, 16):
+        up = torch.nn.functional.pad(incl, (off, 0))[..., :32]
+        incl = torch.where(lane >= off, incl + up, incl)
+    base = incl.flatten(-2) - run
+    warp = torch.arange(threads) // 32
+    for w in range(threads // 32 - 1):
+        base = torch.where(warp > w, base + incl[..., w, 31, None], base)
+    return (torch.stack(parts, -1) + base[..., None]).flatten(-2)[..., :q]
+
+
+def _chunk_states(x, dt, a, bm, chunk: int):
+    """The fused chunk state (``ssd_wgmma_chunk_state``) as it computes
+    (module doc).  The kernel runs the units in ticket order, chunks
+    slowest: every (batch, head) of chunk c, then of c + 1; here the heads
+    of a chunk run at once.  Returns cum (B, H, S), the state entering
+    each chunk as a list of its (hi, lo) parts in float32, and the final
+    state (B, H, P, N)."""
+    b, h, s, p = x.shape
+    g, n = bm.shape[1], bm.shape[3]
+    bank = torch.arange(h) // (h // g)
+    xf, dtf, af = x.float(), dt[:, :, 0].float(), a.float()
+    bf = bm.float()[:, bank]                                    # (b, h, s, n)
+    state = torch.zeros(b, h, p, n)
+    cum, s_in = torch.empty(b, h, s), []
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        dtc = dtf[..., sl]
+        cum[..., sl] = cc = _block_cum(dtc, af.expand(b, h))
+        w = torch.exp(cc[..., -1:] - cc) * dtc
+        local = sum(part.transpose(-1, -2) @ bf[:, :, sl]
+                    for part in _split(xf[:, :, sl] * w[..., None]))
+        # the link: S_c split on the way out, then S_{c+1}
+        s_in.append(_split(state))
+        state = state * torch.exp(cc[..., -1])[..., None, None] + local
+    return cum, s_in, state
+
+
 def _emulate(x, dt, a, bm, cm, chunk: int):
     """The bf16 call as the kernels compute it (module doc); returns y
     (B, H, S, P) and the final state (B, H, P, N), float32."""
@@ -63,22 +120,16 @@ def _emulate(x, dt, a, bm, cm, chunk: int):
     nq = -(-chunk // TILE)
     pad = nq * TILE - chunk
     bank = torch.arange(h) // (h // g)
-    xf, dtf, af = x.float(), dt[:, :, 0].float(), a.float()
+    xf, dtf = x.float(), dt[:, :, 0].float()
     bf, cf = bm.float()[:, bank], cm.float()[:, bank]           # (b, h, s, n)
     rows = torch.arange(nq * TILE)
-    state = torch.zeros(b, h, p, n)
+    cum_all, s_in, state = _chunk_states(x, dt, a, bm, chunk)
     y = torch.empty(b, h, s, p)
     for c0 in range(0, s, chunk):
         sl = slice(c0, c0 + chunk)
         dtc = dtf[..., sl]
-        cum = torch.cumsum(dtc * af[:, None], -1)                   # (b, h, Q)
-        # the state entering this chunk, as state passing writes it
-        s_hi, s_lo = _split(state)
-        # chunk state and state passing (unchanged kernels)
-        w = torch.exp(cum[..., -1:] - cum) * dtc
-        local = sum(part.transpose(-1, -2) @ bf[:, :, sl]
-                    for part in _split(xf[:, :, sl] * w[..., None]))
-        state = state * torch.exp(cum[..., -1])[..., None, None] + local
+        cum = cum_all[..., sl]                                      # (b, h, Q)
+        s_hi, s_lo = s_in[c0 // chunk]
         # the chunk scan: zero rows past Q, cum in base 2, dt
         zp = lambda t: torch.nn.functional.pad(t, (0, 0, 0, pad))
         xq, bq, cq = zp(xf[:, :, sl]), zp(bf[:, :, sl]), zp(cf[:, :, sl])

@@ -13,11 +13,12 @@ leaf in different orders, and a moment that cancels to ~5e-6 keeps that
 ulp as its absolute error: 3.7e-9 observed); dense forward logits within
 1e-5 (float32, logits of order 1); decode against the forward at
 ``tests/test_models.py``'s bar (atol 5e-3, rtol 1e-3); train-step losses
-within 1e-5 relative at each of three steps.  Parameters after three
-AdamW steps at learning rate 1e-3 are held within 1e-5 absolute: Adam
-divides each gradient by its own root mean square, so a leaf element whose
-gradient is a few ulps of float32 noise moves by up to ~lr either way
-(worst measured 7.1e-06, ``blocks/mlp/w_down``, on this batch).
+within 1e-5 relative at each of three steps.  Parameters after each of
+three AdamW steps at learning rate 1e-3 are held within 1e-5 absolute,
+except where the first gradient is float32 noise (0 < |g| <= 1e-6): Adam
+divides each gradient by its own root mean square, so such an element
+moves by up to ~lr either way, and it is held to 2 * steps * lr
+(``torch_port_ref.assert_params_close``; ROADMAP.md Queue 3 item 14).
 """
 import dataclasses
 
@@ -25,7 +26,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_ref import load_reference, requires_cuda, skip_without_cuda
+from torch_port_ref import (assert_params_close, first_step_grads,
+                            load_reference, requires_cuda, skip_without_cuda)
 
 from repro_torch import configs as tconfigs
 from repro_torch._tree import items, leaves
@@ -228,6 +230,12 @@ def test_dense_decode_matches_forward_and_reference(R):
 @pytest.mark.parametrize("n_micro,accum", [(1, "inside"), (1, "outside"),
                                            (2, "inside"), (2, "outside")])
 def test_train_step_matches_reference(R, n_micro, accum):
+    """Three steps: losses within 1e-5 relative; parameters within 1e-5
+    where the port's first gradient is clear of float32 noise, the noise
+    elements within 2 * steps * lr (under 1 % of each leaf).  Adam's first
+    step moves a noise element by an arbitrary fraction of lr (ROADMAP.md
+    Queue 3 item 14: ``blocks/attn/wo``, 1 of 8,192 elements, 1.8e-5 apart
+    after the first step on one CPU, within the bar on another)."""
     jax = R.jax
     jm, jp, tm, tp = _carry(R, ARCH, train_microbatches=n_micro)
     jo = R.adamw.adamw(R.adamw.AdamWConfig(learning_rate=LR))
@@ -235,16 +243,17 @@ def test_train_step_matches_reference(R, n_micro, accum):
     jst, tst = jo.init(jp), to.init(tp)
     jstep = jax.jit(R.steps.make_train_step(jm, jo, grad_accum=accum))
     tstep = tsteps.make_train_step(tm, to, grad_accum=accum)
-    for toks in _batches(3):
+    batches = _batches(3)
+    g1 = first_step_grads(tm, tp, _tbatch(batches[0]), grad_accum=accum)
+    for step, toks in enumerate(batches, 1):
         jp, jst, jmet = jstep(jp, jst, _jbatch(R, toks))
         tp, tst, tmet = tstep(tp, tst, _tbatch(toks))
         assert set(tmet) == set(jmet) == {"loss", "aux_loss", "total_loss"}
         for k in jmet:
             want = float(jmet[k])
             assert abs(float(tmet[k]) - want) <= TOL_LOSS * max(abs(want), 1e-30), k
-        for (path, t), j in zip(items(tp), jax.tree.leaves(jp)):
-            np.testing.assert_allclose(_np(t), np.asarray(j), atol=TOL_PARAMS,
-                                       rtol=0, err_msg=str(path))
+        assert_params_close(items(tp), jax.tree.leaves(jp), g1, atol=TOL_PARAMS,
+                            steps=step, lr=LR)
     assert int(tst["count"]) == int(jst["count"]) == 3
 
 

@@ -81,3 +81,66 @@ def assert_rel_close(actual, expected, rtol, what=""):
     denom = np.maximum(np.abs(e), 1e-30)
     err = np.abs(a - e) / denom
     assert np.all(err <= rtol), f"{what}: max rel err {err.max():.3e} > {rtol}"
+
+
+# ---------------------------------------------------------------------------
+# parameters after AdamW steps, port against reference
+# ---------------------------------------------------------------------------
+
+NOISE = 1e-6          # first-step gradients at or below it are float32 noise
+NOISE_SHARE = 0.01    # at most this share of a leaf may be noise elements
+
+
+def first_step_grads(model, params, batch, *, grad_accum: str = "inside"):
+    """The gradient that the port's ``make_train_step`` takes of its loss on
+    ``batch`` at ``params`` (microbatches and ``grad_accum`` as configured),
+    one CPU tensor per leaf in ``leaves`` order; the parameters are left
+    as they were."""
+    from repro_torch._tree import leaves
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import Optimizer
+
+    seen = []
+
+    def record(grads, state, p):
+        seen.append([g.detach().cpu() for g in leaves(grads)])
+        return p, state
+
+    make_train_step(model, Optimizer(init=lambda p: None, update=record),
+                    grad_accum=grad_accum)(params, None, batch)
+    return seen[0]
+
+
+def assert_params_close(port, ref, grads, *, atol: float, steps: int,
+                        lr: float) -> None:
+    """Parameters after ``steps`` AdamW steps of the port against the
+    reference's.  ``port`` is ``items(params)`` of the port, ``ref`` the
+    reference's leaves in the same order, ``grads`` ``first_step_grads`` of
+    the same start.
+
+    Adam's first update of an element is lr * g / (|g| + eps): where the
+    first gradient is float32 noise (0 < |g| <= NOISE) the two frameworks
+    move it by arbitrary fractions of lr, either way (ROADMAP.md Queue 3
+    item 14).  Those elements are held to 2 * steps * lr, Adam's largest
+    step each way; every other element, exact zeros included, to ``atol``.
+    Fewer than NOISE_SHARE of a leaf's elements may be noise elements, so
+    the mask cannot hide a real divergence."""
+    port, ref = list(port), list(ref)
+    assert len(port) == len(ref) == len(grads)
+    for (path, t), j, g in zip(port, ref, grads):
+        a = np.asarray(to_np(t), np.float64)
+        b = np.asarray(to_np(j), np.float64)
+        assert a.shape == b.shape == tuple(g.shape), str(path)
+        gap = np.abs(a - b)
+        gn = np.abs(to_np(g))
+        noise = (gn > 0) & (gn <= NOISE)
+        assert noise.mean() < NOISE_SHARE, \
+            f"{path}: {noise.mean():.2%} of its first gradient is noise"
+        held = gap[~noise]
+        if held.size:
+            k = int(np.argmax(held))
+            assert held[k] <= atol, \
+                f"{path}: {held[k]:.3e} > {atol} (|g1| {gn[~noise][k]:.3e})"
+        if noise.any():
+            assert gap[noise].max() <= 2 * steps * lr, \
+                f"{path}: a noise element {gap[noise].max():.3e} > 2 * {steps} * {lr}"
