@@ -1632,11 +1632,14 @@ def device_profile(fn) -> dict:
     the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import spans
     from repro_torch.kernels.flash_attention import KERNEL_NAMES
     from repro_torch.kernels.ssd_scan import KERNEL_NAMES as SSD_KERNELS
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # spans off: their ranges' shadows on the device are no kernels
+    with spans.off(), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()

@@ -17,6 +17,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch import spans
 from repro_torch._tree import leaves, tree_map
 from repro_torch.models.transformer import Model
 from repro_torch.optim.adamw import Optimizer
@@ -153,7 +154,7 @@ def make_prefill_step(model: Model) -> Callable:
     """Forward-only full-sequence step; returns the last-position logits."""
 
     def prefill_step(params, batch):
-        with _serving(params):
+        with _serving(params), spans.span("prefill"):
             logits, _ = model.forward(params, batch)
             return logits[:, -1, :]
 

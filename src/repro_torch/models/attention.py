@@ -13,6 +13,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.models import layers
 from repro_torch.models.api import ModelConfig
 from repro_torch.parallel.dtensor_ops import (dim_shards, shard_local,
@@ -129,6 +130,7 @@ def _local_core(core, q, k, v):
     return shard_local(core, (q, k, v), ((0, 2),) * 3, ((0, 2),))
 
 
+@spans.spanned("attn")
 def attention(p: dict, x: torch.Tensor, positions, cfg: ModelConfig, *,
               num_heads: Optional[int] = None,
               num_kv_heads: Optional[int] = None,
@@ -141,8 +143,9 @@ def attention(p: dict, x: torch.Tensor, positions, cfg: ModelConfig, *,
         q, k = _apply_positional(q, k, positions, cfg)
     if cfg.use_flash_kernel and causal:
         from repro_torch.kernels import ops as kops
-        out = kops.flash_attention(q, k, v, causal=True,
-                                   sliding_window=cfg.sliding_window)
+        with spans.span("attn.flash"):
+            out = kops.flash_attention(q, k, v, causal=True,
+                                       sliding_window=cfg.sliding_window)
     else:
         core = chunked_attention if x.shape[1] > 1024 else gqa_scores_reference
         out = _local_core(lambda *a: core(*a, causal=causal,

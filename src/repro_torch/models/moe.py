@@ -21,6 +21,15 @@ one-hot.  ``moe_ffn`` keeps one buffer per sequence (row-local capacity
 ``ceil(N*K*cf/E)``); ``moe_ffn_dense`` (decode) runs every expert on every
 token and never drops a pair.
 
+``ROWS`` counts, from shapes on the host (no device work, no sync), the
+(token, expert) pairs each call routes (tokens x top-k) and the rows its
+experts compute (E x capacity per buffer, or E x tokens on the dense
+path): their ratio is the share of the grouped matmuls' rows that carry a
+routed pair.  Under a profiler the row and flat paths mark the router, the
+dispatch (into the expert buffer's (E, rows, D) layout), the experts and
+the combine (from the experts' output layout back) as spans
+(``repro_torch.spans``).
+
 On a mesh (DTensor rows) the routing, the dispatch and the combine run on
 each rank's own rows (``parallel.dtensor_ops.shard_local``), the grouped
 expert FFN on DTensor's propagation.  ``moe_ffn_flat``'s running count is
@@ -37,12 +46,27 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.models.api import MoEConfig
 from repro_torch.parallel.constraints import constrain
 from repro_torch.parallel.dtensor_ops import (fsdp_gather, rank_offsets,
                                               replicate, shard_local)
 
-__all__ = ["moe_spec", "moe_ffn", "moe_ffn_flat", "moe_ffn_dense"]
+__all__ = ["moe_spec", "moe_ffn", "moe_ffn_flat", "moe_ffn_dense", "ROWS",
+           "reset_row_counts"]
+
+# pairs routed and expert rows computed since the last reset
+ROWS = {"routed": 0, "computed": 0}
+
+
+def reset_row_counts() -> None:
+    for name in ROWS:
+        ROWS[name] = 0
+
+
+def _count_rows(routed: int, computed: int) -> None:
+    ROWS["routed"] += routed
+    ROWS["computed"] += computed
 
 
 def moe_spec(d_model: int, cfg: MoEConfig, dtype) -> dict:
@@ -141,6 +165,7 @@ def _combine(y: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor
     return out
 
 
+@spans.spanned("moe")
 def moe_ffn(p: dict, x: torch.Tensor, cfg: MoEConfig, act: str
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row-local capacity MoE: x (B, S, D) -> (out (B, S, D), aux loss).
@@ -149,17 +174,24 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: MoEConfig, act: str
     e, k = cfg.num_experts, cfg.top_k
     cap = int(math.ceil(s * k * cfg.capacity_factor / e))
     rowwise = ((0, None),)
+    _count_rows(b * s * k, e * cap * b)
 
-    gates_f, eidx_f, aux = _route(p, x.reshape(-1, d), cfg)
+    with spans.span("moe.router"):
+        gates_f, eidx_f, aux = _route(p, x.reshape(-1, d), cfg)
     gates, eidx = gates_f.reshape(b, s, k), eidx_f.reshape(b, s, k)
-    buf, slot = shard_local(lambda xl, el: _dispatch(xl, el, e, cap),
-                            (x, eidx), rowwise * 2, rowwise * 2)
-    buf = constrain(buf, "batch")
-    bufr = buf[:, :e * cap].reshape(b, e, cap, d).transpose(0, 1)
-    y = _experts(bufr.reshape(e, b * cap, d), p, act)
-    y = y.reshape(e, b, cap, d).transpose(0, 1).reshape(b, e * cap, d)
-    y = constrain(y, "batch")
-    return shard_local(_combine, (y, slot, gates), rowwise * 3, rowwise), aux
+    with spans.span("moe.dispatch"):
+        buf, slot = shard_local(lambda xl, el: _dispatch(xl, el, e, cap),
+                                (x, eidx), rowwise * 2, rowwise * 2)
+        buf = constrain(buf, "batch")
+        bufr = buf[:, :e * cap].reshape(b, e, cap, d).transpose(0, 1)
+        bufr = bufr.reshape(e, b * cap, d)
+    with spans.span("moe.experts"):
+        y = _experts(bufr, p, act)
+    with spans.span("moe.combine"):
+        y = y.reshape(e, b, cap, d).transpose(0, 1).reshape(b, e * cap, d)
+        y = constrain(y, "batch")
+        out = shard_local(_combine, (y, slot, gates), rowwise * 3, rowwise)
+    return out, aux
 
 
 def _dispatch_flat(xf: torch.Tensor, eidx: torch.Tensor, before, e: int,
@@ -187,6 +219,7 @@ def _combine_flat(slot: torch.Tensor, gates: torch.Tensor, y: torch.Tensor
     return out
 
 
+@spans.spanned("moe")
 def moe_ffn_flat(p: dict, x: torch.Tensor, cfg: MoEConfig, act: str
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Global capacity MoE: one buffer over all B*S tokens."""
@@ -196,21 +229,27 @@ def moe_ffn_flat(p: dict, x: torch.Tensor, cfg: MoEConfig, act: str
     e, k = cfg.num_experts, cfg.top_k
     cap = int(math.ceil(n * k * cfg.capacity_factor / e))
     rows = (0, None)
+    _count_rows(n * k, e * cap)
 
-    gates, eidx, aux = _route(p, xf, cfg)
-    before = rank_offsets(lambda el: F.one_hot(el, e).sum(dim=(0, 1)), eidx)
-    buf, slot = shard_local(
-        lambda xl, el, bl: _dispatch_flat(xl, el, bl, e, cap),
-        (xf, eidx, before), (rows, rows, None if before is None else rows),
-        ("sum", rows))
-    # each buffer freed after its last use: at olmoe's prefill_32k on the
-    # production mesh one is 43 GB per rank
-    bufr = replicate(buf)[:e * cap].reshape(e, cap, d)
-    del buf
-    y = _experts(bufr, p, act)
+    with spans.span("moe.router"):
+        gates, eidx, aux = _route(p, xf, cfg)
+    with spans.span("moe.dispatch"):
+        before = rank_offsets(lambda el: F.one_hot(el, e).sum(dim=(0, 1)),
+                              eidx)
+        buf, slot = shard_local(
+            lambda xl, el, bl: _dispatch_flat(xl, el, bl, e, cap),
+            (xf, eidx, before), (rows, rows, None if before is None else rows),
+            ("sum", rows))
+        # each buffer freed after its last use: at olmoe's prefill_32k on
+        # the production mesh one is 43 GB per rank
+        bufr = replicate(buf)[:e * cap].reshape(e, cap, d)
+        del buf
+    with spans.span("moe.experts"):
+        y = _experts(bufr, p, act)
     del bufr
-    out = shard_local(_combine_flat, (slot, gates, y),
-                      (rows, rows, (None, None)), (rows,))
+    with spans.span("moe.combine"):
+        out = shard_local(_combine_flat, (slot, gates, y),
+                          (rows, rows, (None, None)), (rows,))
     return out.reshape(b, s, d), aux
 
 
@@ -222,6 +261,7 @@ def moe_ffn_dense(p: dict, x: torch.Tensor, cfg: MoEConfig, act: str
     b, s, d = x.shape
     xf = x.reshape(-1, d)
     e = cfg.num_experts
+    _count_rows(xf.shape[0] * cfg.top_k, e * xf.shape[0])
     gates, eidx, aux = _route(p, xf, cfg)
     w = torch.zeros((xf.shape[0], e), dtype=torch.float32, device=x.device)
     for j in range(cfg.top_k):

@@ -16,6 +16,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.models import layers
 from repro_torch.models.api import ModelConfig, SSMConfig
 from repro_torch.parallel.dtensor_ops import (shard_local, shards_dim,
@@ -53,6 +54,7 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+@spans.spanned("ssm.conv")
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                  ) -> torch.Tensor:
     """Depthwise causal conv, x (B, S, C), w (W, C); for DTensors on each
@@ -124,6 +126,7 @@ def ssd_reference(x, dt, A, B, C, chunk: int) -> Tuple[torch.Tensor, torch.Tenso
     return torch.cat(ys, dim=1), state
 
 
+@spans.spanned("ssm")
 def ssm_mixer(p: dict, u: torch.Tensor, cfg: ModelConfig, *,
               use_kernel: bool = False) -> torch.Tensor:
     """Full Mamba2 mixer: u (B, S, D) -> (B, S, D)."""
@@ -138,20 +141,22 @@ def ssm_mixer(p: dict, u: torch.Tensor, cfg: ModelConfig, *,
     C = C.reshape(b, s, s_cfg.n_groups, s_cfg.state_dim)
     dt = _softplus(dt.float() + p["dt_bias"])                # (b,s,h)
     A = -torch.exp(p["A_log"])
-    if use_kernel:
-        from repro_torch.kernels import ops as kops
-        y, _ = kops.ssd_scan(x, dt, A, B, C, chunk=s_cfg.chunk_size)
-    else:
-        chunk = min(s_cfg.chunk_size, s)
-        bc = 2 if s_cfg.n_groups > 1 else None
-        # on a mesh the heads are split as the head vectors (A_log) are
-        y, _ = shard_local(lambda *a: ssd_reference(*a, chunk=chunk),
-                           (x, dt, A, B, C),
-                           ((0, 2), (0, 2), (None, 0), (0, bc), (0, bc)),
-                           ((0, 2), (0, 1)), heads_from=2)
-    y = y + p["D"][:, None] * x.float()
-    y = y.reshape(b, s, d_inner).to(u.dtype)
-    y = layers.rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+    with spans.span("ssm.scan"):
+        if use_kernel:
+            from repro_torch.kernels import ops as kops
+            y, _ = kops.ssd_scan(x, dt, A, B, C, chunk=s_cfg.chunk_size)
+        else:
+            chunk = min(s_cfg.chunk_size, s)
+            bc = 2 if s_cfg.n_groups > 1 else None
+            # on a mesh the heads are split as the head vectors (A_log) are
+            y, _ = shard_local(lambda *a: ssd_reference(*a, chunk=chunk),
+                               (x, dt, A, B, C),
+                               ((0, 2), (0, 2), (None, 0), (0, bc), (0, bc)),
+                               ((0, 2), (0, 1)), heads_from=2)
+    with spans.span("ssm.gate_norm"):
+        y = y + p["D"][:, None] * x.float()
+        y = y.reshape(b, s, d_inner).to(u.dtype)
+        y = layers.rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
     return layers.dense(y, p["out_proj"])
 
 

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import spans
 from repro_torch._device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, mlp, moe, ssm
@@ -262,6 +263,7 @@ def _ssm_block_decode(p: dict, x, state: ssm.SSMState, idx: tuple,
     return x + y
 
 
+@spans.spanned("embed")
 def _embed_in(params, batch, cfg: ModelConfig):
     dtype = cfg.activation_dtype
     if cfg.embeds_input:
@@ -282,6 +284,7 @@ def _embed_in(params, batch, cfg: ModelConfig):
     return x, positions
 
 
+@spans.spanned("head")
 def _logits_out(params, x, cfg: ModelConfig):
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]

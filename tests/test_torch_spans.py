@@ -1,0 +1,291 @@
+"""PyTorch port: the spans inside the prefill path and the MoE row counter
+(``repro_torch.spans``, ``models/moe.py``'s ``ROWS``), on the CPU.
+
+A prefill of a tiny MoE model (row and flat dispatch) and of a tiny Mamba2
+model, under ``torch.profiler``, records each documented span the
+documented number of times, nested as documented, and each span's range
+holds the operators launched inside it.  Off (no profiler, a profile that
+does not collect the CPU's activity or that no caller holds, or
+``off()``), a span calls no ``record_function`` and a
+``TorchDispatchMode`` sees the operators of an unmarked prefill; the
+logits are bit-equal either way.  The row counter adds tokens x top-k and
+the experts' rows from shapes, and its expert rows are the rows of the
+buffers that reach the experts.
+"""
+import contextlib
+import dataclasses
+import math
+
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch import configs as tconfigs
+from repro_torch import spans
+from repro_torch.launch import steps as tsteps
+from repro_torch.models import build_model, moe
+from repro_torch.models.api import MoEConfig
+
+B, S = 2, 32
+CPU = torch.profiler.ProfilerActivity.CPU
+
+# per layer: (span, its parent)
+MOE_LAYER = [("attn", "prefill"), ("attn.flash", "attn"), ("moe", "prefill"),
+             ("moe.router", "moe"), ("moe.dispatch", "moe"),
+             ("moe.experts", "moe"), ("moe.combine", "moe")]
+SSM_LAYER = [("ssm", "prefill"), ("ssm.conv", "ssm"), ("ssm.scan", "ssm"),
+             ("ssm.gate_norm", "ssm")]
+ONCE = [("prefill", None), ("embed", "prefill"), ("head", "prefill")]
+
+# operators that, inside the span's family (``moe``, ``ssm``), fall in it
+OPS_IN = {"moe.router": ("aten::topk", "aten::softmax"),
+          "moe.dispatch": ("aten::index_put_", "aten::cumsum"),
+          "moe.experts": ("aten::bmm",),
+          "moe.combine": ("aten::index_select", "aten::cat"),
+          "ssm.conv": ("aten::constant_pad_nd",),
+          "ssm.gate_norm": ("aten::rsqrt",)}
+
+
+def _model(arch: str, dispatch=None):
+    cfg = dataclasses.replace(tconfigs.get_smoke_config(arch),
+                              use_flash_kernel=True)
+    if dispatch is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch=dispatch))
+    model = build_model(cfg, device="cpu")
+    params = model.init(0)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(1))
+    return cfg, tsteps.make_prefill_step(model), params, {"tokens": tokens}
+
+
+CASES = [("mixtral-8x22b", "row", MOE_LAYER),
+         ("mixtral-8x22b", "flat", MOE_LAYER),
+         ("mamba2-370m", None, SSM_LAYER)]
+
+
+def _profile(step, params, batch, n: int):
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(n):
+            step(params, batch)
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events()]
+
+
+def _parent(ev, found):
+    """The innermost span around ``ev`` (None outside every span)."""
+    name, t0, t1 = ev
+    around = [e for e in found if e is not ev and e[1] <= t0 and t1 <= e[2]
+              and (e[2] - e[1]) >= (t1 - t0)]
+    return min(around, key=lambda e: e[2] - e[1])[0] if around else None
+
+
+@pytest.mark.parametrize("arch,dispatch,layer", CASES,
+                         ids=["moe-row", "moe-flat", "mamba2"])
+def test_prefill_records_the_documented_spans(arch, dispatch, layer):
+    cfg, step, params, batch = _model(arch, dispatch)
+    n = 2
+    events = _profile(step, params, batch, n)
+    found = [e for e in events if e[0] in spans.NAMES]
+    want = {}
+    for name, parent in ONCE + layer * cfg.num_layers:
+        want[(name, parent)] = want.get((name, parent), 0) + n
+    got = {}
+    for ev in found:
+        key = (ev[0], _parent(ev, found))
+        got[key] = got.get(key, 0) + 1
+    assert got == want
+    # each operator that starts inside a span ends inside it, and the
+    # operators of each part fall in its span
+    ops = [e for e in events if e[0].startswith("aten::")]
+    for name, t0, t1 in found:
+        for _, s0, s1 in ops:
+            if t0 <= s0 <= t1:
+                assert s1 <= t1
+    for span_name, op_names in OPS_IN.items():
+        ranges = [(t0, t1) for name, t0, t1 in found if name == span_name]
+        family = [(t0, t1) for name, t0, t1 in found
+                  if name == span_name.split(".")[0]]
+        for op, s0, s1 in ops:
+            if op in op_names and any(t0 <= s0 <= t1 for t0, t1 in family):
+                assert any(t0 <= s0 and s1 <= t1 for t0, t1 in ranges), \
+                    (op, span_name)
+
+
+@pytest.mark.parametrize("arch,dispatch,layer", CASES,
+                         ids=["moe-row", "moe-flat", "mamba2"])
+def test_logits_bit_equal_with_spans_on_and_off(arch, dispatch, layer):
+    _, step, params, batch = _model(arch, dispatch)
+    off = step(params, batch)
+    with torch.profiler.profile(activities=[CPU]) as prof:
+        assert spans.is_recording()
+        on = step(params, batch)
+        with spans.off():
+            off_profiled = step(params, batch)
+    assert prof.events()
+    assert torch.equal(off, on) and torch.equal(off, off_profiled)
+
+
+
+def _recording_under_unbound_profile() -> bool:
+    with torch.profiler.profile(activities=[CPU]):
+        return spans.is_recording()
+
+
+def test_recording_rule():
+    assert not spans.is_recording()
+    with torch.profiler.profile(activities=[CPU]) as prof:
+        assert spans.is_recording()
+        with spans.off():
+            assert not spans.is_recording()
+            with spans.off():
+                assert not spans.is_recording()
+            assert not spans.is_recording()
+        assert spans.is_recording()
+        # the rule reads the running profile's activities: one that does
+        # not list the CPU's (a CUDA-only profile on a card) records none
+        prof.activities = {torch.profiler.ProfilerActivity.CUDA}
+        assert not spans.is_recording()
+        prof.activities = {CPU}
+        assert spans.is_recording()
+    assert not spans.is_recording()
+    # a finished profile in a caller's frame is no running one
+    assert prof.profiler.kineto_results is not None
+    # a profile no caller holds: its activities are unknown, no range
+    assert not _recording_under_unbound_profile()
+    with pytest.raises(ValueError):
+        spans.span("no.such.span")
+    with pytest.raises(ValueError):
+        spans.spanned("no.such.span")
+
+
+def test_the_outermost_span_decides_once(monkeypatch):
+    _, step, params, batch = _model("mamba2-370m")
+    looks = []
+    real = spans._profile_collects_cpu
+
+    def counting():
+        looks.append(1)
+        return real()
+
+    monkeypatch.setattr(spans, "_profile_collects_cpu", counting)
+    step(params, batch)
+    assert looks == []
+    with torch.profiler.profile(activities=[CPU]) as prof:
+        step(params, batch)
+    assert len(looks) == 1
+    names = [e.name for e in prof.events() if e.name in spans.NAMES]
+    assert names.count("prefill") == 1 and names.count("ssm.scan") > 1
+    assert spans._outer is None
+
+
+class _Ops(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("arch,dispatch", [("mixtral-8x22b", "row"),
+                                           ("mamba2-370m", None)])
+def test_off_spans_call_nothing(arch, dispatch, monkeypatch):
+    _, step, params, batch = _model(arch, dispatch)
+    calls = []
+    real = torch.profiler.record_function
+
+    def counting(name, *a, **k):
+        calls.append(name)
+        return real(name, *a, **k)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    with _Ops() as marked:
+        out = step(params, batch)
+    assert calls == []
+    with torch.profiler.profile(activities=[CPU]) as prof:
+        prof.activities = {torch.profiler.ProfilerActivity.CUDA}
+        step(params, batch)
+        prof.activities = {CPU}
+        with spans.off():
+            step(params, batch)
+        assert calls == []
+        step(params, batch)
+    assert calls and set(calls) <= set(spans.NAMES)
+    # the operators of a prefill with every span replaced by a bare context
+    monkeypatch.setattr(spans, "span", lambda name: contextlib.nullcontext())
+    with _Ops() as bare:
+        plain = step(params, batch)
+    assert marked.names == bare.names
+    assert not any("profiler" in n for n in marked.names)
+    assert torch.equal(out, plain)
+
+
+def _moe_params(d: int, cfg: MoEConfig):
+    gen = torch.Generator().manual_seed(3)
+    return {k: torch.randn(shape, generator=gen) * scale
+            for k, (shape, _, scale) in moe.moe_spec(d, cfg, torch.float32).items()}
+
+
+def test_row_counts_from_shapes():
+    b, s, d = 2, 8, 16
+    cfg = MoEConfig(num_experts=4, top_k=2, d_ff_expert=32,
+                    capacity_factor=1.5)
+    p = _moe_params(d, cfg)
+    x = torch.randn((b, s, d), generator=torch.Generator().manual_seed(4))
+    e, k, n = cfg.num_experts, cfg.top_k, b * s
+    moe.reset_row_counts()
+    assert moe.ROWS == {"routed": 0, "computed": 0}
+    moe.moe_ffn(p, x, cfg, "swiglu")
+    cap = math.ceil(s * k * 1.5 / e)                       # 6 a sequence
+    assert moe.ROWS == {"routed": n * k, "computed": e * cap * b}
+    moe.reset_row_counts()
+    moe.moe_ffn_flat(p, x, cfg, "swiglu")
+    cap = math.ceil(n * k * 1.5 / e)                       # 12 over all
+    assert moe.ROWS == {"routed": n * k, "computed": e * cap}
+    moe.reset_row_counts()
+    moe.moe_ffn_dense(p, x, cfg, "swiglu")
+    assert moe.ROWS == {"routed": n * k, "computed": e * n}
+    moe.moe_ffn(p, x, cfg, "swiglu")                       # counts add up
+    assert moe.ROWS == {"routed": 2 * n * k, "computed": e * n + 4 * 6 * b}
+    assert spans.counts()["moe.routed"] == 2 * n * k
+    assert spans.counts()["moe.computed"] == e * n + 4 * 6 * b
+    moe.reset_row_counts()
+    assert moe.ROWS == {"routed": 0, "computed": 0}
+
+
+@pytest.mark.parametrize("ffn", ["moe_ffn", "moe_ffn_flat", "moe_ffn_dense"])
+def test_computed_rows_are_the_experts_input_rows(ffn, monkeypatch):
+    b, s, d = 2, 8, 16
+    cfg = MoEConfig(num_experts=4, top_k=2, d_ff_expert=32,
+                    capacity_factor=1.5)
+    p = _moe_params(d, cfg)
+    x = torch.randn((b, s, d), generator=torch.Generator().manual_seed(5))
+    seen = []
+    real = moe._experts
+
+    def watched(bufr, *args):
+        seen.append(bufr.shape[0] * bufr.shape[1])
+        return real(bufr, *args)
+
+    monkeypatch.setattr(moe, "_experts", watched)
+    moe.reset_row_counts()
+    getattr(moe, ffn)(p, x, cfg, "swiglu")
+    assert len(seen) == 1 and moe.ROWS["computed"] == seen[0]
+    moe.reset_row_counts()
+
+
+def test_counts_carries_the_launch_counters():
+    from repro_torch.kernels import flash_attention, renewal_scan, ssd_scan
+
+    counted = spans.counts()
+    for mod in (flash_attention, ssd_scan, renewal_scan):
+        for key, value in mod.LAUNCHES.items():
+            assert counted[key] == value
+    assert set(counted) == (set(flash_attention.LAUNCHES)
+                            | set(ssd_scan.LAUNCHES)
+                            | set(renewal_scan.LAUNCHES)
+                            | {"moe.routed", "moe.computed"})
+    assert all(isinstance(v, int) for v in counted.values())
