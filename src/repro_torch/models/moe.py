@@ -2,40 +2,53 @@
 the counterpart of ``repro.models.moe``.
 
 Each (token, slot) pair the router picks gets a position within its expert
-by an integer running count over the one-hot of the picks; pairs past an
-expert's capacity go to one spare row, which is thrown away.  The grouped
-expert FFN is a batched matmul over the expert axis; the combine gathers
-each pair's output and weights it by its gate.
+by an integer running count over the one-hot of the picks; a pair at or
+past its expert's capacity is dropped: it contributes nothing to the
+output.  The combine gathers each kept pair's expert output and weights it
+by its gate, adding over the K slots in slot order.
 
-Every pair that keeps its slot has a buffer row of its own, so the
-reference's scatter-add into a zeroed buffer is a plain scatter here, in
-place (the same bits: 0 + x is x), one per slot index j as in the
-reference; only the spare row takes several writes, and it is never
-read.  The combine
+``moe_ffn`` (row-local capacity ``ceil(S*K*cf/E)`` a sequence) packs the
+kept pairs into one buffer of rows ordered by (expert, sequence,
+position): a pair's row is its expert's offset, plus the kept picks of its
+expert in earlier sequences, plus its position, all from exclusive running
+sums of the (B, E) table of kept counts, with no sort and no atomics.  The
+expert FFN is one grouped matmul per weight over that buffer
+(``F.grouped_mm``, the E group ends a device tensor: no host sync on the
+card in bf16, where it is one CUTLASS kernel; in float32 torch loops over
+the groups and reads the ends to the host), so it computes the kept rows
+and no padding.  Dropped pairs write one spare row past the groups, which
+is neither computed nor read.  On a mesh (DTensor rows) ``moe_ffn`` keeps
+a buffer of E*cap rows a sequence and a batched matmul over the expert
+axis, whose static (E, rows, D) shape DTensor's propagation shards.
+``moe_ffn_flat`` keeps one such buffer over all tokens (capacity
+``ceil(N*K*cf/E)``); ``moe_ffn_dense`` (decode) runs every expert on every
+token and never drops a pair.
+
+Every kept pair has a buffer row of its own, so the reference's
+scatter-add into a zeroed buffer is a plain scatter here, in place (the
+same bits: 0 + x is x), one per slot index j as in the reference; only the
+spare row takes several writes, and it is never read.  The combine
 gathers with ``index_select``, whose backward adds into distinct rows but
 for the spare one, whose gradient is dropped.  No sum depends on the order
 of concurrent writes, so a train step and its replay are bit-equal.  The
 running count is a scan along the innermost axis of the transposed
-one-hot.  ``moe_ffn`` keeps one buffer per sequence (row-local capacity
-``ceil(S*K*cf/E)``), ``moe_ffn_flat`` one buffer over all tokens (capacity
-``ceil(N*K*cf/E)``); ``moe_ffn_dense`` (decode) runs every expert on every
-token and never drops a pair.
+one-hot.
 
 ``ROWS`` counts, from shapes on the host (no device work, no sync), the
-(token, expert) pairs each call routes (tokens x top-k) and the rows its
-experts compute (E x capacity per buffer, or E x tokens on the dense
-path): their ratio is the share of the grouped matmuls' rows that carry a
-routed pair.  Under a profiler the row and flat paths mark the router, the
-dispatch (into the expert buffer's (E, rows, D) layout), the experts and
-the combine (from the experts' output layout back) as spans
-(``repro_torch.spans``).
+(token, expert) pairs each call routes (tokens x top-k), the rows its
+experts compute (the packed rows ``min(B*S*K, B*E*cap)`` of the row path,
+E x capacity per buffer of the capacity paths, E x tokens on the dense
+path; exact wherever nothing can drop) and the calls that took the packed
+path (``ragged``).  Under a profiler the row and flat paths mark the
+router, the dispatch (into the experts' row layout), the experts and the
+combine (from it back) as spans (``repro_torch.spans``).
 
-On a mesh (DTensor rows) the routing, the dispatch and the combine run on
-each rank's own rows (``parallel.dtensor_ops.shard_local``), the grouped
-expert FFN on DTensor's propagation.  ``moe_ffn_flat``'s running count is
-global: each rank counts its own picks from the picks of the ranks before
-it (``rank_offsets``), scatters its rows into a buffer of its own (a
-partial sum: every kept row is written on one rank only) and the buffer is
+On a mesh the routing, the dispatch and the combine run on each rank's own
+rows (``parallel.dtensor_ops.shard_local``), the grouped expert FFN on
+DTensor's propagation.  ``moe_ffn_flat``'s running count is global: each
+rank counts its own picks from the picks of the ranks before it
+(``rank_offsets``), scatters its rows into a buffer of its own (a partial
+sum: every kept row is written on one rank only) and the buffer is
 all-reduced, as the reference's replicated flat buffer.
 """
 from __future__ import annotations
@@ -49,14 +62,16 @@ import torch.nn.functional as F
 from repro_torch import spans
 from repro_torch.models.api import MoEConfig
 from repro_torch.parallel.constraints import constrain
-from repro_torch.parallel.dtensor_ops import (fsdp_gather, rank_offsets,
-                                              replicate, shard_local)
+from repro_torch.parallel.dtensor_ops import (fsdp_gather, is_dtensor,
+                                              rank_offsets, replicate,
+                                              shard_local)
 
 __all__ = ["moe_spec", "moe_ffn", "moe_ffn_flat", "moe_ffn_dense", "ROWS",
            "reset_row_counts"]
 
-# pairs routed and expert rows computed since the last reset
-ROWS = {"routed": 0, "computed": 0}
+# pairs routed, expert rows computed and calls of the packed row path since
+# the last reset
+ROWS = {"routed": 0, "computed": 0, "ragged": 0}
 
 
 def reset_row_counts() -> None:
@@ -104,18 +119,56 @@ def _route(p: dict, xf: torch.Tensor, cfg: MoEConfig
     return gates, eidx, aux
 
 
+def _positions(flat_e: torch.Tensor, e: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each pick's position within its expert (..., M): the picks of that
+    expert before it along the last axis; and each expert's picks (..., E)."""
+    onehot = F.one_hot(flat_e, e).transpose(-1, -2).contiguous()  # (..., E, M)
+    run = onehot.cumsum(dim=-1)
+    pos = run.gather(-2, flat_e[..., None, :])[..., 0, :] - 1
+    return pos, run[..., -1]
+
+
 def _slots(flat_e: torch.Tensor, e: int, cap: int, before=None
            ) -> torch.Tensor:
     """Buffer row of each pick (..., M): ``expert * cap + position`` where
     the position (the picks of that expert before it along the last axis,
     plus ``before[expert]`` where given) is below ``cap``, else the spare
     row ``e * cap``."""
-    onehot = F.one_hot(flat_e, e).transpose(-1, -2).contiguous()  # (..., E, M)
-    pos = onehot.cumsum(dim=-1).gather(-2, flat_e[..., None, :])[..., 0, :] - 1
+    pos, _ = _positions(flat_e, e)
     if before is not None:
         pos = pos + before[flat_e]
     return torch.where(pos < cap, flat_e * cap + pos,
                        torch.full_like(flat_e, e * cap))
+
+
+def _packed_rows(flat_e: torch.Tensor, e: int, cap: int, spare: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each pick's row (B, M) in the buffer of kept picks ordered by
+    (expert, sequence, position), ``spare`` for a pick at or past ``cap``
+    in its sequence (the picks ``_slots`` drops); and the E group ends,
+    cumulative, as int32."""
+    pos, count = _positions(flat_e, e)
+    kept = count.clamp(max=cap)                                  # (B, E)
+    per_expert = kept.sum(dim=0)
+    ends = per_expert.cumsum(dim=0)
+    first = (ends - per_expert) + (kept.cumsum(dim=0) - kept)   # (B, E)
+    row = first.gather(1, flat_e) + pos
+    return (torch.where(pos < cap, row, torch.full_like(row, spare)),
+            ends.to(torch.int32))
+
+
+def _ffn(mm, x: torch.Tensor, p: dict, act: str) -> torch.Tensor:
+    """The expert FFN with ``mm(rows, weight)`` as each weight's product."""
+    if act == "swiglu":
+        h = F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"])
+    elif act == "geglu":
+        h = F.gelu(mm(x, p["w_gate"]), approximate="tanh") * mm(x, p["w_up"])
+    elif act == "gelu":
+        h = F.gelu(mm(x, p["w_up"]), approximate="tanh")
+    else:
+        raise ValueError(f"unknown activation {act!r}")
+    return mm(h, p["w_down"])
 
 
 def _experts(bufr: torch.Tensor, p: dict, act: str) -> torch.Tensor:
@@ -124,16 +177,16 @@ def _experts(bufr: torch.Tensor, p: dict, act: str) -> torch.Tensor:
     mesh dims that shard the C rows (``parallel.dtensor_ops.fsdp_gather``)."""
     p = {k: fsdp_gather(p[k], bufr, (1,)) for k in ("w_gate", "w_up", "w_down")
          if k in p}
-    if act == "swiglu":
-        h = F.silu(torch.bmm(bufr, p["w_gate"])) * torch.bmm(bufr, p["w_up"])
-    elif act == "geglu":
-        h = F.gelu(torch.bmm(bufr, p["w_gate"]), approximate="tanh") \
-            * torch.bmm(bufr, p["w_up"])
-    elif act == "gelu":
-        h = F.gelu(torch.bmm(bufr, p["w_up"]), approximate="tanh")
-    else:
-        raise ValueError(f"unknown activation {act!r}")
-    return torch.bmm(h, p["w_down"])
+    return _ffn(torch.bmm, bufr, p, act)
+
+
+def _experts_ragged(xs: torch.Tensor, ends: torch.Tensor, p: dict, act: str
+                    ) -> torch.Tensor:
+    """Ragged expert FFN: xs (R, D) -> (R, D), rows ``ends[g-1]`` up to
+    ``ends[g]`` through expert g, one grouped matmul per weight taking the
+    weights as they are held.  Rows past ``ends[-1]`` are not computed:
+    their outputs are undefined."""
+    return _ffn(lambda a, w: F.grouped_mm(a, w, offs=ends), xs, p, act)
 
 
 def _dispatch(x: torch.Tensor, eidx: torch.Tensor, e: int, cap: int):
@@ -169,10 +222,43 @@ def _combine(y: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor
 def moe_ffn(p: dict, x: torch.Tensor, cfg: MoEConfig, act: str
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row-local capacity MoE: x (B, S, D) -> (out (B, S, D), aux loss).
-    Each sequence has its own per-expert capacity and buffer."""
+    Each sequence has its own per-expert capacity; the experts run over the
+    kept pairs only (over E*cap padded rows a sequence on a mesh)."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
     cap = int(math.ceil(s * k * cfg.capacity_factor / e))
+    if is_dtensor(x):
+        return _moe_ffn_padded(p, x, cfg, act, cap)
+    rows = min(b * s * k, b * e * cap)          # the kept pairs, at most
+    _count_rows(b * s * k, rows)
+    ROWS["ragged"] += 1
+
+    with spans.span("moe.router"):
+        gates, eidx, aux = _route(p, x.reshape(-1, d), cfg)
+    with spans.span("moe.dispatch"):
+        row, ends = _packed_rows(eidx.reshape(b, s * k), e, cap, rows)
+        row = row.reshape(b * s, k)
+        xf = x.reshape(b * s, d)
+        buf = x.new_empty((rows + 1, d))        # the last row: the spare
+        for j in range(k):
+            buf.index_put_((row[:, j],), xf)
+    with spans.span("moe.experts"):
+        y = _experts_ragged(buf[:rows], ends, p, act)
+    with spans.span("moe.combine"):
+        # a token picks an expert once: at cap >= S nothing drops and no
+        # pick reads the spare row, which is zeros where one can
+        if cap < s:
+            y = torch.cat([y, y.new_zeros((1, d))])
+        out = _gather_picks(y, row, gates)
+    return out.reshape(b, s, d), aux
+
+
+def _moe_ffn_padded(p: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
+                    cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_ffn`` on DTensor rows: each sequence's (E*cap + 1, D) buffer
+    and a batched matmul over the expert axis."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.top_k
     rowwise = ((0, None),)
     _count_rows(b * s * k, e * cap * b)
 
@@ -207,16 +293,24 @@ def _dispatch_flat(xf: torch.Tensor, eidx: torch.Tensor, before, e: int,
     return buf, slot
 
 
+def _gather_picks(yf: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor
+                  ) -> torch.Tensor:
+    """Each pick's row of yf (R, D), weighted by its gate, added over the K
+    picks in slot order: (N, D) for slot and gates (N, K)."""
+    out = torch.zeros((slot.shape[0], yf.shape[-1]), dtype=yf.dtype,
+                      device=yf.device)
+    for j in range(slot.shape[1]):
+        out = out + gates[:, j, None].to(yf.dtype) * yf.index_select(0, slot[:, j])
+    return out
+
+
 def _combine_flat(slot: torch.Tensor, gates: torch.Tensor, y: torch.Tensor
                   ) -> torch.Tensor:
     """Each pick's expert output y (E, cap, D) at its row, weighted by its
     gate, summed over the K picks: (N, D)."""
     d = y.shape[-1]
-    yf = torch.cat([y.reshape(-1, d), y.new_zeros((1, d))], dim=0)
-    out = torch.zeros((slot.shape[0], d), dtype=y.dtype, device=y.device)
-    for j in range(slot.shape[1]):
-        out = out + gates[:, j, None].to(y.dtype) * yf.index_select(0, slot[:, j])
-    return out
+    return _gather_picks(torch.cat([y.reshape(-1, d), y.new_zeros((1, d))]),
+                         slot, gates)
 
 
 @spans.spanned("moe")

@@ -24,7 +24,7 @@ block pre-norms and residual adds are ``prefill``'s.
 
 ``counts()`` is every counter of the port's modules already imported, in
 one flat dict: the kernels' ``LAUNCHES`` under their own keys and the MoE
-FFN's ``ROWS`` as ``moe.routed`` and ``moe.computed``.
+FFN's ``ROWS`` as ``moe.routed``, ``moe.computed`` and ``moe.ragged``.
 """
 from __future__ import annotations
 

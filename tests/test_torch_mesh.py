@@ -4,7 +4,9 @@
 * 1 x 1 mesh in this process: parameters, optimizer state, batch and cache
   are DTensors placed by the production rules, the steps run under the
   ``ActivationPolicy``, and every result is bit-equal to the unsharded
-  port's.  The sharded train step is also held to the dense train tests'
+  port's, whose MoE row path there takes the branch DTensor rows take (the
+  padded expert buffer and batched matmul; on plain rows it packs the kept
+  rows for grouped matmuls, whose sums over rows round differently).  The sharded train step is also held to the dense train tests'
   bars against the reference's *unsharded* step (the reference's sharded
   step fails under the installed jax, ROADMAP.md Queue 3 item 2).
 * 2 x 2 mesh over 4 spawned gloo processes, deepseek-7b smoke (tensor
@@ -111,11 +113,12 @@ def _recording(opt):
     return rec, grads
 
 
-def _run_both(case: str, mesh):
+def _run_both(case: str, mesh, mesh_moe_path: bool = False):
     """The unsharded port and the same steps on ``mesh``: 2 train steps
     (losses, first gradients, parameters, optimizer state), the forward's
     logits and 4 greedy decode steps (tokens, cache) on the initial
-    weights.  Returns (unsharded, sharded) dicts of plain tensors."""
+    weights; with ``mesh_moe_path`` the unsharded MoE row path takes the
+    mesh's branch.  Returns (unsharded, sharded) dicts of plain tensors."""
     from repro_torch._tree import items
     from repro_torch.launch.steps import make_serve_step, make_train_step
     from repro_torch.models import build_model
@@ -136,7 +139,8 @@ def _run_both(case: str, mesh):
     dbatch = place(batch, shd.batch_specs(cfg, mesh, batch, rules))
     out = []
     for p, b, sharded in ((params, batch, False), (dparams, dbatch, True)):
-        ctx = activation_sharding(policy) if sharded else _null()
+        ctx = (activation_sharding(policy) if sharded
+               else _padded_moe() if mesh_moe_path else _null())
         opt, grads = _recording(adamw(AdamWConfig(learning_rate=LR)))
         step = make_train_step(model, opt)
         res = {"loss": []}
@@ -170,6 +174,21 @@ class _null:
         return self
 
     def __exit__(self, *exc):
+        return False
+
+
+class _padded_moe:
+    """``moe_ffn`` on plain rows through its DTensor branch: each
+    sequence's padded (E*cap + 1, D) buffer and a batched matmul."""
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.real = moe, moe.is_dtensor
+        moe.is_dtensor = lambda x: True
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.is_dtensor = self.real
         return False
 
 
@@ -207,7 +226,7 @@ def gloo1():
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_steps_on_a_1x1_mesh_are_bit_equal(gloo1, case):
-    plain, sharded = _run_both(case, gloo1)
+    plain, sharded = _run_both(case, gloo1, mesh_moe_path=True)
     assert plain["loss"] == sharded["loss"]
     for key in ("grads", "state", "cache"):
         assert all(torch.equal(a, b) for a, b in zip(plain[key], sharded[key])), key

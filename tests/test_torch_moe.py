@@ -158,6 +158,68 @@ def test_slots_count_positions_per_expert():
     assert slot.tolist() == [[0, 2, 1, 6, 4, 3]]
 
 
+def _ragged_case(cf: float, b: int, router: str, e=4, k=2, d=16, f=32,
+                 s=12):
+    """Weights, input and config for the ragged-vs-padded comparison; a
+    ``skewed`` router sends most tokens' first pick to expert 0."""
+    cfg = MoEConfig(num_experts=e, top_k=k, d_ff_expert=f, capacity_factor=cf)
+    gen = torch.Generator().manual_seed(11)
+    p = {name: torch.randn(shape, generator=gen) * scale
+         for name, (shape, _, scale) in moe.moe_spec(d, cfg, torch.float32).items()}
+    x = torch.randn((b, s, d), generator=gen)
+    if router == "skewed":
+        u = torch.nn.functional.normalize(torch.randn(d, generator=gen), dim=0)
+        x = x + 3.0 * u
+        p["router"][:, 0] += 5.0 * u
+    return p, x, cfg
+
+
+@pytest.mark.parametrize("router", ["random", "skewed"])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("cf", [4.0, 1.25, 0.25])
+def test_ragged_rows_match_the_padded_path(cf, b, router):
+    """The row path's packed rows and grouped matmuls against the padded
+    (E, B*cap, D) buffer and batched matmul of the mesh branch, on the same
+    weights: the same outputs, the same tokens zeroed, each kept pick a row
+    of its own, and each expert's group ``min(count, cap)`` rows a
+    sequence, in sequence and then token order."""
+    p, x, cfg = _ragged_case(cf, b, router)
+    _, s, d = x.shape
+    e, k = cfg.num_experts, cfg.top_k
+    cap = int(np.ceil(s * k * cf / e))
+    moe.reset_row_counts()
+    got, aux = moe.moe_ffn(p, x, cfg, "swiglu")
+    assert moe.ROWS["ragged"] == 1
+    want, aux_padded = moe._moe_ffn_padded(p, x, cfg, "swiglu", cap)
+    moe.reset_row_counts()
+    np.testing.assert_allclose(_np(got), _np(want), **TOL_LAYER)
+    assert float(aux) == float(aux_padded)
+    zeroed = _np(got.norm(dim=-1) == 0.0)
+    np.testing.assert_array_equal(zeroed, _np(want.norm(dim=-1) == 0.0))
+    assert zeroed.any() == (cf == 0.25)
+
+    _, eidx, _ = moe._route(p, x.reshape(-1, d), cfg)
+    flat = eidx.reshape(b, s * k)
+    rows = min(b * s * k, b * e * cap)
+    row, ends = moe._packed_rows(flat, e, cap, rows)
+    kept = moe._slots(flat, e, cap) < e * cap
+    assert ends.dtype == torch.int32
+    # kept picks: rows 0 .. ends[-1] - 1, each once; dropped: the spare row
+    assert sorted(row[kept].tolist()) == list(range(int(ends[-1])))
+    assert (row[~kept] == rows).all()
+    counts = torch.nn.functional.one_hot(flat, e).sum(dim=1).clamp(max=cap)
+    starts = [0] + ends.tolist()[:-1]
+    for g in range(e):
+        members = [(int(row[i, m]), i, m) for i in range(b)
+                   for m in range(s * k) if kept[i, m] and flat[i, m] == g]
+        members.sort()
+        assert [r for r, _, _ in members] == list(range(starts[g], int(ends[g])))
+        # sequence order, then the picks' order within each sequence
+        assert [(i, m) for _, i, m in members] == sorted((i, m) for _, i, m in members)
+        for i in range(b):
+            assert sum(1 for _, j, _ in members if j == i) == int(counts[i, g])
+
+
 # ---------------------------------------------------------------------------
 # the moe models
 # ---------------------------------------------------------------------------
@@ -375,6 +437,45 @@ def test_kernel_path_matches_plain_path_on_card(arch):
         want, aux_p = plain.forward(params, {"tokens": toks})
     np.testing.assert_allclose(_np(got), _np(want), atol=2e-3, rtol=1e-3)
     np.testing.assert_allclose(float(aux_k), float(aux_p), rtol=1e-5)
+
+
+@requires_cuda
+def test_ragged_rows_match_the_padded_path_on_card_without_a_sync():
+    """bf16 at E 8, K 2, D 256, F 512, S 512, B 2: the row path's grouped
+    matmuls against the padded buffer's batched matmul within bf16's
+    tolerance (torch.testing's rtol, atol at that share of the output's
+    rms), and no host sync (stream or device synchronize, device-to-host
+    copy) inside the call."""
+    skip_without_cuda()
+    cpu = torch.profiler.ProfilerActivity.CPU
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    p, x, cfg = _ragged_case(4.0, 2, "random", e=8, k=2, d=256, f=512, s=512)
+    p = {name: w.cuda().to(torch.bfloat16) if name != "router" else w.cuda()
+         for name, w in p.items()}
+    x = x.cuda().to(torch.bfloat16)
+    cap = int(np.ceil(512 * 2 * 4.0 / 8))
+    with torch.inference_mode():
+        moe.moe_ffn(p, x, cfg, "swiglu")                  # warm up
+        torch.cuda.synchronize()
+        moe.reset_row_counts()
+        with torch.profiler.profile(activities=[cpu, cuda]) as prof:
+            got, _ = moe.moe_ffn(p, x, cfg, "swiglu")
+        assert moe.ROWS == {"routed": 2 * 512 * 2, "computed": 2 * 512 * 2,
+                            "ragged": 1}
+        moe.reset_row_counts()
+        want, _ = moe._moe_ffn_padded(p, x, cfg, "swiglu", cap)
+    events = prof.events()
+    (call,) = [ev for ev in events if ev.name == "moe"]
+    inside = {ev.name for ev in events
+              if call.time_range.start <= ev.time_range.start
+              and ev.time_range.end <= call.time_range.end}
+    assert "aten::_grouped_mm" in inside
+    assert not [n for n in inside if "Synchronize" in n or "DtoH" in n
+                or n.startswith("cudaMemcpy")], sorted(inside)
+    assert got.dtype == torch.bfloat16
+    scale = float(want.float().pow(2).mean().sqrt())
+    torch.testing.assert_close(got.float(), want.float(), rtol=1.6e-2,
+                               atol=1.6e-2 * scale)
 
 
 @requires_cuda

@@ -40,7 +40,7 @@ ONCE = [("prefill", None), ("embed", "prefill"), ("head", "prefill")]
 # operators that, inside the span's family (``moe``, ``ssm``), fall in it
 OPS_IN = {"moe.router": ("aten::topk", "aten::softmax"),
           "moe.dispatch": ("aten::index_put_", "aten::cumsum"),
-          "moe.experts": ("aten::bmm",),
+          "moe.experts": ("aten::bmm", "aten::_grouped_mm"),
           "moe.combine": ("aten::index_select", "aten::cat"),
           "ssm.conv": ("aten::constant_pad_nd",),
           "ssm.gate_norm": ("aten::rsqrt",)}
@@ -237,23 +237,27 @@ def test_row_counts_from_shapes():
     x = torch.randn((b, s, d), generator=torch.Generator().manual_seed(4))
     e, k, n = cfg.num_experts, cfg.top_k, b * s
     moe.reset_row_counts()
-    assert moe.ROWS == {"routed": 0, "computed": 0}
+    assert moe.ROWS == {"routed": 0, "computed": 0, "ragged": 0}
     moe.moe_ffn(p, x, cfg, "swiglu")
     cap = math.ceil(s * k * 1.5 / e)                       # 6 a sequence
-    assert moe.ROWS == {"routed": n * k, "computed": e * cap * b}
+    packed = min(n * k, e * cap * b)                       # 32 of 48 padded
+    assert packed == n * k < e * cap * b
+    assert moe.ROWS == {"routed": n * k, "computed": packed, "ragged": 1}
     moe.reset_row_counts()
     moe.moe_ffn_flat(p, x, cfg, "swiglu")
     cap = math.ceil(n * k * 1.5 / e)                       # 12 over all
-    assert moe.ROWS == {"routed": n * k, "computed": e * cap}
+    assert moe.ROWS == {"routed": n * k, "computed": e * cap, "ragged": 0}
     moe.reset_row_counts()
     moe.moe_ffn_dense(p, x, cfg, "swiglu")
-    assert moe.ROWS == {"routed": n * k, "computed": e * n}
+    assert moe.ROWS == {"routed": n * k, "computed": e * n, "ragged": 0}
     moe.moe_ffn(p, x, cfg, "swiglu")                       # counts add up
-    assert moe.ROWS == {"routed": 2 * n * k, "computed": e * n + 4 * 6 * b}
+    assert moe.ROWS == {"routed": 2 * n * k, "computed": e * n + packed,
+                        "ragged": 1}
     assert spans.counts()["moe.routed"] == 2 * n * k
-    assert spans.counts()["moe.computed"] == e * n + 4 * 6 * b
+    assert spans.counts()["moe.computed"] == e * n + packed
+    assert spans.counts()["moe.ragged"] == 1
     moe.reset_row_counts()
-    assert moe.ROWS == {"routed": 0, "computed": 0}
+    assert moe.ROWS == {"routed": 0, "computed": 0, "ragged": 0}
 
 
 @pytest.mark.parametrize("ffn", ["moe_ffn", "moe_ffn_flat", "moe_ffn_dense"])
@@ -264,13 +268,18 @@ def test_computed_rows_are_the_experts_input_rows(ffn, monkeypatch):
     p = _moe_params(d, cfg)
     x = torch.randn((b, s, d), generator=torch.Generator().manual_seed(5))
     seen = []
-    real = moe._experts
+    real, real_ragged = moe._experts, moe._experts_ragged
 
     def watched(bufr, *args):
         seen.append(bufr.shape[0] * bufr.shape[1])
         return real(bufr, *args)
 
+    def watched_ragged(xs, *args):
+        seen.append(xs.shape[0])
+        return real_ragged(xs, *args)
+
     monkeypatch.setattr(moe, "_experts", watched)
+    monkeypatch.setattr(moe, "_experts_ragged", watched_ragged)
     moe.reset_row_counts()
     getattr(moe, ffn)(p, x, cfg, "swiglu")
     assert len(seen) == 1 and moe.ROWS["computed"] == seen[0]
@@ -287,5 +296,5 @@ def test_counts_carries_the_launch_counters():
     assert set(counted) == (set(flash_attention.LAUNCHES)
                             | set(ssd_scan.LAUNCHES)
                             | set(renewal_scan.LAUNCHES)
-                            | {"moe.routed", "moe.computed"})
+                            | {"moe.routed", "moe.computed", "moe.ragged"})
     assert all(isinstance(v, int) for v in counted.values())
