@@ -49,13 +49,21 @@ same operands:
   (P, N, chunk) held equal to the module's ``BF16_CHUNK_STATE`` and
   ``BF16_CHUNK_SCAN`` (``[ssd-tiles]``) as flash's tiles are
   (``[flash-tiles]``);
-* Zamba2-7B serving at its published widths with seeded weights: a bf16
+* Zamba2-7B serving in the registry's layout (the reference package's
+  simplification: one shared block every 6 layers, 32 heads of 112, one
+  SSD group) at d_model 3584 with seeded weights: a bf16
   prefill of 2 x 4096 tokens (13 ``flash_attention`` and 81 ``ssd_scan``
   launches; its profile holds that they ran the wgmma chunk state and
   chunk scan and no state-passing kernel), a float32 prefill of 2 x 512 tokens (cut to 15 of the 81
   layers: 2 of the 13 super-blocks and the tail) against the same tokens
   decoded one at a time and against the plain path, and the serve loop
   (batch 4, prompt 16, 32 generated tokens).
+* Zamba2-7B at its published layout and widths
+  (``zamba2_7b.published_config()``, the model of the benchmark's zamba2
+  cell): a bf16 prefill of 2 x 4096 tokens through ``make_prefill_step``
+  with 13 ``flash_attention`` launches at (64, 4096, 224) and 81
+  ``ssd_scan`` launches at 2 groups, the first of each held against its
+  plain version and timed alone with its bound (``[published-prefill]``).
 * training, at deepseek-7b's published widths cut to 2 of its 30 layers
   (bf16, 8 x 4096 tokens per step in 4 microbatches, AdamW): a kernel
   launch under grad mode raises (``[train-grad-guard]``), and
@@ -214,7 +222,7 @@ FLEET_RUNS = 32
 FLEET_FAILURES = 16
 CAMPAIGN_CUT_SEED = 5
 
-# the LM serving path: zamba2-7b at its published widths
+# the LM serving path: zamba2-7b in the registry's layout at d_model 3584
 LM_ARCH = "zamba2-7b"
 PREFILL_BATCH, PREFILL_LEN = 2, 4096
 DECODE_CHECK_LEN = 512     # two SSD chunks, eight flash query blocks
@@ -1719,8 +1727,8 @@ def tables_equal_cpu(card_line: str, head_dim: int) -> None:
 
 
 def lm_path(card_line: str, fa, ssd) -> list:
-    """Phases 6-10: the Zamba2-7B serving path.  Returns the kernel
-    records of flash_attention and ssd_scan."""
+    """Phases 6-10: the Zamba2-7B serving path in the registry's layout.
+    Returns the kernel records of flash_attention and ssd_scan."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
@@ -1754,6 +1762,7 @@ def lm_path(card_line: str, fa, ssd) -> list:
              ("suffix-200-of-1000-bf16", 1, 4, 2, 200, hd, bf16, None, 1000),
              ("float32-d128", 1, 8, 2, 1000, 128, f32, None, None),
              ("bf16-d16", 1, 4, 2, 512, 16, bf16, None, None),
+             ("bf16-d224", 1, 4, 4, 1000, 224, bf16, None, None),
              ("bf16-d256", 1, 4, 2, 512, 256, bf16, None, None)]
     for i, (label, b, h, kh, s, d, dtype, win, sk) in enumerate(cases):
         q, k, v = flash_operands(b, h, kh, s, d, dtype, 100 + i, dev, sk)
@@ -2013,6 +2022,100 @@ def lm_path(card_line: str, fa, ssd) -> list:
          "plain_ms": ssd_plain_ms, "bound_ms": ssd_bound, "bound_by": ssd_by,
          "library_ms": None},
     ]
+
+
+def published_zamba2_phase(card_line: str, fa, ssd) -> dict:
+    """Zamba2-7B at its published layout and widths
+    (``zamba2_7b.published_config()``: 81 Mamba2 layers at 2 groups, two
+    shared blocks by turns at 13 layers, 32 heads of 224), bf16, 2 x 4096
+    tokens through ``make_prefill_step``.  Requires one flash launch per
+    shared-block call and one SSD launch per layer, holds the first of each
+    against its plain version on the operands the path gave it, and times
+    it alone with its bound.  Returns those numbers by kernel name."""
+    from repro_torch.configs import zamba2_7b
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(zamba2_7b.published_config(),
+                              use_flash_kernel=True)
+    heads, n_calls = cfg.hybrid.shared_num_heads, len(cfg.hybrid.layer_ids)
+    head_dim = 2 * cfg.d_model // heads
+    model = build_model(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(0)
+    n_params = sum(t.numel() for t in _leaves(params))
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN)), device=dev)
+    batch = {"tokens": tokens}
+    prefill = make_prefill_step(model)
+    fa.reset_launch_counts()
+    ssd.reset_launch_counts()
+    with recorded(ops, "flash_attention_bhsd", first_call) as cap_fa, \
+            recorded(ops, "ssd_scan_bhsp", first_call) as cap_ssd:
+        last = prefill(params, batch)
+        torch.cuda.synchronize()
+    launches = {"flash_attention": fa.LAUNCHES["flash_attention"],
+                "ssd_scan": ssd.LAUNCHES["ssd_scan"]}
+    expect = {"flash_attention": n_calls, "ssd_scan": cfg.num_layers}
+    if launches != expect:
+        raise Failed(f"published prefill launched {launches}, expected {expect}")
+    if (len(cap_fa), len(cap_ssd)) != (n_calls, cfg.num_layers):
+        raise Failed("published prefill: kernel calls and launches disagree")
+    if last.shape != (PREFILL_BATCH, cfg.padded_vocab_size) or \
+            not torch.isfinite(last).all():
+        raise Failed(f"published prefill logits: shape {tuple(last.shape)} "
+                     f"or non-finite")
+    del last
+    _, wall_ms = wall_ms_median(lambda: prefill(params, batch), 3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fa_args, fa_kw, fa_out = cap_fa[0]
+    ssd_args, ssd_kw, (ssd_y, ssd_st) = cap_ssd[0]
+    want_fa = (PREFILL_BATCH * heads, PREFILL_LEN, head_dim)
+    if tuple(fa_args[0].shape) != want_fa or ssd_args[3].shape[1] != cfg.ssm.n_groups:
+        raise Failed(f"published prefill operands: flash {tuple(fa_args[0].shape)}"
+                     f" (expected {want_fa}), SSD B {tuple(ssd_args[3].shape)}"
+                     f" (expected {cfg.ssm.n_groups} groups)")
+    line("published-prefill", arch=cfg.name, card=repr(card_line),
+         params=n_params, dtype=cfg.dtype, batch=PREFILL_BATCH,
+         tokens=PREFILL_LEN, launches=json.dumps(launches),
+         wall_ms_median=f"{wall_ms:.3f}",
+         tokens_per_s=f"{PREFILL_BATCH * PREFILL_LEN / (wall_ms * 1e-3):.1f}",
+         peak_gb=f"{peak_gb:.3f}")
+    del cap_fa, cap_ssd, model, params, prefill, batch, tokens
+    free_cuda()
+
+    rec_fa = flash_launch_timing("zamba2-published", card_line, fa, fa_args,
+                                 fa_kw, fa_out)
+    y_p, st_p = ssd.ssd_scan_reference(*ssd_args, **ssd_kw)
+    err_ssd = max(check_close("published ssd first launch y", ssd_y, y_p, *TOL_SSD),
+                  check_close("published ssd first launch state", ssd_st, st_p,
+                              *TOL_SSD))
+    del y_p, st_p
+    ssd_ms, ssd_host = kernel_only_ms(
+        lambda: ssd.ssd_scan_bhsp(*ssd_args, **ssd_kw), LM_KERNEL_REPS)
+    ssd_plain_ms = statistics.median(cuda_ms(
+        lambda: ssd.ssd_scan_reference(*ssd_args, **ssd_kw), reps=3, warmup=1))
+    work = ssd_work(ssd_args[0], ssd_args[3], ssd_kw["chunk"])
+    ssd_bound, ssd_by = bound(nbytes(*ssd_args, ssd_y, ssd_st), work,
+                              ssd_args[0].dtype)
+    rec_ssd = {"case": "zamba2-published", "x": tuple(ssd_args[0].shape),
+               "bc": tuple(ssd_args[3].shape), "chunk": ssd_kw["chunk"],
+               "max_abs_err": err_ssd, "kernel_ms": ssd_ms,
+               "plain_ms": ssd_plain_ms, "bound_ms": ssd_bound,
+               "bound_by": ssd_by, "flop": work}
+    line("timing", kernel="ssd_scan", case="zamba2-published",
+         card=repr(card_line), x=rec_ssd["x"], bc=rec_ssd["bc"],
+         chunk=rec_ssd["chunk"], kernel_ms=f"{ssd_ms:.5f}",
+         wrapper_host_ms=f"{ssd_host:.5f}", plain_ms_median=f"{ssd_plain_ms:.3f}",
+         bound_ms=f"{ssd_bound:.5f}", bound_by=ssd_by, flop=f"{work:.4e}",
+         bytes=nbytes(*ssd_args, ssd_y, ssd_st),
+         first_launch_max_abs_err=f"{err_ssd:.3e}")
+    del fa_args, fa_out, ssd_args, ssd_y, ssd_st
+    free_cuda()
+    rec_fa["launches"], rec_ssd["launches"] = n_calls, cfg.num_layers
+    return {"flash_attention": rec_fa, "ssd_scan": rec_ssd}
 
 
 # ---------------------------------------------------------------------------
@@ -4048,6 +4151,11 @@ def main() -> int:
          worst_kernel_vs_plain_rel=f"{worst_rel:.3e}")
 
     lm_records = lm_path(card_line, fa, ssd)
+    published = published_zamba2_phase(card_line, fa, ssd)
+    for rec in lm_records:
+        rec["published"] = published[rec["name"]]
+        rec["max_abs_err"] = max(rec["max_abs_err"],
+                                 published[rec["name"]]["max_abs_err"])
     line("lm-done", seconds=f"{time.perf_counter() - t_start:.1f}")
     dense_err = training_path(card_line, fa, ssd)
     line("train-done", seconds=f"{time.perf_counter() - t_start:.1f}")

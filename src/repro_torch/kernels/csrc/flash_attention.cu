@@ -80,11 +80,11 @@
 // keys nothing spills.  The overlap holds two stages per consumer at once,
 // so two stages leave the producer nothing to fill ahead.
 //
-// bfloat16 at D = 16, 32, 256: flash_mma_kernel, on the instructions
+// bfloat16 at D = 16, 32, 224, 256: flash_mma_kernel, on the instructions
 // Hopper shares with Ampere.  Four warps, each owning 16
 // query rows of a 64-row block; Q, K and V stay bf16 in shared memory and
 // arrive by 16-byte cp.async, K and V in a double-buffered ring of 64-key
-// blocks (32 at D = 256).  Rows are padded by 16 bytes (D + 8 elements):
+// blocks (32 at D = 224, 256).  Rows are padded by 16 bytes (D + 8 elements):
 // every row starts 16-byte aligned and the eight row addresses of each
 // ldmatrix phase fall in distinct banks.  S = Q K^T is mma.sync m16n8k16;
 // O += P V feeds the S fragments straight back as the A operand, issued
@@ -92,7 +92,16 @@
 // (ldmatrix.trans).  Padding D = 16 or 32 to the 64-column atom would
 // waste three quarters or half of every product and copy, and at D = 256
 // the wgmma kernel's O alone (128 registers) leaves no room for S and P
-// under the 168-register budget.
+// under the 168-register budget.  D = 224 (the published Zamba2's shared
+// attention, 32 heads of 224) is laid out as 256: 14 k-steps of Q K^T and
+// 28 n8 tiles of O (112 registers), Q in its own tile (232-element rows,
+// 464 bytes: the eight rows of an ldmatrix phase land 20 words apart mod
+// 32, in distinct banks), 89,088 B of shared memory.  The wgmma kernel
+// does not take it as it stands: a row is four 64-column tiles (two Q
+// buffers 128 KB, each 64-key stage 64 KB, far past a block's 227 KB), and
+// O's 112 registers beside S and P at 64 keys break the 168-register
+// budget; a 32-key ring of 3 stages (226 KB) and an m64n224 register-A
+// product would fit, and are left to a later change.
 //
 // float32: flash_kernel, the CUDA-core kernel of the first port, kept as
 // it was: tensor-core TF32 would miss the 2e-5 float32 bar, and float32
@@ -114,7 +123,9 @@
 // flash_wgmma_kernel takes the launch bound's 168 registers at every D
 // with no spills and 99,328 B (D = 64) or 197,632 B (D = 112, 128) of
 // dynamic shared memory, one block per SM; flash_mma_kernel<256> 255
-// registers, 2 blocks of 128 threads.
+// registers, 2 blocks of 128 threads; flash_mma_kernel<224> 174 registers,
+// 89,088 B, 2 blocks of 128 threads; flash_kernel<224> 128 registers,
+// 190,720 B, one block.
 //
 // Built without -fmad=false (contraction allowed) and without fast-math.
 #include <cuda_bf16.h>
@@ -133,7 +144,7 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
-// bfloat16 at D = 16, 32, 256: mma.sync
+// bfloat16 at D = 16, 32, 224, 256: mma.sync
 // ---------------------------------------------------------------------------
 
 constexpr int kMmaThreads = 128;  // 4 warps x 16 query rows
@@ -141,8 +152,8 @@ constexpr int kMmaThreads = 128;  // 4 warps x 16 query rows
 template <int D>
 struct MmaLayout {
   static constexpr int RS = D + 8;          // row stride (bf16 elements)
-  // keys per block of the loop; at D = 256 the accumulator alone is 128
-  // registers, and 32 keys keep S to 16 more
+  // keys per block of the loop; at D = 224, 256 the accumulator alone is
+  // 112, 128 registers, and 32 keys keep S to 16 more
   static constexpr int BK = D <= 128 ? 64 : 32;
   static constexpr bool q_in_regs = D <= 128;
   // the ring: two stages of K then V (BK rows each); Q is staged in stage 1
@@ -1054,6 +1065,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     case 64: return launch<64>(dtype, q, k, v, out, bh, sq, sk, group, causal, window, s);
     case 112: return launch<112>(dtype, q, k, v, out, bh, sq, sk, group, causal, window, s);
     case 128: return launch<128>(dtype, q, k, v, out, bh, sq, sk, group, causal, window, s);
+    case 224: return launch<224>(dtype, q, k, v, out, bh, sq, sk, group, causal, window, s);
     case 256: return launch<256>(dtype, q, k, v, out, bh, sq, sk, group, causal, window, s);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -1069,6 +1081,7 @@ int flash_attention_occupancy(int d, int dtype, int* blocks, int* threads,
     case 64: return occupancy<64>(dtype, blocks, threads, smem_bytes);
     case 112: return occupancy<112>(dtype, blocks, threads, smem_bytes);
     case 128: return occupancy<128>(dtype, blocks, threads, smem_bytes);
+    case 224: return occupancy<224>(dtype, blocks, threads, smem_bytes);
     case 256: return occupancy<256>(dtype, blocks, threads, smem_bytes);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -1082,6 +1095,7 @@ int flash_attention_bf16_tiles(int d, int* bq, int* bk, int* stages, int* wgmma)
     case 64: return bf16_tiles<64>(bq, bk, stages, wgmma);
     case 112: return bf16_tiles<112>(bq, bk, stages, wgmma);
     case 128: return bf16_tiles<128>(bq, bk, stages, wgmma);
+    case 224: return bf16_tiles<224>(bq, bk, stages, wgmma);
     case 256: return bf16_tiles<256>(bq, bk, stages, wgmma);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -24,8 +24,8 @@ Two implementations of one function live here:
     producer warpgroup feeding Q and a 4-stage ring of 64-key K/V tiles by
     TMA, two consumer warpgroups of 64 rows issuing ``wgmma`` (the softmax
     of the next key block beside the current P.V product); bfloat16 at 16,
-    32 and 256 runs ``flash_mma_kernel`` (``mma.sync``, K/V by
-    ``cp.async``).  Both bf16 kernels split P into two bf16 parts for the
+    32, 224 (the published Zamba2's shared attention) and 256 runs
+    ``flash_mma_kernel`` (``mma.sync``, K/V by ``cp.async``).  Both bf16 kernels split P into two bf16 parts for the
     P.V product (``_split_bf16`` is that arithmetic in PyTorch), issuing
     6 d flop per kept (query, key) pair where the function needs 4 d;
     they are bound by the tensor cores and, for the wgmma kernel, by the
@@ -51,7 +51,7 @@ __all__ = ["flash_attention_bhsd", "flash_attention_reference", "NEG_INF",
            "PLAIN_TOL", "BF16_TILES", "BF16_KERNEL", "KERNEL_NAMES"]
 
 NEG_INF = -1e30
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 112, 128, 256)   # csrc dispatch_d
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 112, 128, 224, 256)   # csrc dispatch_d
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the bf16 kernel per head dim, and its tiles (query rows per block, keys
 # per step of the loop, ring stages), as csrc/flash_attention.cu's
@@ -60,9 +60,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # dims, the mma.sync kernel at the rest
 BF16_KERNEL = {16: "flash_mma_kernel", 32: "flash_mma_kernel",
                64: "flash_wgmma_kernel", 112: "flash_wgmma_kernel",
-               128: "flash_wgmma_kernel", 256: "flash_mma_kernel"}
+               128: "flash_wgmma_kernel", 224: "flash_mma_kernel",
+               256: "flash_mma_kernel"}
 BF16_TILES = {16: (64, 64, 2), 32: (64, 64, 2), 64: (128, 64, 4),
-              112: (128, 64, 4), 128: (128, 64, 4), 256: (64, 32, 2)}
+              112: (128, 64, 4), 128: (128, 64, 4), 224: (64, 32, 2),
+              256: (64, 32, 2)}
 # every kernel of the library, as a profiler names them
 KERNEL_NAMES = ("flash_wgmma_kernel", "flash_mma_kernel", "flash_kernel")
 # (atol, rtol) within which the kernel must give its plain version's

@@ -33,17 +33,21 @@ __all__ = ["flash_attention", "ssd_scan"]
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     sliding_window: Optional[int] = None,
+                    scale: Optional[float] = None,
                     force_reference: bool = False) -> torch.Tensor:
     """Model layout: q (B,S,H,hd), k/v (B,T,K,hd) -> (B,S,H,hd).  The
-    softmax scale is applied to q in its own dtype, as the reference does,
-    so bfloat16 rounds at the same place."""
+    softmax scale (``hd ** -0.5`` unless ``scale`` is given) is applied to
+    q in its own dtype, as the reference does, so bfloat16 rounds at the
+    same place."""
     if force_reference:
         return kref.flash_attention_ref(q, k, v, causal=causal,
-                                        sliding_window=sliding_window)
+                                        sliding_window=sliding_window,
+                                        scale=scale)
     _build.refuse_dtensor("flash_attention", q, k, v)
     b, sq, h, d = q.shape
     _, sk, kh, _ = k.shape
-    qt = (q * d ** -0.5).transpose(1, 2).reshape(b * h, sq, d).contiguous()
+    scale = d ** -0.5 if scale is None else scale
+    qt = (q * scale).transpose(1, 2).reshape(b * h, sq, d).contiguous()
     kt = k.transpose(1, 2).reshape(b * kh, sk, d).contiguous()
     vt = v.transpose(1, 2).reshape(b * kh, sk, d).contiguous()
     out = flash_attention_bhsd(qt, kt, vt, group=h // kh, causal=causal,

@@ -13,12 +13,13 @@ __all__ = ["flash_attention_ref", "ssd_scan_ref"]
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True,
-                        sliding_window: Optional[int] = None) -> torch.Tensor:
+                        sliding_window: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
     """Oracle over the model-layout tensors: q (B,S,H,hd), k/v (B,T,K,hd)."""
     from repro_torch.models.attention import gqa_scores_reference
 
     return gqa_scores_reference(q, k, v, causal=causal,
-                                sliding_window=sliding_window)
+                                sliding_window=sliding_window, scale=scale)
 
 
 def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

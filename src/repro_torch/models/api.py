@@ -38,17 +38,52 @@ class SSMConfig:
     expand: int = 2           # d_inner = expand * d_model
     conv_width: int = 4
     chunk_size: int = 256     # SSD chunk length
-    n_groups: int = 1         # B/C groups (GQA-like for SSD)
+    # B/C groups (GQA-like for SSD); the gated RMSNorm before the out
+    # projection takes its RMS over each d_inner / n_groups channels, as
+    # Mamba2's and Zamba2's RMSNormGated do
+    n_groups: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
 class HybridConfig:
     """Zamba2-style: Mamba2 backbone with a shared attention block applied
-    every ``shared_every`` layers (its parameters are shared across uses)."""
+    every ``shared_every`` layers (its parameters are shared across uses).
+
+    With ``layer_ids`` set the layout is the published Zamba2's
+    [arXiv:2411.15242; HF ``Zamba2Model``] and ``shared_every`` is unused:
+    every layer is a Mamba2 layer, and before each layer in ``layer_ids``
+    (call k at the k-th of them) one of ``num_blocks`` shared blocks, block
+    k mod ``num_blocks``, runs on ``concat([x, e])`` (``e`` the embedding
+    output, 2 d_model channels): RMSNorm, attention of ``shared_num_heads``
+    heads of 2 d_model / heads back to d_model at softmax scale
+    (head_dim / 2) ** -0.5 (HF ``Zamba2Config`` derives all three so),
+    RMSNorm, then the exact-GELU gated MLP whose fused gate/up product
+    gains call k's rank-``adapter_rank`` term; no residual inside.  Call k's
+    own d_model x d_model projection of the block's output is added to that
+    layer's Mamba input, not its residual.  The model's ``act`` is unused
+    there.  The defaults are the registry's layout."""
 
     shared_every: int = 6
     shared_num_heads: int = 32
     shared_num_kv_heads: int = 32
+    layer_ids: Optional[Tuple[int, ...]] = None
+    num_blocks: int = 1
+    adapter_rank: int = 0
+
+    @property
+    def published(self) -> bool:
+        return self.layer_ids is not None
+
+    def attention_width(self, d_model: int) -> int:
+        """Channels the shared block's q, k and v read."""
+        return 2 * d_model if self.published else d_model
+
+    def head_dim(self, d_model: int) -> int:
+        return self.attention_width(d_model) // self.shared_num_heads
+
+    def softmax_scale(self, d_model: int) -> Optional[float]:
+        """The shared attention's scale; None: head_dim ** -0.5."""
+        return (self.head_dim(d_model) / 2) ** -0.5 if self.published else None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,6 +183,14 @@ class ModelConfig:
             d_in = s.expand * d
             n_heads = d_in // s.head_dim
             per = d * (2 * d_in + 2 * s.n_groups * s.state_dim + n_heads) + d_in * d
+            if h.published:
+                wide, hd = h.attention_width(d), h.head_dim(d)
+                q = hd * h.shared_num_heads
+                block = wide * (q + 2 * hd * h.shared_num_kv_heads) + q * d \
+                    + 3 * d * self.d_ff
+                call = h.adapter_rank * (d + 2 * self.d_ff) + d * d
+                return total + L * per + h.num_blocks * block \
+                    + len(h.layer_ids) * call
             shared = d * hd * h.shared_num_heads * 2 + 2 * d * hd * h.shared_num_kv_heads \
                 + (3 * d * self.d_ff if self.d_ff else 0)
             return total + L * per + shared

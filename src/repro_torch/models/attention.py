@@ -25,14 +25,16 @@ __all__ = ["attn_spec", "attention", "gqa_scores_reference",
 
 
 def attn_spec(d_model: int, num_heads: int, num_kv_heads: int, head_dim: int,
-              qkv_bias: bool, dtype) -> dict:
-    """Parameter spec (shape, dtype, init) of one attention, as ``init_attn``."""
+              qkv_bias: bool, dtype, d_out: Optional[int] = None) -> dict:
+    """Parameter spec (shape, dtype, init) of one attention, as ``init_attn``:
+    q, k and v read ``d_model`` channels, the output projection writes
+    ``d_out`` (``d_model`` by default)."""
     scale = d_model ** -0.5
     p = {
         "wq": ((d_model, num_heads * head_dim), dtype, scale),
         "wk": ((d_model, num_kv_heads * head_dim), dtype, scale),
         "wv": ((d_model, num_kv_heads * head_dim), dtype, scale),
-        "wo": ((num_heads * head_dim, d_model), dtype, scale),
+        "wo": ((num_heads * head_dim, d_out or d_model), dtype, scale),
     }
     if qkv_bias:
         p["bq"] = ((num_heads * head_dim,), dtype, "zeros")
@@ -74,11 +76,13 @@ def _mask(sq: int, t: int, q_start: int, sliding_window: Optional[int], device):
     return mask
 
 
-def _attend(q, k, v, mask):
-    """q (B,S,K,G,hd), k/v (B,T,K,hd): scores in q's dtype cast to float32,
-    float32 softmax, probabilities cast back to v's dtype."""
+def _attend(q, k, v, mask, scale: Optional[float] = None):
+    """q (B,S,K,G,hd), k/v (B,T,K,hd): scores in q's dtype cast to float32
+    and scaled (``hd ** -0.5`` unless ``scale`` is given), float32 softmax,
+    probabilities cast back to v's dtype."""
     hd = q.shape[-1]
-    scores = torch.einsum("bskgd,btkd->bkgst", q, k).float() * hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
+    scores = torch.einsum("bskgd,btkd->bkgst", q, k).float() * scale
     if mask is not None:
         scores = scores.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
@@ -86,18 +90,20 @@ def _attend(q, k, v, mask):
 
 
 def gqa_scores_reference(q, k, v, *, causal: bool,
-                         sliding_window: Optional[int]) -> torch.Tensor:
+                         sliding_window: Optional[int],
+                         scale: Optional[float] = None) -> torch.Tensor:
     """Reference attention: q (B,S,H,hd), k/v (B,T,K,hd) -> (B,S,H,hd).
     Queries occupy the suffix of the keys."""
     b, s, h, hd = q.shape
     t, kheads = k.shape[1], k.shape[2]
     mask = _mask(s, t, t - s, sliding_window, q.device) if causal else None
-    out = _attend(split_dim(q, 2, (kheads, h // kheads)), k, v, mask)
+    out = _attend(split_dim(q, 2, (kheads, h // kheads)), k, v, mask, scale)
     return out.reshape(b, s, h, hd)
 
 
 def chunked_attention(q, k, v, *, causal: bool, sliding_window: Optional[int],
-                      q_chunk: int = 512) -> torch.Tensor:
+                      q_chunk: int = 512,
+                      scale: Optional[float] = None) -> torch.Tensor:
     """The same function as ``gqa_scores_reference`` over query chunks: the
     score buffer is (b, h, q_chunk, t) instead of (b, h, s, t)."""
     b, s, h, hd = q.shape
@@ -105,13 +111,13 @@ def chunked_attention(q, k, v, *, causal: bool, sliding_window: Optional[int],
     q_chunk = min(q_chunk, s)
     if s % q_chunk:
         return gqa_scores_reference(q, k, v, causal=causal,
-                                    sliding_window=sliding_window)
+                                    sliding_window=sliding_window, scale=scale)
     qg = split_dim(q, 2, (kheads, h // kheads))
     outs = []
     for c0 in range(0, s, q_chunk):
         mask = (_mask(q_chunk, t, c0 + t - s, sliding_window, q.device)
                 if causal else None)
-        outs.append(_attend(qg[:, c0:c0 + q_chunk], k, v, mask))
+        outs.append(_attend(qg[:, c0:c0 + q_chunk], k, v, mask, scale))
     return torch.cat(outs, dim=1).reshape(b, s, h, hd)
 
 
@@ -134,8 +140,10 @@ def _local_core(core, q, k, v):
 def attention(p: dict, x: torch.Tensor, positions, cfg: ModelConfig, *,
               num_heads: Optional[int] = None,
               num_kv_heads: Optional[int] = None,
-              causal: bool = True) -> torch.Tensor:
-    """Full-sequence attention (prefill)."""
+              causal: bool = True,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """Full-sequence attention (prefill); the softmax scale is
+    ``head_dim ** -0.5`` unless ``scale`` is given."""
     nh = num_heads or cfg.num_heads
     nk = num_kv_heads or cfg.num_kv_heads
     q, k, v = _project_qkv(p, x, cfg, nh, nk)
@@ -145,11 +153,13 @@ def attention(p: dict, x: torch.Tensor, positions, cfg: ModelConfig, *,
         from repro_torch.kernels import ops as kops
         with spans.span("attn.flash"):
             out = kops.flash_attention(q, k, v, causal=True,
-                                       sliding_window=cfg.sliding_window)
+                                       sliding_window=cfg.sliding_window,
+                                       scale=scale)
     else:
         core = chunked_attention if x.shape[1] > 1024 else gqa_scores_reference
         out = _local_core(lambda *a: core(*a, causal=causal,
-                                          sliding_window=cfg.sliding_window),
+                                          sliding_window=cfg.sliding_window,
+                                          scale=scale),
                           q, k, v)
     b, s = x.shape[:2]
     return layers.dense(out.reshape(b, s, -1), p["wo"])
@@ -189,7 +199,8 @@ def init_kv_cache(batch: int, max_len: int, num_kv_heads: int, head_dim: int,
 
 def decode_attention(p: dict, x: torch.Tensor, cache: KVCache, pos: int,
                      cfg: ModelConfig, *, num_heads: Optional[int] = None,
-                     num_kv_heads: Optional[int] = None
+                     num_kv_heads: Optional[int] = None,
+                     scale: Optional[float] = None
                      ) -> Tuple[torch.Tensor, KVCache]:
     """One-token decode: x (B, 1, D) at position ``pos``.
 
@@ -221,8 +232,9 @@ def decode_attention(p: dict, x: torch.Tensor, cache: KVCache, pos: int,
     mask = _mask(1, keys.shape[1], pos, cfg.sliding_window, x.device)
     qg = split_dim(q, 2, (nk, nh // nk))
     if shards_dim(keys, 1):
-        out = _attend(qg, keys, values, mask)
+        out = _attend(qg, keys, values, mask, scale)
     else:
-        out = shard_local(_attend, (qg, keys, values, mask),
+        out = shard_local(lambda *a: _attend(*a, scale),
+                          (qg, keys, values, mask),
                           ((0, 2), (0, 2), (0, 2), None), ((0, 2),))
     return layers.dense(out.reshape(b, 1, nh * hd), p["wo"]), cache

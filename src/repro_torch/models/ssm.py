@@ -2,10 +2,11 @@
 counterpart of ``repro.models.ssm``.
 
 Per-head scalar decay ``a_t = exp(-exp(A_log) * dt_t)``, grouped B/C, a
-short causal depthwise conv over the (x, B, C) stream, gated RMSNorm and
-the out projection.  ``ssd_reference`` is the chunked oracle in model
-layout; ``ssm_mixer(use_kernel=True)`` goes through ``kernels.ops.ssd_scan``
-(the CUDA kernel on the card, its plain version on the CPU).
+short causal depthwise conv over the (x, B, C) stream, gated RMSNorm (over
+``SSMConfig.n_groups`` groups of channels) and the out projection.
+``ssd_reference`` is the chunked oracle in model layout;
+``ssm_mixer(use_kernel=True)`` goes through ``kernels.ops.ssd_scan`` (the
+CUDA kernel on the card, its plain version on the CPU).
 ``ssm_decode_step`` is the one-token recurrent form.  ``jax.nn.softplus``
 is ``logaddexp(x, 0)``, which ``F.softplus`` (threshold 20) is not.
 """
@@ -22,8 +23,8 @@ from repro_torch.models.api import ModelConfig, SSMConfig
 from repro_torch.parallel.dtensor_ops import (shard_local, shards_dim,
                                               split_columns)
 
-__all__ = ["ssm_spec", "ssm_mixer", "ssd_reference", "SSMState",
-           "init_ssm_state", "ssm_decode_step"]
+__all__ = ["ssm_spec", "ssm_mixer", "gated_norm", "ssd_reference",
+           "SSMState", "init_ssm_state", "ssm_decode_step"]
 
 
 def _dims(d_model: int, s: SSMConfig):
@@ -126,6 +127,18 @@ def ssd_reference(x, dt, A, B, C, chunk: int) -> Tuple[torch.Tensor, torch.Tenso
     return torch.cat(ys, dim=1), state
 
 
+def gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+               groups: int, eps: float) -> torch.Tensor:
+    """RMSNorm of ``y * SiLU(z)`` with weight ``w`` (the port's ``1 + w``
+    scale), the RMS taken over each of ``groups`` equal groups of the last
+    dim (Zamba2's RMSNormGated); one group is one RMS over all of it."""
+    h = y * F.silu(z)
+    if groups == 1:
+        return layers.rms_norm(h, w, eps)
+    return layers.rms_norm(h.unflatten(-1, (groups, -1)),
+                           w.unflatten(-1, (groups, -1)), eps).flatten(-2)
+
+
 @spans.spanned("ssm")
 def ssm_mixer(p: dict, u: torch.Tensor, cfg: ModelConfig, *,
               use_kernel: bool = False) -> torch.Tensor:
@@ -156,7 +169,7 @@ def ssm_mixer(p: dict, u: torch.Tensor, cfg: ModelConfig, *,
     with spans.span("ssm.gate_norm"):
         y = y + p["D"][:, None] * x.float()
         y = y.reshape(b, s, d_inner).to(u.dtype)
-        y = layers.rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+        y = gated_norm(y, z, p["norm_w"], s_cfg.n_groups, cfg.norm_eps)
     return layers.dense(y, p["out_proj"])
 
 
@@ -208,5 +221,5 @@ def ssm_decode_step(p: dict, u: torch.Tensor, state: SSMState,
                     (new_ssd, Ch), ((0, 1), (0, 1)), ((0, 1),))
     y = y + p["D"][:, None] * x.float()
     y = y.reshape(b, 1, d_inner).to(u.dtype)
-    y = layers.rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+    y = gated_norm(y, z, p["norm_w"], s_cfg.n_groups, cfg.norm_eps)
     return layers.dense(y, p["out_proj"]), SSMState(conv=new_conv, ssd=new_ssd)

@@ -13,7 +13,11 @@ losses, in layer order, and its decode runs the dense MoE path
 (``moe_ffn_dense``).  The hybrid model runs ``shared_every`` Mamba2
 layers, then one application of the weight-shared attention block,
 ``num_layers // shared_every`` times, then the ragged tail of Mamba2
-layers.
+layers.  With ``HybridConfig.layer_ids`` set it is the published Zamba2
+(``_build_published_hybrid``, the equations in ``HybridConfig``'s doc):
+``layers`` (L, ...) Mamba2 layers, ``shared`` (num_blocks, ...) blocks used
+by turns, ``calls`` (len(layer_ids), ...) each call's LoRA and projection;
+the reference has no counterpart, and its sharding rules do not cover it.
 
 The forward trains: under grad mode ``remat="full"`` (or ``"dots"``, which
 has no finer PyTorch policy and recomputes the whole layer too) wraps each
@@ -43,7 +47,15 @@ from repro_torch.models.api import ModelConfig
 from repro_torch.parallel.constraints import constrain
 
 __all__ = ["Model", "build_model", "model_spec", "abstract_params",
-           "params_from_reference"]
+           "params_from_reference", "SHARED", "reset_shared_counts"]
+
+# calls of a published Zamba2 shared block (forward and decode), counted on
+# the host; ``spans.counts()`` reads it as ``shared.calls``
+SHARED = {"calls": 0}
+
+
+def reset_shared_counts() -> None:
+    SHARED["calls"] = 0
 
 
 class Model(NamedTuple):
@@ -80,6 +92,28 @@ def _ssm_block_spec(cfg: ModelConfig, dtype) -> dict:
             "ssm": ssm.ssm_spec(cfg.d_model, cfg.ssm, dtype)}
 
 
+def _published_block_spec(cfg: ModelConfig, dtype) -> dict:
+    """One shared block of the published Zamba2: q, k and v read
+    ``concat([x, e])``, the output projection writes d_model."""
+    h, d = cfg.hybrid, cfg.d_model
+    wide = h.attention_width(d)
+    return {"ln1": ((wide,), dtype, "zeros"),
+            "attn": attn.attn_spec(wide, h.shared_num_heads,
+                                   h.shared_num_kv_heads, h.head_dim(d),
+                                   False, dtype, d_out=d),
+            "ln2": ((d,), dtype, "zeros"),
+            "mlp": mlp.gelu_lora_spec(d, cfg.d_ff, dtype)}
+
+
+def _call_spec(cfg: ModelConfig, dtype) -> dict:
+    """What each shared-block call has of its own: the MLP's low-rank term
+    (``lora_a`` then ``lora_b``) and the projection of the block's output."""
+    d, r = cfg.d_model, cfg.hybrid.adapter_rank
+    return {"lora_a": ((d, r), dtype, d ** -0.5),
+            "lora_b": ((r, 2 * cfg.d_ff), dtype, max(r, 1) ** -0.5),
+            "proj": ((d, d), dtype, d ** -0.5)}
+
+
 def _embedding_spec(cfg: ModelConfig, dtype) -> dict:
     v, d = cfg.padded_vocab_size, cfg.d_model
     p = {"embed": ((v, d), dtype, 0.02), "final_norm": ((d,), dtype, "zeros")}
@@ -99,9 +133,9 @@ def _stacked(spec: dict, *prefix: int) -> dict:
 
 def _shared_cfg(cfg: ModelConfig) -> ModelConfig:
     h = cfg.hybrid
-    return dataclasses.replace(cfg, num_heads=h.shared_num_heads,
-                               num_kv_heads=h.shared_num_kv_heads, head_dim=0,
-                               moe=None)
+    return dataclasses.replace(
+        cfg, num_heads=h.shared_num_heads, num_kv_heads=h.shared_num_kv_heads,
+        head_dim=h.head_dim(cfg.d_model) if h.published else 0, moe=None)
 
 
 def model_spec(cfg: ModelConfig) -> dict:
@@ -115,6 +149,12 @@ def model_spec(cfg: ModelConfig) -> dict:
         spec["blocks"] = _stacked(_attn_block_spec(cfg, dtype), cfg.num_layers)
     elif cfg.family == "ssm":
         spec["blocks"] = _stacked(_ssm_block_spec(cfg, dtype), cfg.num_layers)
+    elif cfg.family == "hybrid" and cfg.hybrid.published:
+        spec["layers"] = _stacked(_ssm_block_spec(cfg, dtype), cfg.num_layers)
+        spec["shared"] = _stacked(_published_block_spec(cfg, dtype),
+                                  cfg.hybrid.num_blocks)
+        spec["calls"] = _stacked(_call_spec(cfg, dtype),
+                                 len(cfg.hybrid.layer_ids))
     elif cfg.family == "hybrid":
         n_super, tail = divmod(cfg.num_layers, cfg.hybrid.shared_every)
         spec["main"] = _stacked(_ssm_block_spec(cfg, dtype), n_super,
@@ -246,21 +286,41 @@ def _attn_block_decode(p: dict, x, kv: attn.KVCache, pos: int,
     return x + y
 
 
-def _ssm_block(p: dict, x, cfg: ModelConfig):
-    return x + ssm.ssm_mixer(p["ssm"], layers.rms_norm(x, p["ln"], cfg.norm_eps),
+def _ssm_block(p: dict, x, cfg: ModelConfig, extra=None):
+    """``x + mixer(norm(x))``; with ``extra`` (a published Zamba2 shared
+    block's projected output) ``x + mixer(norm(x + extra))``."""
+    u = x if extra is None else x + extra
+    return x + ssm.ssm_mixer(p["ssm"], layers.rms_norm(u, p["ln"], cfg.norm_eps),
                              cfg, use_kernel=cfg.use_flash_kernel)
 
 
 def _ssm_block_decode(p: dict, x, state: ssm.SSMState, idx: tuple,
-                      cfg: ModelConfig):
-    """One-token SSM block; writes the layer's new state into the stacked
-    ``state`` at ``idx`` in place."""
+                      cfg: ModelConfig, extra=None):
+    """One-token SSM block (``extra`` as ``_ssm_block``'s); writes the
+    layer's new state into the stacked ``state`` at ``idx`` in place."""
     st = ssm.SSMState(conv=state.conv[idx], ssd=state.ssd[idx])
-    y, new = ssm.ssm_decode_step(p["ssm"], layers.rms_norm(x, p["ln"], cfg.norm_eps),
+    u = x if extra is None else x + extra
+    y, new = ssm.ssm_decode_step(p["ssm"], layers.rms_norm(u, p["ln"], cfg.norm_eps),
                                  st, cfg)
     st.conv.copy_(new.conv)
     st.ssd.copy_(new.ssd)
     return x + y
+
+
+@spans.spanned("shared")
+def _published_block(p: dict, call: dict, x, e, attend: Callable,
+                     cfg: ModelConfig):
+    """One call of a published Zamba2 shared block on the stream ``x`` and
+    the embedding output ``e``: ``proj(mlp(norm(attend(norm([x, e])))))``,
+    the call's projection of the block's output (no residual inside).
+    ``attend(p_attn, h)`` is the prefill's or the decode's attention."""
+    SHARED["calls"] += 1
+    eps = cfg.norm_eps
+    a = attend(p["attn"], layers.rms_norm(torch.cat([x, e], dim=-1), p["ln1"],
+                                          eps))
+    y = mlp.gelu_lora_mlp(p["mlp"], layers.rms_norm(a, p["ln2"], eps),
+                          call["lora_a"], call["lora_b"])
+    return layers.dense(y, call["proj"])
 
 
 @spans.spanned("embed")
@@ -421,6 +481,73 @@ def _build_hybrid(cfg: ModelConfig, device: torch.device) -> Model:
     return Model(cfg, device, init, forward, init_cache, decode_step)
 
 
+def _build_published_hybrid(cfg: ModelConfig, device: torch.device) -> Model:
+    """The published Zamba2 (``HybridConfig``'s doc): call k runs block
+    k mod ``num_blocks`` with its own LoRA and projection before layer
+    ``layer_ids[k]``."""
+    h = cfg.hybrid
+    n_layers = cfg.num_layers
+    ids = list(h.layer_ids)
+    if not ids or ids != sorted(set(ids)) or ids[0] < 0 \
+            or ids[-1] >= n_layers or h.num_blocks < 1:
+        raise ValueError(f"layer_ids {h.layer_ids} must rise within "
+                         f"{n_layers} layers, over >= 1 blocks")
+    call_at = {layer: k for k, layer in enumerate(ids)}
+    shared_cfg = _shared_cfg(cfg)
+    scale = h.softmax_scale(cfg.d_model)
+
+    def init(seed_or_gen):
+        return _init_tree(model_spec(cfg), _seeded(seed_or_gen, device), device)
+
+    def block_and_call(params, k: int):
+        return _at(params["shared"], k % h.num_blocks), _at(params["calls"], k)
+
+    def forward(params, batch):
+        x, positions = _embed_in(params, batch, cfg)
+        e = x
+
+        def attend(p, u):
+            return attn.attention(p, u, positions, shared_cfg, scale=scale)
+
+        layer = _remat(lambda lp, x_, t: _ssm_block(lp, x_, cfg, t), cfg)
+        shared = _remat(lambda bp, cp, x_: _published_block(
+            bp, cp, x_, e, attend, cfg), cfg)
+        for i in range(n_layers):
+            t = shared(*block_and_call(params, call_at[i]), x) \
+                if i in call_at else None
+            x = constrain(layer(_at(params["layers"], i), x, t), "hidden")
+        return _logits_out(params, x, cfg), torch.zeros((), device=device)
+
+    def init_cache(batch, max_len):
+        kv = attn.init_kv_cache(batch, max_len, shared_cfg.num_kv_heads,
+                                shared_cfg.resolved_head_dim,
+                                cfg.activation_dtype, device)
+        return {"ssm": _ssm_cache((n_layers,), batch, cfg, device),
+                "shared_kv": attn.KVCache(*(
+                    t.expand((len(h.layer_ids),) + t.shape).clone()
+                    for t in kv))}
+
+    def decode_step(params, cache, tokens, pos):
+        x = layers.embed(params["embed"], tokens, cfg.activation_dtype)
+        e = x
+        for i in range(n_layers):
+            t = None
+            if i in call_at:
+                k = call_at[i]
+                kv = attn.KVCache(cache["shared_kv"].k[k],
+                                  cache["shared_kv"].v[k])
+                t = _published_block(
+                    *block_and_call(params, k), x, e,
+                    lambda p, u: attn.decode_attention(
+                        p, u, kv, pos, shared_cfg, scale=scale)[0],
+                    cfg)
+            x = _ssm_block_decode(_at(params["layers"], i), x, cache["ssm"],
+                                  (i,), cfg, t)
+        return _logits_out(params, x, cfg), cache
+
+    return Model(cfg, device, init, forward, init_cache, decode_step)
+
+
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
     """The model of ``cfg`` on ``device`` (``"cuda"`` by default; a CUDA
     request without a card raises).  ``decode_step`` updates the cache in
@@ -431,6 +558,8 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
     if cfg.family == "ssm":
         return _build_ssm_decoder(cfg, dev)
     if cfg.family == "hybrid":
+        if cfg.hybrid.published:
+            return _build_published_hybrid(cfg, dev)
         return _build_hybrid(cfg, dev)
     if cfg.family == "encdec":
         from repro_torch.models.encdec import build_encdec

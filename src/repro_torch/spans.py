@@ -18,13 +18,17 @@ a mesh step see the operations they saw before spans existed.
 
 The names are fixed (``NAMES``); a dotted name lies inside the span its
 prefix names (``ssm.scan`` inside ``ssm``), and ``embed``, ``attn``,
-``moe``, ``ssm`` and ``head`` lie inside ``prefill`` when the prefill step
-runs them.  What falls in no child of a span is that span's own time: the
-block pre-norms and residual adds are ``prefill``'s.
+``moe``, ``ssm``, ``shared`` and ``head`` lie inside ``prefill`` when the
+prefill step runs them.  ``shared`` is one call of a published Zamba2
+shared block (``models/transformer.py``): its ``attn`` (and ``attn.flash``)
+and ``shared.mlp`` lie inside it, and the concat, both norms and the call's
+projection are its own time.  What falls in no child of a span is that
+span's own time: the block pre-norms and residual adds are ``prefill``'s.
 
 ``counts()`` is every counter of the port's modules already imported, in
-one flat dict: the kernels' ``LAUNCHES`` under their own keys and the MoE
-FFN's ``ROWS`` as ``moe.routed``, ``moe.computed`` and ``moe.ragged``.
+one flat dict: the kernels' ``LAUNCHES`` under their own keys, the MoE
+FFN's ``ROWS`` as ``moe.routed``, ``moe.computed`` and ``moe.ragged``, and
+the shared blocks' ``SHARED`` as ``shared.calls``.
 """
 from __future__ import annotations
 
@@ -40,7 +44,8 @@ __all__ = ["NAMES", "span", "spanned", "off", "is_recording", "counts"]
 NAMES = ("prefill", "embed", "head",
          "attn", "attn.flash",
          "moe", "moe.router", "moe.dispatch", "moe.experts", "moe.combine",
-         "ssm", "ssm.conv", "ssm.scan", "ssm.gate_norm")
+         "ssm", "ssm.conv", "ssm.scan", "ssm.gate_norm",
+         "shared", "shared.mlp")
 _KNOWN = frozenset(NAMES)
 _OFF = contextlib.nullcontext()
 _off = False
@@ -50,7 +55,8 @@ _outer: Optional[bool] = None    # the outermost open span's decision
 _COUNTERS = (("repro_torch.kernels.flash_attention", "LAUNCHES", ""),
              ("repro_torch.kernels.ssd_scan", "LAUNCHES", ""),
              ("repro_torch.kernels.renewal_scan", "LAUNCHES", ""),
-             ("repro_torch.models.moe", "ROWS", "moe."))
+             ("repro_torch.models.moe", "ROWS", "moe."),
+             ("repro_torch.models.transformer", "SHARED", "shared."))
 
 
 def _profile_collects_cpu() -> bool:

@@ -1,8 +1,10 @@
-"""PyTorch port: the spans inside the prefill path and the MoE row counter
-(``repro_torch.spans``, ``models/moe.py``'s ``ROWS``), on the CPU.
+"""PyTorch port: the spans inside the prefill path, the MoE row counter and
+the shared-block call counter (``repro_torch.spans``, ``models/moe.py``'s
+``ROWS``, ``models/transformer.py``'s ``SHARED``), on the CPU.
 
-A prefill of a tiny MoE model (row and flat dispatch) and of a tiny Mamba2
-model, under ``torch.profiler``, records each documented span the
+A prefill of a tiny MoE model (row and flat dispatch), of a tiny Mamba2
+model and of the published Zamba2 layout at tiny widths, under
+``torch.profiler``, records each documented span the
 documented number of times, nested as documented, and each span's range
 holds the operators launched inside it.  Off (no profiler, a profile that
 does not collect the CPU's activity or that no caller holds, or
@@ -22,8 +24,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import configs as tconfigs
 from repro_torch import spans
+from repro_torch.configs import zamba2_7b
 from repro_torch.launch import steps as tsteps
-from repro_torch.models import build_model, moe
+from repro_torch.models import build_model, moe, transformer
 from repro_torch.models.api import MoEConfig
 
 B, S = 2, 32
@@ -296,5 +299,83 @@ def test_counts_carries_the_launch_counters():
     assert set(counted) == (set(flash_attention.LAUNCHES)
                             | set(ssd_scan.LAUNCHES)
                             | set(renewal_scan.LAUNCHES)
-                            | {"moe.routed", "moe.computed", "moe.ragged"})
+                            | {"moe.routed", "moe.computed", "moe.ragged",
+                               "shared.calls"})
     assert all(isinstance(v, int) for v in counted.values())
+
+
+# --- the published Zamba2's shared blocks ----------------------------------
+
+def _published(**overrides):
+    cfg = dataclasses.replace(zamba2_7b.published_smoke_config(),
+                              use_flash_kernel=True, **overrides)
+    model = build_model(cfg, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(1))
+    return cfg, tsteps.make_prefill_step(model), model.init(0), \
+        {"tokens": tokens}
+
+
+def test_the_shared_spans_are_named():
+    assert {"shared", "shared.mlp"} <= set(spans.NAMES)
+    assert spans.span("shared") is spans.span("shared.mlp")   # both off
+
+
+def test_published_hybrid_records_the_shared_spans():
+    cfg, step, params, batch = _published()
+    n, calls = 2, len(cfg.hybrid.layer_ids)
+    events = _profile(step, params, batch, n)
+    found = [e for e in events if e[0] in spans.NAMES]
+    got = {}
+    for ev in found:
+        key = (ev[0], _parent(ev, found))
+        got[key] = got.get(key, 0) + 1
+    want = {(name, parent): count * n for name, parent, count in (
+        ("prefill", None, 1), ("embed", "prefill", 1), ("head", "prefill", 1),
+        ("shared", "prefill", calls), ("attn", "shared", calls),
+        ("attn.flash", "attn", calls), ("shared.mlp", "shared", calls),
+        ("ssm", "prefill", cfg.num_layers), ("ssm.conv", "ssm", cfg.num_layers),
+        ("ssm.scan", "ssm", cfg.num_layers),
+        ("ssm.gate_norm", "ssm", cfg.num_layers))}
+    assert got == want
+    # the concat and the call's projection are the shared span's own
+    ops = [e for e in events if e[0] in ("aten::cat", "aten::addmm")]
+    mlp = [(t0, t1) for name, t0, t1 in found if name == "shared.mlp"]
+    own = [(t0, t1) for name, t0, t1 in found if name == "shared"]
+    for op, s0, s1 in ops:
+        if op == "aten::addmm":
+            assert any(t0 <= s0 and s1 <= t1 for t0, t1 in mlp)
+        elif any(t0 <= s0 <= t1 for t0, t1 in own):
+            assert not any(t0 <= s0 <= t1 for t0, t1 in mlp)
+
+
+def test_published_hybrid_bit_equal_with_spans_on_and_off():
+    _, step, params, batch = _published()
+    off = step(params, batch)
+    with torch.profiler.profile(activities=[CPU]) as prof:
+        assert spans.is_recording()
+        on = step(params, batch)
+        with spans.off():
+            off_profiled = step(params, batch)
+    assert prof.events()
+    assert torch.equal(off, on) and torch.equal(off, off_profiled)
+
+
+@pytest.mark.parametrize("published", [False, True], ids=["smoke", "ids"])
+def test_shared_calls_counts_each_call(published):
+    """``shared.calls`` adds one per shared-block call: the smoke layout's
+    own ids, and the published 13 over 81 layers (at tiny widths)."""
+    overrides = {}
+    if published:
+        overrides = dict(num_layers=81, hybrid=dataclasses.replace(
+            zamba2_7b.published_smoke_config().hybrid,
+            layer_ids=zamba2_7b.PUBLISHED_LAYER_IDS))
+    cfg, step, params, batch = _published(**overrides)
+    transformer.reset_shared_counts()
+    step(params, batch)
+    step(params, batch)
+    calls = len(cfg.hybrid.layer_ids)
+    assert calls == (13 if published else 4)
+    assert spans.counts()["shared.calls"] == 2 * calls
+    transformer.reset_shared_counts()
+    assert spans.counts()["shared.calls"] == 0
