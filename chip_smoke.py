@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's three CUDA kernels from the sources in this checkout (one
+Builds the port's four CUDA kernels from the sources in this checkout (one
 nvcc each, all started together) and holds each against its plain PyTorch
 version on the card.  Then it drives the port's paths at the size users
 run them, each with the launch counts set to 0 just before it and read just
@@ -61,9 +61,15 @@ same operands:
 * Zamba2-7B at its published layout and widths
   (``zamba2_7b.published_config()``, the model of the benchmark's zamba2
   cell): a bf16 prefill of 2 x 4096 tokens through ``make_prefill_step``
-  with 13 ``flash_attention`` launches at (64, 4096, 224) and 81
-  ``ssd_scan`` launches at 2 groups, the first of each held against its
-  plain version and timed alone with its bound (``[published-prefill]``).
+  with 13 ``flash_attention`` launches at (64, 4096, 224), 81
+  ``ssd_scan`` launches at 2 groups and 81 ``gate_norm`` launches, the
+  first flash and SSD launches held against their plain versions and timed
+  alone with their bounds (``[published-prefill]``);
+* the Mamba2 mixer's gated-norm kernel at the two SSM cells' shapes
+  (mamba2-2.7b: 16 x 4096 tokens, 80 heads of 64, one group; zamba2-7b:
+  2 x 4096, 112 heads of 64, two groups), on operands laid out as the mixer
+  holds them, against the plain chain, timed alone beside it and its byte
+  bound (``[gate-norm]``).
 * training, at deepseek-7b's published widths cut to 2 of its 30 layers
   (bf16, 8 x 4096 tokens per step in 4 microbatches, AdamW): a kernel
   launch under grad mode raises (``[train-grad-guard]``), and
@@ -2029,10 +2035,12 @@ def published_zamba2_phase(card_line: str, fa, ssd) -> dict:
     (``zamba2_7b.published_config()``: 81 Mamba2 layers at 2 groups, two
     shared blocks by turns at 13 layers, 32 heads of 224), bf16, 2 x 4096
     tokens through ``make_prefill_step``.  Requires one flash launch per
-    shared-block call and one SSD launch per layer, holds the first of each
+    shared-block call and one SSD and one gated-norm launch per layer,
+    holds the first flash and SSD launches
     against its plain version on the operands the path gave it, and times
     it alone with its bound.  Returns those numbers by kernel name."""
     from repro_torch.configs import zamba2_7b
+    from repro_torch.kernels import gate_norm as gn
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import build_model
@@ -2052,13 +2060,16 @@ def published_zamba2_phase(card_line: str, fa, ssd) -> dict:
     prefill = make_prefill_step(model)
     fa.reset_launch_counts()
     ssd.reset_launch_counts()
+    gn.reset_launch_counts()
     with recorded(ops, "flash_attention_bhsd", first_call) as cap_fa, \
             recorded(ops, "ssd_scan_bhsp", first_call) as cap_ssd:
         last = prefill(params, batch)
         torch.cuda.synchronize()
     launches = {"flash_attention": fa.LAUNCHES["flash_attention"],
-                "ssd_scan": ssd.LAUNCHES["ssd_scan"]}
-    expect = {"flash_attention": n_calls, "ssd_scan": cfg.num_layers}
+                "ssd_scan": ssd.LAUNCHES["ssd_scan"],
+                "gate_norm": gn.LAUNCHES["gate_norm"]}
+    expect = {"flash_attention": n_calls, "ssd_scan": cfg.num_layers,
+              "gate_norm": cfg.num_layers}
     if launches != expect:
         raise Failed(f"published prefill launched {launches}, expected {expect}")
     if (len(cap_fa), len(cap_ssd)) != (n_calls, cfg.num_layers):
@@ -2116,6 +2127,58 @@ def published_zamba2_phase(card_line: str, fa, ssd) -> dict:
     free_cuda()
     rec_fa["launches"], rec_ssd["launches"] = n_calls, cfg.num_layers
     return {"flash_attention": rec_fa, "ssd_scan": rec_ssd}
+
+
+# the SSM cells' gated norms: (cell, batch, tokens, heads, head dim, groups,
+# state); the benchmark's mamba2-2.7b.prefill-16x4096 and
+# zamba2-7b.prefill-2x4096
+GATE_NORM_CASES = (("mamba2-2.7b", 16, 4096, 80, 64, 1, 128),
+                   ("zamba2-7b", 2, 4096, 112, 64, 2, 64))
+
+
+def gate_norm_phase(card_line: str) -> None:
+    """``[gate-norm]``: the mixer's gated-norm kernel at both SSM cells'
+    shapes, on operands laid out as ``ssm_mixer`` holds them (y the
+    transposed view of a (B, H, S, P) float32 buffer, x and z column slices
+    of the conv's and the in projection's outputs), held to its plain
+    version at flash's ``PLAIN_TOL``, timed alone beside the plain chain and
+    its byte bound (y float32, x, z and the output bf16, each once)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gate_norm as gn
+    from repro_torch.kernels import ops
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    for label, b, s, h, p, g, n in GATE_NORM_CASES:
+        d_in = h * p
+        gen = torch.Generator(device=dev).manual_seed(31)
+        rand = lambda *shape: torch.randn(shape, device=dev, generator=gen)
+        y = rand(b, h, s, p).transpose(1, 2)
+        x = rand(b, s, d_in + 2 * g * n).to(bf16)[..., :d_in].reshape(b, s, h, p)
+        z = (2 * rand(b, s, 2 * d_in + 2 * g * n + h)).to(bf16)[..., :d_in]
+        d, w = rand(h), (0.1 * rand(d_in)).to(bf16)
+        args = (y, x, d, z, w, g, 1e-5)
+        gn.reset_launch_counts()
+        got = ops.gated_norm_skip(*args)
+        torch.cuda.synchronize()
+        if gn.LAUNCHES["gate_norm"] != 1:
+            raise Failed(f"gate-norm {label}: {gn.LAUNCHES} launches, expected 1")
+        err = check_close(f"gate-norm {label}", got, gn.gate_norm_reference(*args),
+                          *fa.PLAIN_TOL[bf16])
+        del got
+        free_cuda()
+        k_ms, host_ms = kernel_only_ms(lambda: ops.gated_norm_skip(*args),
+                                       LM_KERNEL_REPS)
+        plain_ms = statistics.median(cuda_ms(
+            lambda: gn.gate_norm_reference(*args), reps=3, warmup=1))
+        n_bytes = b * s * d_in * (4 + 2 + 2 + 2) + nbytes(d, w)
+        bound_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+        line("gate-norm", cell=label, card=repr(card_line), batch=b, tokens=s,
+             heads=h, head_dim=p, groups=g, kernel_ms=f"{k_ms:.5f}",
+             wrapper_host_ms=f"{host_ms:.5f}", plain_ms_median=f"{plain_ms:.3f}",
+             bytes=n_bytes, bound_ms=f"{bound_ms:.5f}", bound_by="bytes",
+             bound_share=f"{bound_ms / k_ms:.4f}", max_abs_err=f"{err:.3e}")
+        del y, x, z, d, w, args
+        free_cuda()
 
 
 # ---------------------------------------------------------------------------
@@ -3853,11 +3916,13 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
 
+    from repro_torch.kernels import gate_norm as gn
+
     t_build = time.perf_counter()
-    _build.load_libraries([rs.LIBRARY, fa.LIBRARY, ssd.LIBRARY])
-    line("build", kernels=3, wall_seconds=f"{time.perf_counter() - t_build:.2f}",
+    _build.load_libraries([rs.LIBRARY, fa.LIBRARY, ssd.LIBRARY, gn.LIBRARY])
+    line("build", kernels=4, wall_seconds=f"{time.perf_counter() - t_build:.2f}",
          card=repr(card_line))
-    for name, _, flags in (rs.LIBRARY, fa.LIBRARY, ssd.LIBRARY):
+    for name, _, flags in (rs.LIBRARY, fa.LIBRARY, ssd.LIBRARY, gn.LIBRARY):
         info = _build.build_log[name]
         line("build", kernel=name, seconds=f"{info['seconds']:.2f}",
              cached=info["cached"], fmad=("-fmad=false" not in flags))
@@ -4152,6 +4217,7 @@ def main() -> int:
 
     lm_records = lm_path(card_line, fa, ssd)
     published = published_zamba2_phase(card_line, fa, ssd)
+    gate_norm_phase(card_line)
     for rec in lm_records:
         rec["published"] = published[rec["name"]]
         rec["max_abs_err"] = max(rec["max_abs_err"],

@@ -1,4 +1,4 @@
-"""Model-layout entry points of the two LM kernels, the counterparts of
+"""Model-layout entry points of the LM kernels, the counterparts of
 ``repro.kernels.ops``: the same transposes and reshapes around the
 kernel-layout functions, which launch the CUDA kernel for CUDA tensors and
 run its plain version for CPU tensors.  There is no shape fallback: the
@@ -25,9 +25,10 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
+from repro_torch.kernels.gate_norm import gate_norm
 from repro_torch.kernels.ssd_scan import ssd_scan_bhsp
 
-__all__ = ["flash_attention", "ssd_scan"]
+__all__ = ["flash_attention", "ssd_scan", "gated_norm_skip"]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -76,3 +77,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     ck = cmat.transpose(1, 2).contiguous()
     y, state = ssd_scan_bhsp(xk, dtk, a.float(), bk, ck, chunk=chunk)
     return y.transpose(1, 2), state
+
+
+def gated_norm_skip(y: torch.Tensor, x: torch.Tensor, d: torch.Tensor,
+                    z: torch.Tensor, w: torch.Tensor, groups: int,
+                    eps: float) -> torch.Tensor:
+    """The Mamba2 mixer after the scan, up to the out projection: y (b,s,h,p)
+    float32 as ``ssd_scan`` returns it, x (b,s,h,p), d (h,), z (b,s,h*p),
+    w (h*p,) -> ``gated_norm(T(y + d x), z, w, groups, eps)`` (b,s,h*p) in
+    x's dtype T.  It has no reference counterpart: the JAX package leaves
+    this chain to XLA, and the JAX mixer is its oracle.  A group width that
+    is no multiple of 8, or a head dim no multiple of 4, raises on every
+    device, as the kernel takes neither."""
+    _build.refuse_dtensor("gate_norm", y, x, d, z, w)
+    return gate_norm(y, x, d, z, w, groups=groups, eps=eps)

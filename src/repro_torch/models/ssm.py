@@ -5,8 +5,9 @@ Per-head scalar decay ``a_t = exp(-exp(A_log) * dt_t)``, grouped B/C, a
 short causal depthwise conv over the (x, B, C) stream, gated RMSNorm (over
 ``SSMConfig.n_groups`` groups of channels) and the out projection.
 ``ssd_reference`` is the chunked oracle in model layout;
-``ssm_mixer(use_kernel=True)`` goes through ``kernels.ops.ssd_scan`` (the
-CUDA kernel on the card, its plain version on the CPU).
+``ssm_mixer(use_kernel=True)`` goes through ``kernels.ops.ssd_scan`` and
+then ``kernels.ops.gated_norm_skip`` (the CUDA kernels on the card, their
+plain versions on the CPU).
 ``ssm_decode_step`` is the one-token recurrent form.  ``jax.nn.softplus``
 is ``logaddexp(x, 0)``, which ``F.softplus`` (threshold 20) is not.
 """
@@ -23,8 +24,8 @@ from repro_torch.models.api import ModelConfig, SSMConfig
 from repro_torch.parallel.dtensor_ops import (shard_local, shards_dim,
                                               split_columns)
 
-__all__ = ["ssm_spec", "ssm_mixer", "gated_norm", "ssd_reference",
-           "SSMState", "init_ssm_state", "ssm_decode_step"]
+__all__ = ["ssm_spec", "ssm_mixer", "gated_norm", "gated_norm_skip_reference",
+           "ssd_reference", "SSMState", "init_ssm_state", "ssm_decode_step"]
 
 
 def _dims(d_model: int, s: SSMConfig):
@@ -139,6 +140,18 @@ def gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
                            w.unflatten(-1, (groups, -1)), eps).flatten(-2)
 
 
+def gated_norm_skip_reference(y: torch.Tensor, x: torch.Tensor,
+                              d: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                              groups: int, eps: float) -> torch.Tensor:
+    """The mixer after the scan, up to the out projection: the skip
+    ``y + D x`` in float32 (y (b,s,h,p) from the scan, x (b,s,h,p)), cast to
+    z's dtype, then ``gated_norm``.  The plain version of
+    ``kernels.ops.gated_norm_skip``."""
+    b, s, h, p = y.shape
+    y = (y + d[:, None] * x.float()).reshape(b, s, h * p).to(z.dtype)
+    return gated_norm(y, z, w, groups, eps)
+
+
 @spans.spanned("ssm")
 def ssm_mixer(p: dict, u: torch.Tensor, cfg: ModelConfig, *,
               use_kernel: bool = False) -> torch.Tensor:
@@ -167,9 +180,8 @@ def ssm_mixer(p: dict, u: torch.Tensor, cfg: ModelConfig, *,
                                ((0, 2), (0, 2), (None, 0), (0, bc), (0, bc)),
                                ((0, 2), (0, 1)), heads_from=2)
     with spans.span("ssm.gate_norm"):
-        y = y + p["D"][:, None] * x.float()
-        y = y.reshape(b, s, d_inner).to(u.dtype)
-        y = gated_norm(y, z, p["norm_w"], s_cfg.n_groups, cfg.norm_eps)
+        norm = kops.gated_norm_skip if use_kernel else gated_norm_skip_reference
+        y = norm(y, x, p["D"], z, p["norm_w"], s_cfg.n_groups, cfg.norm_eps)
     return layers.dense(y, p["out_proj"])
 
 

@@ -54,6 +54,7 @@ _outer: Optional[bool] = None    # the outermost open span's decision
 # the modules whose counters ``counts`` reads, and the prefix of each key
 _COUNTERS = (("repro_torch.kernels.flash_attention", "LAUNCHES", ""),
              ("repro_torch.kernels.ssd_scan", "LAUNCHES", ""),
+             ("repro_torch.kernels.gate_norm", "LAUNCHES", ""),
              ("repro_torch.kernels.renewal_scan", "LAUNCHES", ""),
              ("repro_torch.models.moe", "ROWS", "moe."),
              ("repro_torch.models.transformer", "SHARED", "shared."))

@@ -22,6 +22,8 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from torch_port_ref import requires_cuda, skip_without_cuda
+
 from repro_torch import configs as tconfigs
 from repro_torch import spans
 from repro_torch.configs import zamba2_7b
@@ -290,18 +292,45 @@ def test_computed_rows_are_the_experts_input_rows(ffn, monkeypatch):
 
 
 def test_counts_carries_the_launch_counters():
-    from repro_torch.kernels import flash_attention, renewal_scan, ssd_scan
+    from repro_torch.kernels import (flash_attention, gate_norm, renewal_scan,
+                                     ssd_scan)
 
     counted = spans.counts()
-    for mod in (flash_attention, ssd_scan, renewal_scan):
+    for mod in (flash_attention, ssd_scan, renewal_scan, gate_norm):
         for key, value in mod.LAUNCHES.items():
             assert counted[key] == value
     assert set(counted) == (set(flash_attention.LAUNCHES)
                             | set(ssd_scan.LAUNCHES)
                             | set(renewal_scan.LAUNCHES)
+                            | set(gate_norm.LAUNCHES)
                             | {"moe.routed", "moe.computed", "moe.ragged",
                                "shared.calls"})
     assert all(isinstance(v, int) for v in counted.values())
+
+
+@requires_cuda
+@pytest.mark.parametrize("published", [False, True], ids=["mamba2", "zamba2-ids"])
+def test_kernel_path_counts_one_gate_norm_launch_a_layer(published):
+    """On the card, a kernel-path prefill of a small SSM config launches the
+    gated-norm kernel once a layer (the published layout's two groups too),
+    and ``counts()`` reads it."""
+    skip_without_cuda()
+    from repro_torch.kernels import gate_norm
+
+    cfg = zamba2_7b.published_smoke_config() if published \
+        else tconfigs.get_smoke_config("mamba2-370m")
+    model = build_model(dataclasses.replace(cfg, use_flash_kernel=True), "cuda")
+    params = model.init(0)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(1))
+    step = tsteps.make_prefill_step(model)
+    gate_norm.reset_launch_counts()
+    step(params, {"tokens": tokens.cuda()})
+    step(params, {"tokens": tokens.cuda()})
+    torch.cuda.synchronize()
+    assert spans.counts()["gate_norm"] == 2 * cfg.num_layers
+    gate_norm.reset_launch_counts()
+    assert spans.counts()["gate_norm"] == 0
 
 
 # --- the published Zamba2's shared blocks ----------------------------------
