@@ -374,7 +374,9 @@ def drive(rs, fn) -> tuple:
     """Run one entry point with the launch counts set to 0 just before it;
     returns (its result, the kernel launches it made, the recorded calls).
     Fails if it launched the kernel no time, or other than once per call."""
-    rs.reset_launch_counts()
+    from repro_torch import spans
+
+    spans.reset_counts()
     # the caller edits the kernel's output dict: keep a copy
     with recorded(rs, "renewal_scan",
                   lambda i, args, kw, out: (args, kw, dict(out))) as calls:
@@ -1647,6 +1649,7 @@ def device_profile(fn) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import spans
+
     from repro_torch.kernels.flash_attention import KERNEL_NAMES
     from repro_torch.kernels.ssd_scan import KERNEL_NAMES as SSD_KERNELS
 
@@ -1735,6 +1738,7 @@ def tables_equal_cpu(card_line: str, head_dim: int) -> None:
 def lm_path(card_line: str, fa, ssd) -> list:
     """Phases 6-10: the Zamba2-7B serving path in the registry's layout.
     Returns the kernel records of flash_attention and ssd_scan."""
+    from repro_torch import spans
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
@@ -1818,8 +1822,7 @@ def lm_path(card_line: str, fa, ssd) -> list:
         0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN)), device=dev)
     prefill = make_prefill_step(model)
     batch = {"tokens": tokens}
-    fa.reset_launch_counts()
-    ssd.reset_launch_counts()
+    spans.reset_counts()
     with recorded(ops, "flash_attention_bhsd", first_call) as cap_fa, \
             recorded(ops, "ssd_scan_bhsp", first_call) as cap_ssd:
         last = prefill(params, batch)
@@ -1928,8 +1931,7 @@ def lm_path(card_line: str, fa, ssd) -> list:
     # --- phase 9 (run here, on the bf16 weights): the serve loop -----------
     prompts = np.random.default_rng(2).integers(
         0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))
-    fa.reset_launch_counts()
-    ssd.reset_launch_counts()
+    spans.reset_counts()
     res = serve.serve(model, params, prompts, SERVE_GEN)
     toks = res["tokens"]
     if toks.shape != (SERVE_BATCH, SERVE_GEN) or toks.min() < 0 or \
@@ -1963,8 +1965,7 @@ def lm_path(card_line: str, fa, ssd) -> list:
     params = model.init(0)
     tokens = torch.as_tensor(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (PREFILL_BATCH, DECODE_CHECK_LEN)), device=dev)
-    fa.reset_launch_counts()
-    ssd.reset_launch_counts()
+    spans.reset_counts()
     # the hidden state after each Mamba2 layer, at the last position
     last_pos = lambda i, args, kw, x: x[:, -1].float().clone()
     with recorded(transformer, "_ssm_block", last_pos) as pre_layers:
@@ -2039,6 +2040,7 @@ def published_zamba2_phase(card_line: str, fa, ssd) -> dict:
     holds the first flash and SSD launches
     against its plain version on the operands the path gave it, and times
     it alone with its bound.  Returns those numbers by kernel name."""
+    from repro_torch import spans
     from repro_torch.configs import zamba2_7b
     from repro_torch.kernels import gate_norm as gn
     from repro_torch.kernels import ops
@@ -2058,9 +2060,7 @@ def published_zamba2_phase(card_line: str, fa, ssd) -> dict:
         0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN)), device=dev)
     batch = {"tokens": tokens}
     prefill = make_prefill_step(model)
-    fa.reset_launch_counts()
-    ssd.reset_launch_counts()
-    gn.reset_launch_counts()
+    spans.reset_counts()
     with recorded(ops, "flash_attention_bhsd", first_call) as cap_fa, \
             recorded(ops, "ssd_scan_bhsp", first_call) as cap_ssd:
         last = prefill(params, batch)
@@ -2143,6 +2143,7 @@ def gate_norm_phase(card_line: str) -> None:
     of the conv's and the in projection's outputs), held to its plain
     version at flash's ``PLAIN_TOL``, timed alone beside the plain chain and
     its byte bound (y float32, x, z and the output bf16, each once)."""
+    from repro_torch import spans
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gate_norm as gn
     from repro_torch.kernels import ops
@@ -2157,7 +2158,7 @@ def gate_norm_phase(card_line: str) -> None:
         z = (2 * rand(b, s, 2 * d_in + 2 * g * n + h)).to(bf16)[..., :d_in]
         d, w = rand(h), (0.1 * rand(d_in)).to(bf16)
         args = (y, x, d, z, w, g, 1e-5)
-        gn.reset_launch_counts()
+        spans.reset_counts()
         got = ops.gated_norm_skip(*args)
         torch.cuda.synchronize()
         if gn.LAUNCHES["gate_norm"] != 1:
@@ -2220,11 +2221,12 @@ def entry_point_timing(fn, reps: int, parts=()) -> dict:
     counted; then one call with ``parts`` (and the float64 scan,
     ``sweep._renewal_scan``) clocked, for each part's share of that
     call's wall time."""
+    from repro_torch import spans
     from repro_torch.core import sweep
     from repro_torch.kernels import renewal_scan as rs
 
     _, ms = wall_ms_median(fn, reps)
-    rs.reset_launch_counts()
+    spans.reset_counts()
     prof = device_profile(fn)
     measured = prof["device_ms"] is not None
     out = {"wall_ms_median": f"{ms:.3f}",
@@ -2352,6 +2354,8 @@ def fleet_phase(card_line: str, rs, sweep, optimize, fleet, key) -> None:
     the card, padding inert, submit order, cache hits with no new traces on
     a second ``advise``, ``shard=True`` equal to the unsharded path; times
     the batched advisor against the per-cluster loop."""
+    from repro_torch import spans
+
     table = optimize.policy_grid(
         ckpt_interval=np.geomspace(2400.0, 19200.0, 7), mu1=[6.0],
         wait_mode=[0, 1])
@@ -2363,7 +2367,7 @@ def fleet_phase(card_line: str, rs, sweep, optimize, fleet, key) -> None:
                 FLEET_CLUSTERS, seed=0, node_buckets=(4,), weibull_frac=0.0)),
             ("mixed", fleet.synthetic_fleet(FLEET_CLUSTERS, seed=0))):
         advisor = advisor_of()
-        rs.reset_launch_counts()
+        spans.reset_counts()
         out = advisor.advise(profiles)
         if rs.LAUNCHES["renewal_scan"]:
             raise Failed("fleet: the cluster axis launched renewal_scan")
@@ -2575,6 +2579,7 @@ def force_reference_phase(dev, fa, ssd) -> None:
     CUDA tensors and launches nothing; the default launches each kernel
     once, held to the oracle at the flash kernel's plain tolerance and the
     SSD bar (atol 2e-3 / rtol 1e-3)."""
+    from repro_torch import spans
     from repro_torch.kernels import ops
 
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -2587,8 +2592,7 @@ def force_reference_phase(dev, fa, ssd) -> None:
     bm, cm = (0.3 * torch.randn((2, 256, 1, 64), generator=gen, device=dev)
               for _ in range(2))
     with torch.no_grad():
-        fa.reset_launch_counts()
-        ssd.reset_launch_counts()
+        spans.reset_counts()
         ref_o = ops.flash_attention(q, k, v, force_reference=True)
         ref_y, ref_s = ops.ssd_scan(x, dt, a, bm, cm, chunk=128,
                                     force_reference=True)
@@ -2616,6 +2620,7 @@ def train_phase(card_line: str, fa, ssd) -> tuple:
     the same state, bit-equal), then 5 timed steps.  Returns the model,
     its config, the optimizer, the step and the pipeline, and the trained
     parameters."""
+    from repro_torch import spans
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.launch.steps import make_train_step
@@ -2634,8 +2639,7 @@ def train_phase(card_line: str, fa, ssd) -> tuple:
     del params
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
-    ssd.reset_launch_counts()
+    spans.reset_counts()
     losses, times = [], []
     peak, step_growth = 0, 0           # overall peak; a timed step's own
     for step in range(TRAIN_WARMUP + TRAIN_TIMED):
@@ -2909,6 +2913,7 @@ def dense_prefill_phase(card_line: str, cfg, params, fa) -> float:
     version, timed alone against it and SDPA), the float32 cast of the
     weights against the plain path at 2 x 4096, and 8 decoded tokens
     against the prefill.  Returns the worst kernel-vs-plain error."""
+    from repro_torch import spans
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import build_model
@@ -2920,7 +2925,7 @@ def dense_prefill_phase(card_line: str, cfg, params, fa) -> float:
         0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN)), device=dev)
     batch = {"tokens": tokens}
     prefill = make_prefill_step(kern)
-    fa.reset_launch_counts()
+    spans.reset_counts()
     with recorded(ops, "flash_attention_bhsd", first_call) as cap:
         last = prefill(params, batch)
         torch.cuda.synchronize()
@@ -3068,6 +3073,7 @@ def moe_phase(card_line: str, fa) -> list:
     E/K (nothing drops): the kernel path against the plain path at 2 x
     1024 with the differing routes counted, and 2 x 128 decoded tokens
     against the forward.  Returns the flash launch records."""
+    from repro_torch import spans
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
@@ -3087,7 +3093,7 @@ def moe_phase(card_line: str, fa) -> list:
         0, cfg.vocab_size, (MOE_BATCH, MOE_LEN)), device=dev)
     batch = {"tokens": tokens}
     prefill = make_prefill_step(model)
-    fa.reset_launch_counts()
+    spans.reset_counts()
     with recorded(ops, "flash_attention_bhsd", first_call) as cap, \
             recorded(moe, "_route", expert_ids) as ids:
         last = prefill(params, batch)
@@ -3122,7 +3128,7 @@ def moe_phase(card_line: str, fa) -> list:
 
     prompts = np.random.default_rng(6).integers(
         0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))
-    fa.reset_launch_counts()
+    spans.reset_counts()
     res = serve.serve(model, params, prompts, SERVE_GEN)
     toks = res["tokens"]
     if toks.shape != (SERVE_BATCH, SERVE_GEN) or toks.min() < 0 or \
@@ -3147,7 +3153,7 @@ def moe_phase(card_line: str, fa) -> list:
                         "cuda")
     p32 = kern.init(0)
     short = tokens[:, :MOE_CHECK_LEN]
-    fa.reset_launch_counts()
+    spans.reset_counts()
     with torch.inference_mode():
         with recorded(moe, "_route", expert_ids) as ids_k:
             got, aux_k = kern.forward(p32, {"tokens": short})
@@ -3201,6 +3207,7 @@ def mixtral_phase(card_line: str, fa) -> list:
     tokens, row dispatch: 2 flash launches at group 6 and window 4096, the
     first held against its plain version (per KV head) and timed alone,
     against SDPA with the window as a boolean mask."""
+    from repro_torch import spans
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_prefill_step
@@ -3217,7 +3224,7 @@ def mixtral_phase(card_line: str, fa) -> list:
         0, cfg.vocab_size, (MIXTRAL_BATCH, MIXTRAL_LEN)), device=dev)
     batch = {"tokens": tokens}
     prefill = make_prefill_step(model)
-    fa.reset_launch_counts()
+    spans.reset_counts()
     with recorded(ops, "flash_attention_bhsd", first_call) as cap, \
             recorded(moe, "_route", expert_ids) as ids:
         last = prefill(params, batch)
@@ -3264,6 +3271,7 @@ def encdec_phase(card_line: str, fa) -> list:
     against one with a single frame (the per-step recomputation of
     cross-attention); then float32: the kernel path against the plain
     path, and 2 x 64 decoded tokens against the forward."""
+    from repro_torch import spans
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
@@ -3282,7 +3290,7 @@ def encdec_phase(card_line: str, fa) -> list:
         0, cfg.vocab_size, (WHISPER_BATCH, WHISPER_TOKENS)), device=dev)
     batch = {"frames": frames, "tokens": tokens}
     prefill = make_prefill_step(model)
-    fa.reset_launch_counts()
+    spans.reset_counts()
     with recorded(ops, "flash_attention_bhsd", first_call) as cap:
         last = prefill(params, batch)
         torch.cuda.synchronize()
@@ -3356,7 +3364,7 @@ def encdec_phase(card_line: str, fa) -> list:
     kern = build_model(cfg32, "cuda")
     plain = build_model(dataclasses.replace(cfg32, use_flash_kernel=False),
                         "cuda")
-    fa.reset_launch_counts()
+    spans.reset_counts()
     with torch.inference_mode():
         got, _ = kern.forward(p32, batch)
         launches32 = fa.LAUNCHES["flash_attention"]
@@ -3396,6 +3404,7 @@ def moe_train_phase(card_line: str, fa) -> tuple:
     per step in its 4 microbatches: warm-up steps (step 1 replayed from the
     same state, bit-equal), then timed steps.  Returns the last step's
     gradients and the parameters they were taken at."""
+    from repro_torch import spans
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.launch.steps import make_train_step
@@ -3421,7 +3430,7 @@ def moe_train_phase(card_line: str, fa) -> tuple:
     del params
     free_cuda()
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
+    spans.reset_counts()
     losses, auxes, times = [], [], []
     n_steps = MOE_TRAIN_WARMUP + MOE_TRAIN_TIMED
     for step in range(n_steps):
@@ -3751,6 +3760,7 @@ def mesh_steps_phase(card_line: str, fa, ssd) -> None:
     after the checked one and a warm-up (``wall_ms_median``), the decode
     step's over 31 steps after the first, which fills DTensor's
     propagation caches."""
+    from repro_torch import spans
     import socket
 
     import torch.distributed as dist
@@ -3788,8 +3798,7 @@ def mesh_steps_phase(card_line: str, fa, ssd) -> None:
         batch = pipe.batch_at(0)
         params = model.init(0)
         pspecs = shd.param_specs(cfg, mesh, params, rules)
-        fa.reset_launch_counts()
-        ssd.reset_launch_counts()
+        spans.reset_counts()
         free_cuda()
 
         # the train step: unsharded, then on the mesh from the same state

@@ -8,6 +8,11 @@ headers are compiled, which keeps a build to seconds.  The library name
 carries a hash of the source, the shared headers it names
 (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and never
 served stale.  A failed build raises; there is no fallback.
+
+It is also the one seam between the kernel modules and their callers:
+``dispatch`` holds the device rule of every kernel-layout entry point,
+``refuse`` the refusals every ``_launch_cuda`` makes first, and ``launch``
+the call of a C entry point, its error check and its count.
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ import subprocess
 import time
 
 import torch
+
+from repro_torch import spans
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
@@ -155,3 +162,44 @@ def refuse_dtensor(name: str, *tensors) -> None:
             f"the {name} kernel takes no DTensor (a tensor on a DeviceMesh): "
             "its local shard is a piece of the operand.  Run the model's plain "
             "path under a mesh (use_flash_kernel=False)")
+
+
+def refuse(name: str, *tensors) -> None:
+    """The refusals every ``_launch_cuda`` makes before it touches a card:
+    no DTensor (``refuse_dtensor``), no operand that requires grad under
+    grad mode (``refuse_grad``), and every operand on one device."""
+    refuse_dtensor(name, *tensors)
+    refuse_grad(name, *tensors)
+    if any(t.device != tensors[0].device for t in tensors):
+        raise ValueError(f"{name} operands must lie on one device")
+
+
+def dispatch(name: str, operands, plain, launch):
+    """The device rule of a kernel-layout entry point ``name``: every operand
+    a ``torch.Tensor``; CPU operands run ``plain()``, CUDA operands
+    ``launch()``; any other device, or a mix, raises: a CUDA call never
+    falls back."""
+    if not all(isinstance(t, torch.Tensor) for t in operands):
+        raise TypeError(f"{name} takes torch tensors")
+    kinds = {t.device.type for t in operands}
+    if kinds == {"cpu"}:
+        return plain()
+    if kinds == {"cuda"}:
+        return launch()
+    raise ValueError(f"{name} operands on unsupported devices {kinds}")
+
+
+def launch(lib: ctypes.CDLL, name: str, entry: str, argtypes, device,
+           *args, after=()) -> None:
+    """Call the C entry point ``entry`` of library ``name``: bind its
+    ``argtypes`` (the stream's included) and an int return on the first
+    call, pass ``args``, the current stream of ``device``, then ``after``;
+    raise on a returned CUDA error and count one launch under ``name``
+    (``spans.counts()``).  Nothing is synchronised."""
+    fn = getattr(lib, entry)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    err = fn(*args, torch.cuda.current_stream(device).cuda_stream, *after)
+    check_launch(lib, name, err)
+    spans.counter(name)[name] += 1

@@ -35,7 +35,7 @@ Two implementations of one function live here:
 
 ``flash_attention_bhsd`` dispatches on where the tensors lie: CPU tensors
 take the plain version, CUDA tensors launch the kernel (counted in
-``LAUNCHES``).  Anything else raises — a CUDA call never falls back.
+``LAUNCHES``).  Anything else raises (``_build.dispatch``).
 """
 from __future__ import annotations
 
@@ -44,10 +44,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels import _build
 
 __all__ = ["flash_attention_bhsd", "flash_attention_reference", "NEG_INF",
-           "LAUNCHES", "reset_launch_counts", "SUPPORTED_HEAD_DIMS",
+           "LAUNCHES", "SUPPORTED_HEAD_DIMS",
            "PLAIN_TOL", "BF16_TILES", "BF16_KERNEL", "KERNEL_NAMES"]
 
 NEG_INF = -1e30
@@ -75,15 +76,12 @@ KERNEL_NAMES = ("flash_wgmma_kernel", "flash_mma_kernel", "flash_kernel")
 PLAIN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 1e-2)}
 
 # launches of the CUDA kernel (not of the plain version)
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = spans.counter("flash_attention")
 
 # (name, source under csrc/, nvcc flags) for kernels._build
 LIBRARY = ("flash_attention", "flash_attention.cu", _build.FMA_FLAGS)
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+# the C entry point's argument types, the stream's last
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def _check(q, k, v, group: int, window: Optional[int]) -> None:
@@ -136,13 +134,10 @@ def _launch_cuda(q, k, v, group: int, causal: bool, window: Optional[int],
     """Launch the CUDA kernel on the operands' card (no synchronisation).
     ``lib`` is this package's library unless a caller passes another build
     of the same C interface (another checkout's, to compare the two)."""
-    _build.refuse_dtensor("flash_attention", q, k, v)
-    _build.refuse_grad("flash_attention", q, k, v)
+    _build.refuse("flash_attention", q, k, v)
     _check(q, k, v, group, window)
-    for t in (k, v):
-        if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError("flash attention operands must share one device "
-                             "and dtype")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("flash attention operands must share one dtype")
     if q.dtype not in _DTYPES:
         raise TypeError(f"the flash kernel takes float32 or bfloat16; got {q.dtype}")
     if not all(t.is_contiguous() for t in (q, k, v)):
@@ -160,18 +155,11 @@ def _launch_cuda(q, k, v, group: int, causal: bool, window: Optional[int],
 
     if lib is None:
         lib = _build.load_library(*LIBRARY)
-    fn = lib.flash_attention_launch
-    if fn.argtypes is None:                  # first call: bind the signature
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
-             sk, d, group, int(bool(causal)), 0 if window is None else window,
-             _DTYPES[q.dtype], stream)
-    _build.check_launch(lib, "flash_attention", err)
-    LAUNCHES["flash_attention"] += 1
+    _build.launch(lib, "flash_attention", "flash_attention_launch", _ARGTYPES,
+                  q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), bh, sq, sk, d, group, int(bool(causal)),
+                  0 if window is None else window, _DTYPES[q.dtype])
     return out
 
 
@@ -181,12 +169,8 @@ def flash_attention_bhsd(q, k, v, *, group: int, causal: bool = True,
     plain version; CUDA tensors launch the hand-written kernel (counted in
     ``LAUNCHES``) and return without synchronising.  Mixed or other
     devices raise."""
-    if not all(isinstance(t, torch.Tensor) for t in (q, k, v)):
-        raise TypeError("flash_attention_bhsd takes torch tensors")
-    kinds = {t.device.type for t in (q, k, v)}
-    if kinds == {"cpu"}:
-        return flash_attention_reference(q, k, v, group=group, causal=causal,
-                                         window=window)
-    if kinds == {"cuda"}:
-        return _launch_cuda(q, k, v, group, causal, window)
-    raise ValueError(f"flash attention operands on unsupported devices {kinds}")
+    return _build.dispatch(
+        "flash_attention_bhsd", (q, k, v),
+        lambda: flash_attention_reference(q, k, v, group=group, causal=causal,
+                                          window=window),
+        lambda: _launch_cuda(q, k, v, group, causal, window))

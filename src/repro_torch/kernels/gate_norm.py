@@ -31,11 +31,10 @@ Two implementations of one function live here:
     scale; the operands are read once and the output written once, which
     is its bound.
 
-``gate_norm`` checks the shapes on every device (a group width that is no
-multiple of 8 or a head dim no multiple of 4 raises: the kernel takes
-neither), then dispatches on where the tensors lie: CPU tensors take the
+``gate_norm`` dispatches on where the tensors lie: CPU tensors take the
 plain version, CUDA tensors launch the kernel (counted in ``LAUNCHES``, one
-per call).  Anything else raises: a CUDA call never falls back.
+per call).  Anything else raises (``_build.dispatch``).  Both check the
+shapes: a group width no multiple of 8, or a head dim no multiple of 4, raises.
 """
 from __future__ import annotations
 
@@ -43,25 +42,23 @@ import ctypes
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels import _build
 
-__all__ = ["gate_norm", "gate_norm_reference", "LAUNCHES",
-           "reset_launch_counts"]
+__all__ = ["gate_norm", "gate_norm_reference", "LAUNCHES"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _WARPS = 4                   # csrc kWarps: tokens a block, one a warp
 _MAX_SMEM = 232448           # csrc kMaxSmem: a block's shared memory
 
 # launches of the CUDA kernel (not of the plain version)
-LAUNCHES = {"gate_norm": 0}
+LAUNCHES = spans.counter("gate_norm")
 
 # (name, source under csrc/, nvcc flags) for kernels._build
 LIBRARY = ("gate_norm", "gate_norm.cu", _build.FMA_FLAGS)
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+# the C entry point's argument types, the stream's last
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 9 \
+    + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def _check(y, x, d, z, w, groups: int) -> None:
@@ -89,9 +86,10 @@ def _check(y, x, d, z, w, groups: int) -> None:
 
 def gate_norm_reference(y, x, d, z, w, groups: int, eps: float) -> torch.Tensor:
     """Plain PyTorch version: the mixer's own plain path
-    (``models.ssm.gated_norm_skip_reference``)."""
+    (``models.ssm.gated_norm_skip_reference``), on the kernel's shapes."""
     from repro_torch.models.ssm import gated_norm_skip_reference
 
+    _check(y, x, d, z, w, groups)
     return gated_norm_skip_reference(y, x, d, z, w, groups, eps)
 
 
@@ -101,13 +99,9 @@ def _aligned(t: torch.Tensor, strides) -> bool:
 
 
 def _launch_cuda(y, x, d, z, w, groups: int, eps: float) -> torch.Tensor:
-    """Launch the CUDA kernel on the operands' card (no synchronisation);
-    the shapes are ``_check``'s."""
-    ops = (y, x, d, z, w)
-    _build.refuse_dtensor("gate_norm", *ops)
-    _build.refuse_grad("gate_norm", *ops)
-    if any(t.device != y.device for t in ops):
-        raise ValueError("gate_norm operands must lie on one device")
+    """Launch the CUDA kernel on the operands' card (no synchronisation)."""
+    _build.refuse("gate_norm", y, x, d, z, w)
+    _check(y, x, d, z, w, groups)
     if y.dtype != torch.float32 or d.dtype != torch.float32:
         raise TypeError(f"the gated norm kernel takes y and d in float32; got "
                         f"{y.dtype}, {d.dtype}")
@@ -130,19 +124,11 @@ def _launch_cuda(y, x, d, z, w, groups: int, eps: float) -> torch.Tensor:
                          "z and w must start 16-byte aligned and their row "
                          "strides be multiples of 16 bytes")
     out = torch.empty((b, s, h * p), dtype=x.dtype, device=y.device)
-    lib = _build.load_library(*LIBRARY)
-    fn = lib.gate_norm_launch
-    if fn.argtypes is None:                  # first call: bind the signature
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 9 \
-            + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(y.device).cuda_stream
-    err = fn(y.data_ptr(), x.data_ptr(), d.data_ptr(), z.data_ptr(),
-             w.data_ptr(), out.data_ptr(), b * s, s, *y.stride()[:3],
-             *x.stride()[:2], *z.stride()[:2], h, p, groups, eps,
-             _DTYPES[x.dtype], stream)
-    _build.check_launch(lib, "gate_norm", err)
-    LAUNCHES["gate_norm"] += 1
+    _build.launch(_build.load_library(*LIBRARY), "gate_norm", "gate_norm_launch",
+                  _ARGTYPES, y.device, y.data_ptr(), x.data_ptr(), d.data_ptr(),
+                  z.data_ptr(), w.data_ptr(), out.data_ptr(), b * s, s,
+                  *y.stride()[:3], *x.stride()[:2], *z.stride()[:2], h, p,
+                  groups, eps, _DTYPES[x.dtype])
     return out
 
 
@@ -151,13 +137,7 @@ def gate_norm(y, x, d, z, w, *, groups: int, eps: float) -> torch.Tensor:
     plain version; CUDA tensors launch the hand-written kernel (counted in
     ``LAUNCHES``) and return without synchronising.  Mixed or other devices
     raise."""
-    ops = (y, x, d, z, w)
-    if not all(isinstance(t, torch.Tensor) for t in ops):
-        raise TypeError("gate_norm takes torch tensors")
-    _check(y, x, d, z, w, groups)
-    kinds = {t.device.type for t in ops}
-    if kinds == {"cpu"}:
-        return gate_norm_reference(y, x, d, z, w, groups, eps)
-    if kinds == {"cuda"}:
-        return _launch_cuda(y, x, d, z, w, groups, eps)
-    raise ValueError(f"gate_norm operands on unsupported devices {kinds}")
+    return _build.dispatch(
+        "gate_norm", (y, x, d, z, w),
+        lambda: gate_norm_reference(y, x, d, z, w, groups, eps),
+        lambda: _launch_cuda(y, x, d, z, w, groups, eps))

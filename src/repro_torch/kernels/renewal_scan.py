@@ -50,7 +50,7 @@ away from the float64 oracle (ROADMAP.md, Queue 3).
 
 ``renewal_scan`` dispatches on where the tensors lie: CPU tensors take the
 plain version, CUDA tensors launch the kernel (and count the launch in
-``LAUNCHES``).  Anything else raises — a CUDA call never falls back.
+``LAUNCHES``).  Anything else raises (``_build.dispatch``).
 """
 from __future__ import annotations
 
@@ -59,6 +59,7 @@ import ctypes
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch._device import resolve_device
 from repro_torch.core import energy_model as em
 from repro_torch.core import planning
@@ -68,7 +69,7 @@ from repro_torch.kernels import _build
 
 __all__ = ["renewal_scan", "renewal_scan_reference", "pack_lane_params",
            "N_PARAMS", "PARAM_COLS", "STAT_FIELDS", "LAUNCHES",
-           "reset_launch_counts", "MAX_N", "MAX_F", "FAST_MAX_N",
+           "MAX_N", "MAX_F", "FAST_MAX_N",
            "FAST_MAX_F", "GROUP_N", "GROUP_LANES", "THROUGHPUT_MAX_N",
            "RUN_KERNEL", "lane_choices", "kernel_name"]
 
@@ -112,16 +113,13 @@ GROUP_LANES = 8
 THROUGHPUT_MAX_N = 4
 RUN_KERNEL = "renewal_scan_run_kernel"
 
-# launches of the CUDA kernel (not of the plain version), per kernel name
-LAUNCHES = {"renewal_scan": 0}
+# launches of the CUDA kernel (not of the plain version)
+LAUNCHES = spans.counter("renewal_scan")
 
 # (name, source under csrc/, nvcc flags) for kernels._build
 LIBRARY = ("renewal_scan", "renewal_scan.cu", _build.EXACT_FLAGS)
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+# the C entry point's argument types, the stream's last
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4
 
 
 def lane_choices(n: int) -> tuple:
@@ -400,10 +398,9 @@ def _launch_cuda(params, nodes, ladder, gaps, felled, compensated: bool,
     one lane per run, or a group) the kernel picks its lanes per run from
     the launch size, and ``lanes`` forces one, to compare them."""
     tensors = [params, nodes, ladder, gaps] + ([] if felled is None else [felled])
+    _build.refuse("renewal_scan", *tensors)
     dev = params.device
     for t in tensors:
-        if t.device != dev:
-            raise ValueError("renewal_scan operands must lie on one device")
         if t.dtype != torch.float32:
             raise TypeError(f"renewal_scan takes float32 operands; got {t.dtype}")
         if not t.is_contiguous():
@@ -427,25 +424,21 @@ def _launch_cuda(params, nodes, ladder, gaps, felled, compensated: bool,
                          f"{lane_choices(n)}; got {lanes}")
     if lib is None:
         lib = _build.load_library(*LIBRARY)
-    fn = lib.renewal_scan_launch if lanes is None else lib.renewal_scan_launch_lanes
-    if fn.argtypes is None:                  # first call: bind the signature
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
-            + [ctypes.c_void_p] * 4 + ([] if lanes is None else [ctypes.c_int])
-        fn.restype = ctypes.c_int
     valid = torch.empty((n_lanes, n_epochs, n_runs), dtype=torch.int32,
                         device=dev)
     fstats = torch.empty((_N_FSTATS, n_lanes, n_runs), dtype=torch.float32,
                          device=dev)
     istats = torch.empty((len(STAT_FIELDS) - _N_FSTATS, n_lanes, n_runs),
                          dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(params.data_ptr(), nodes.data_ptr(), ladder.data_ptr(),
-             gaps.data_ptr(), 0 if felled is None else felled.data_ptr(),
-             n_lanes, n, n_levels, n_epochs, n_runs, int(bool(compensated)),
-             valid.data_ptr(), fstats.data_ptr(), istats.data_ptr(), stream,
-             *(() if lanes is None else (lanes,)))
-    _build.check_launch(lib, "renewal_scan", err)
-    LAUNCHES["renewal_scan"] += 1
+    entry, argtypes, after = (
+        ("renewal_scan_launch", _ARGTYPES, ()) if lanes is None
+        else ("renewal_scan_launch_lanes", _ARGTYPES + [ctypes.c_int], (lanes,)))
+    _build.launch(lib, "renewal_scan", entry, argtypes, dev,
+                  params.data_ptr(), nodes.data_ptr(), ladder.data_ptr(),
+                  gaps.data_ptr(), 0 if felled is None else felled.data_ptr(),
+                  n_lanes, n, n_levels, n_epochs, n_runs, int(bool(compensated)),
+                  valid.data_ptr(), fstats.data_ptr(), istats.data_ptr(),
+                  after=after)
     out = {"valid": valid}
     fi = ii = 0
     for name, dt in STAT_FIELDS:
@@ -468,13 +461,9 @@ def renewal_scan(params, nodes, ladder, gaps, felled=None, *,
     ``compensated=False`` is the naive-summation ledger (the clocks stay
     compensated).  Mixed or other devices raise.
     """
-    tensors = [params, nodes, ladder, gaps] + ([] if felled is None else [felled])
-    if not all(isinstance(t, torch.Tensor) for t in tensors):
-        raise TypeError("renewal_scan takes torch tensors")
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return renewal_scan_reference(params, nodes, ladder, gaps, felled,
-                                      compensated=compensated)
-    if kinds == {"cuda"}:
-        return _launch_cuda(params, nodes, ladder, gaps, felled, compensated)
-    raise ValueError(f"renewal_scan operands on unsupported devices {kinds}")
+    return _build.dispatch(
+        "renewal_scan",
+        [params, nodes, ladder, gaps] + ([] if felled is None else [felled]),
+        lambda: renewal_scan_reference(params, nodes, ladder, gaps, felled,
+                                       compensated=compensated),
+        lambda: _launch_cuda(params, nodes, ladder, gaps, felled, compensated))

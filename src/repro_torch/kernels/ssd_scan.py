@@ -56,7 +56,7 @@ Two implementations of one function live here:
 
 ``ssd_scan_bhsp`` dispatches on where the tensors lie: CPU tensors take the
 plain version, CUDA tensors launch the kernels (counted in ``LAUNCHES``,
-one per call).  Anything else raises — a CUDA call never falls back.
+one per call).  Anything else raises (``_build.dispatch``).
 """
 from __future__ import annotations
 
@@ -65,6 +65,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels import _build
 # the bf16 kernels split the float32 side of each product (exp(cum_end -
 # cum_j) dt_j x_j against B, the entering state against C, the masked
@@ -74,7 +75,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import _split_bf16  # noqa: F401
 
 __all__ = ["ssd_scan_bhsp", "ssd_scan_reference", "LAUNCHES",
-           "reset_launch_counts", "SUPPORTED_PN", "MAX_CHUNK",
+           "SUPPORTED_PN", "MAX_CHUNK",
            "WGMMA_MAX_CHUNK", "BF16_CHUNK_SCAN", "BF16_CHUNK_STATE",
            "KERNEL_NAMES", "WGMMA_RING", "chunk_scan_kernel",
            "chunk_state_kernel", "consumer_tiles"]
@@ -113,10 +114,12 @@ KERNEL_NAMES = {"ssd_wgmma_chunk_state": "chunk_state",
                 "ssd_kernel": "float32"}
 
 # launches of the CUDA kernel (not of the plain version)
-LAUNCHES = {"ssd_scan": 0}
+LAUNCHES = spans.counter("ssd_scan")
 
 # (name, source under csrc/, nvcc flags) for kernels._build
 LIBRARY = ("ssd_scan", "ssd_scan.cu", _build.FMA_FLAGS)
+# the C entry point's argument types, the stream's last
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def _split_trunc(x: torch.Tensor) -> tuple:
@@ -127,11 +130,6 @@ def _split_trunc(x: torch.Tensor) -> tuple:
     arithmetic in PyTorch; no path here calls it."""
     hi = (x.view(torch.int32) & -65536).view(torch.float32)
     return hi.to(torch.bfloat16), (x - hi).to(torch.bfloat16)
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def chunk_scan_kernel(p: int, n: int, chunk: int) -> str:
@@ -224,12 +222,9 @@ def _launch_cuda(x, dt, a, bmat, cmat, chunk: int,
     """Launch the CUDA kernel on the operands' card (no synchronisation).
     ``lib`` is this package's library unless a caller passes another build
     of the same C interface (another checkout's, to compare the two)."""
-    _build.refuse_dtensor("ssd_scan", x, dt, a, bmat, cmat)
-    _build.refuse_grad("ssd_scan", x, dt, a, bmat, cmat)
-    _check(x, dt, a, bmat, cmat, chunk)
     ops = (x, dt, a, bmat, cmat)
-    if any(t.device != x.device for t in ops):
-        raise ValueError("ssd_scan operands must lie on one device")
+    _build.refuse("ssd_scan", *ops)
+    _check(*ops, chunk)
     if x.dtype not in _DTYPES or bmat.dtype != x.dtype or cmat.dtype != x.dtype:
         raise TypeError(f"the SSD kernel takes x, B, C in float32 or bfloat16 "
                         f"alike; got {x.dtype}, {bmat.dtype}, {cmat.dtype}")
@@ -257,11 +252,6 @@ def _launch_cuda(x, dt, a, bmat, cmat, chunk: int,
         fused = chunk_state_kernel(p, n, chunk) == "ssd_wgmma_chunk_state"
     else:
         fused = bf16 and _fused_state(lib, p, n, chunk)
-    fn = lib.ssd_scan_launch
-    if fn.argtypes is None:                  # first call: bind the signature
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
     y = torch.empty((b, h, s, p), dtype=torch.float32, device=x.device)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     # bf16 scratches: cum per step; the chunk state's, either the fused
@@ -278,12 +268,9 @@ def _launch_cuda(x, dt, a, bmat, cmat, chunk: int,
                    torch.empty((b, h, nc, 2, p, n), dtype=torch.bfloat16,
                                device=x.device)]
     ptrs = [t.data_ptr() for t in scratch] or [None] * 3
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
-             cmat.data_ptr(), y.data_ptr(), state.data_ptr(), *ptrs,
-             b, h, g, s, p, n, chunk, _DTYPES[x.dtype], stream)
-    _build.check_launch(lib, "ssd_scan", err)
-    LAUNCHES["ssd_scan"] += 1
+    _build.launch(lib, "ssd_scan", "ssd_scan_launch", _ARGTYPES, x.device,
+                  *(t.data_ptr() for t in ops + (y, state)), *ptrs,
+                  b, h, g, s, p, n, chunk, _DTYPES[x.dtype])
     return y, state
 
 
@@ -292,12 +279,7 @@ def ssd_scan_bhsp(x, dt, a, bmat, cmat, *, chunk: int = 256):
     CPU tensors run the plain version; CUDA tensors launch the
     hand-written kernel (counted in ``LAUNCHES``) and return without
     synchronising.  Mixed or other devices raise."""
-    ops = (x, dt, a, bmat, cmat)
-    if not all(isinstance(t, torch.Tensor) for t in ops):
-        raise TypeError("ssd_scan_bhsp takes torch tensors")
-    kinds = {t.device.type for t in ops}
-    if kinds == {"cpu"}:
-        return ssd_scan_reference(x, dt, a, bmat, cmat, chunk=chunk)
-    if kinds == {"cuda"}:
-        return _launch_cuda(x, dt, a, bmat, cmat, chunk)
-    raise ValueError(f"ssd_scan operands on unsupported devices {kinds}")
+    return _build.dispatch(
+        "ssd_scan_bhsp", (x, dt, a, bmat, cmat),
+        lambda: ssd_scan_reference(x, dt, a, bmat, cmat, chunk=chunk),
+        lambda: _launch_cuda(x, dt, a, bmat, cmat, chunk))

@@ -70,13 +70,12 @@ __all__ = ["moe_spec", "moe_ffn", "moe_ffn_flat", "moe_ffn_dense", "ROWS",
            "reset_row_counts"]
 
 # pairs routed, expert rows computed and calls of the packed row path since
-# the last reset
-ROWS = {"routed": 0, "computed": 0, "ragged": 0}
+# the last reset, read as moe.routed, moe.computed and moe.ragged
+ROWS = spans.counter("moe", "routed", "computed", "ragged")
 
 
 def reset_row_counts() -> None:
-    for name in ROWS:
-        ROWS[name] = 0
+    spans.reset_counts("moe")
 
 
 def _count_rows(routed: int, computed: int) -> None:
@@ -208,14 +207,10 @@ def _combine(y: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor
     its gate, summed over the K picks: (B, S, D)."""
     b, ec, d = y.shape
     s, k = slot.shape[1:]
-    rows = torch.arange(b, device=y.device)[:, None].expand(b, s)
     yf = torch.cat([y, y.new_zeros((b, 1, d))], dim=1).reshape(-1, d)
-    flat_slot = slot + rows[..., None] * (ec + 1)               # rows of yf
-    out = torch.zeros((b, s, d), dtype=y.dtype, device=y.device)
-    for j in range(k):
-        picked = yf.index_select(0, flat_slot[:, :, j].reshape(-1))
-        out = out + gates[:, :, j, None].to(y.dtype) * picked.reshape(b, s, d)
-    return out
+    first = torch.arange(b, device=y.device)[:, None, None] * (ec + 1)
+    return _gather_picks(yf, (slot + first).reshape(b * s, k),
+                         gates.reshape(b * s, k)).reshape(b, s, d)
 
 
 @spans.spanned("moe")

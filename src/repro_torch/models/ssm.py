@@ -4,10 +4,10 @@ counterpart of ``repro.models.ssm``.
 Per-head scalar decay ``a_t = exp(-exp(A_log) * dt_t)``, grouped B/C, a
 short causal depthwise conv over the (x, B, C) stream, gated RMSNorm (over
 ``SSMConfig.n_groups`` groups of channels) and the out projection.
-``ssd_reference`` is the chunked oracle in model layout;
-``ssm_mixer(use_kernel=True)`` goes through ``kernels.ops.ssd_scan`` and
-then ``kernels.ops.gated_norm_skip`` (the CUDA kernels on the card, their
-plain versions on the CPU).
+``ssd_reference`` is the chunked oracle in model layout; with
+``cfg.use_flash_kernel`` ``ssm_mixer`` goes through ``kernels.ops.ssd_scan``
+and then ``kernels.ops.gated_norm_skip`` (the CUDA kernels on the card,
+their plain versions on the CPU).
 ``ssm_decode_step`` is the one-token recurrent form.  ``jax.nn.softplus``
 is ``logaddexp(x, 0)``, which ``F.softplus`` (threshold 20) is not.
 """
@@ -153,8 +153,7 @@ def gated_norm_skip_reference(y: torch.Tensor, x: torch.Tensor,
 
 
 @spans.spanned("ssm")
-def ssm_mixer(p: dict, u: torch.Tensor, cfg: ModelConfig, *,
-              use_kernel: bool = False) -> torch.Tensor:
+def ssm_mixer(p: dict, u: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Full Mamba2 mixer: u (B, S, D) -> (B, S, D)."""
     s_cfg = cfg.ssm
     z, xbc, dt, d_inner, n_heads = _split_proj(p, u, cfg.d_model, s_cfg)
@@ -168,7 +167,7 @@ def ssm_mixer(p: dict, u: torch.Tensor, cfg: ModelConfig, *,
     dt = _softplus(dt.float() + p["dt_bias"])                # (b,s,h)
     A = -torch.exp(p["A_log"])
     with spans.span("ssm.scan"):
-        if use_kernel:
+        if cfg.use_flash_kernel:
             from repro_torch.kernels import ops as kops
             y, _ = kops.ssd_scan(x, dt, A, B, C, chunk=s_cfg.chunk_size)
         else:
@@ -180,7 +179,8 @@ def ssm_mixer(p: dict, u: torch.Tensor, cfg: ModelConfig, *,
                                ((0, 2), (0, 2), (None, 0), (0, bc), (0, bc)),
                                ((0, 2), (0, 1)), heads_from=2)
     with spans.span("ssm.gate_norm"):
-        norm = kops.gated_norm_skip if use_kernel else gated_norm_skip_reference
+        norm = kops.gated_norm_skip if cfg.use_flash_kernel \
+            else gated_norm_skip_reference
         y = norm(y, x, p["D"], z, p["norm_w"], s_cfg.n_groups, cfg.norm_eps)
     return layers.dense(y, p["out_proj"])
 

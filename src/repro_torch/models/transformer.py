@@ -47,15 +47,11 @@ from repro_torch.models.api import ModelConfig
 from repro_torch.parallel.constraints import constrain
 
 __all__ = ["Model", "build_model", "model_spec", "abstract_params",
-           "params_from_reference", "SHARED", "reset_shared_counts"]
+           "params_from_reference", "SHARED"]
 
 # calls of a published Zamba2 shared block (forward and decode), counted on
 # the host; ``spans.counts()`` reads it as ``shared.calls``
-SHARED = {"calls": 0}
-
-
-def reset_shared_counts() -> None:
-    SHARED["calls"] = 0
+SHARED = spans.counter("shared", "calls")
 
 
 class Model(NamedTuple):
@@ -291,7 +287,7 @@ def _ssm_block(p: dict, x, cfg: ModelConfig, extra=None):
     block's projected output) ``x + mixer(norm(x + extra))``."""
     u = x if extra is None else x + extra
     return x + ssm.ssm_mixer(p["ssm"], layers.rms_norm(u, p["ln"], cfg.norm_eps),
-                             cfg, use_kernel=cfg.use_flash_kernel)
+                             cfg)
 
 
 def _ssm_block_decode(p: dict, x, state: ssm.SSMState, idx: tuple,

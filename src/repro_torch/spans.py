@@ -20,15 +20,17 @@ The names are fixed (``NAMES``); a dotted name lies inside the span its
 prefix names (``ssm.scan`` inside ``ssm``), and ``embed``, ``attn``,
 ``moe``, ``ssm``, ``shared`` and ``head`` lie inside ``prefill`` when the
 prefill step runs them.  ``shared`` is one call of a published Zamba2
-shared block (``models/transformer.py``): its ``attn`` (and ``attn.flash``)
-and ``shared.mlp`` lie inside it, and the concat, both norms and the call's
-projection are its own time.  What falls in no child of a span is that
-span's own time: the block pre-norms and residual adds are ``prefill``'s.
+shared block: its ``attn`` (and ``attn.flash``) and ``shared.mlp`` lie
+inside it, and the concat, both norms and the call's projection are its
+own time.  What falls in no child of a span is that span's own time: the
+block pre-norms and residual adds are ``prefill``'s.
 
-``counts()`` is every counter of the port's modules already imported, in
-one flat dict: the kernels' ``LAUNCHES`` under their own keys, the MoE
-FFN's ``ROWS`` as ``moe.routed``, ``moe.computed`` and ``moe.ragged``, and
-the shared blocks' ``SHARED`` as ``shared.calls``.
+The port's counters live here too.  A module declares each where it
+counts, at import: ``counter("flash_attention")`` is one count under its
+own name (each kernel's launches), ``counter("moe", "routed", ...)`` one
+count per field, read as ``moe.routed``.  ``counts()`` is every counter
+declared so far, in one flat dict, and ``reset_counts()`` zeroes them.
+This module imports none of the modules that count.
 """
 from __future__ import annotations
 
@@ -39,7 +41,8 @@ from typing import Callable, Dict, Iterator, Optional
 
 import torch
 
-__all__ = ["NAMES", "span", "spanned", "off", "is_recording", "counts"]
+__all__ = ["NAMES", "span", "spanned", "off", "is_recording", "counter",
+           "counts", "reset_counts"]
 
 NAMES = ("prefill", "embed", "head",
          "attn", "attn.flash",
@@ -50,14 +53,8 @@ _KNOWN = frozenset(NAMES)
 _OFF = contextlib.nullcontext()
 _off = False
 _outer: Optional[bool] = None    # the outermost open span's decision
-
-# the modules whose counters ``counts`` reads, and the prefix of each key
-_COUNTERS = (("repro_torch.kernels.flash_attention", "LAUNCHES", ""),
-             ("repro_torch.kernels.ssd_scan", "LAUNCHES", ""),
-             ("repro_torch.kernels.gate_norm", "LAUNCHES", ""),
-             ("repro_torch.kernels.renewal_scan", "LAUNCHES", ""),
-             ("repro_torch.models.moe", "ROWS", "moe."),
-             ("repro_torch.models.transformer", "SHARED", "shared."))
+# every counter declared, by name: its fields and their counts
+_DECLARED: Dict[str, Dict[str, int]] = {}
 
 
 def _profile_collects_cpu() -> bool:
@@ -141,13 +138,25 @@ def off() -> Iterator[None]:
         _off = before
 
 
+def counter(name: str, *fields: str) -> Dict[str, int]:
+    """The counter ``name``, declared on its first call: a dict of its
+    ``fields`` (``name`` alone if none) at zero, which the declaring module
+    adds to in place.  A later call returns the same dict."""
+    if name not in _DECLARED:
+        _DECLARED[name] = dict.fromkeys(fields or (name,), 0)
+    return _DECLARED[name]
+
+
 def counts() -> Dict[str, int]:
-    """Every counter of the port's modules already imported (none is
-    imported here), as one flat dict of ints."""
-    out: Dict[str, int] = {}
-    for module, attr, prefix in _COUNTERS:
-        found = sys.modules.get(module)
-        if found is not None:
-            out.update({prefix + k: int(v)
-                        for k, v in getattr(found, attr).items()})
-    return out
+    """Every counter declared so far, as one flat dict of ints: a field
+    under ``name.field``, a counter without fields under ``name``."""
+    return {(key if key == name else f"{name}.{key}"): int(value)
+            for name, fields in _DECLARED.items()
+            for key, value in fields.items()}
+
+
+def reset_counts(*names: str) -> None:
+    """Zero the counters ``names``, every declared one by default."""
+    for name in names or tuple(_DECLARED):
+        fields = _DECLARED[name]
+        fields.update(dict.fromkeys(fields, 0))

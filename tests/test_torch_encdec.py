@@ -30,6 +30,7 @@ import torch
 from torch_port_ref import load_reference, requires_cuda, skip_without_cuda
 
 from repro_torch import configs as tconfigs
+from repro_torch import spans
 from repro_torch._tree import items
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import attention as tattn
@@ -383,7 +384,7 @@ def test_kernel_path_matches_plain_path_on_card():
     batch = {"frames": torch.from_numpy(rng.standard_normal(
                  (2, cfg.encdec.enc_len, cfg.d_model)).astype(np.float32)).cuda(),
              "tokens": torch.from_numpy(rng.integers(0, 256, (2, 48))).cuda()}
-    fa.reset_launch_counts()
+    spans.reset_counts()
     with torch.inference_mode():
         got, _ = kern.forward(params, batch)
         assert fa.LAUNCHES["flash_attention"] == cfg.num_layers

@@ -15,6 +15,7 @@ at flash's ``PLAIN_TOL``: in bfloat16 one unit in the last place (atol
 1e-4 / rtol 1e-2), since both round the same float32 values once and only
 the sum of squares is taken in another order; in float32 2e-5.
 """
+import dataclasses
 import socket
 
 import numpy as np
@@ -25,6 +26,7 @@ import torch.distributed as dist
 from torch_port_ref import load_reference, requires_cuda, skip_without_cuda
 
 from repro_torch import configs as tconfigs
+from repro_torch import spans
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gate_norm as gn
 from repro_torch.kernels import ops
@@ -70,7 +72,7 @@ def _inline_chain(y, x, d, z, w, groups):
 def test_cpu_is_the_inline_chain_bit_for_bit(shape, dtype):
     b, s, h, p, groups = shape
     y, x, d, z, w = _operands(b, s, h, p, groups, dtype)
-    gn.reset_launch_counts()
+    spans.reset_counts()
     got = ops.gated_norm_skip(y, x, d, z, w, groups, EPS)
     assert got.dtype == dtype and got.shape == (b, s, h * p)
     assert torch.equal(got, _inline_chain(y, x, d, z, w, groups))
@@ -148,7 +150,7 @@ def R():
 
 @pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b"])
 def test_mixer_kernel_path_matches_reference_mixer(R, arch):
-    """``ssm_mixer(use_kernel=True)`` on the CPU (the plain SSD scan and the
+    """``ssm_mixer`` with ``use_flash_kernel`` on the CPU (the plain SSD scan and the
     plain gated norm) against the JAX reference's mixer, on the same
     weights and input: the smoke configs' one-group mixer."""
     jnp = R.jax.numpy
@@ -161,9 +163,10 @@ def test_mixer_kernel_path_matches_reference_mixer(R, arch):
               + (1.0 if scale == "ones" else 0.0)
               for k, (shape, _, scale) in spec.items()}
     u = rng.standard_normal((2, 32, tcfg.d_model)).astype(np.float32)
-    gn.reset_launch_counts()
+    spans.reset_counts()
     got = ssm.ssm_mixer({k: torch.from_numpy(v) for k, v in params.items()},
-                        torch.from_numpy(u), tcfg, use_kernel=True)
+                        torch.from_numpy(u),
+                        dataclasses.replace(tcfg, use_flash_kernel=True))
     want = R.models.ssm.ssm_mixer({k: jnp.asarray(v) for k, v in params.items()},
                                   jnp.asarray(u), jcfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
@@ -196,7 +199,7 @@ def test_kernel_matches_plain_on_card(case):
     dtype = getattr(torch, dtype)
     y, x, d, z, w = _operands(b, s, h, p, groups, dtype, "cuda")
     assert not y.is_contiguous() and not x.is_contiguous()
-    gn.reset_launch_counts()
+    spans.reset_counts()
     got = ops.gated_norm_skip(y, x, d, z, w, groups, EPS)
     torch.cuda.synchronize()
     assert gn.LAUNCHES["gate_norm"] == 1
@@ -246,10 +249,12 @@ def test_grouped_mixer_kernel_path_matches_plain_path_on_card():
                   * (0.1 if isinstance(scale, str) else scale)).to("cuda", dt)
               for k, (shape, dt, scale) in spec.items()}
     u = torch.randn((2, 256, cfg.d_model), generator=gen).to("cuda")
-    gn.reset_launch_counts()
+    spans.reset_counts()
     with torch.no_grad():
-        got = ssm.ssm_mixer(params, u, cfg, use_kernel=True)
-        want = ssm.ssm_mixer(params, u, cfg, use_kernel=False)
+        got = ssm.ssm_mixer(params, u,
+                            dataclasses.replace(cfg, use_flash_kernel=True))
+        want = ssm.ssm_mixer(params, u,
+                             dataclasses.replace(cfg, use_flash_kernel=False))
     torch.cuda.synchronize()
     assert gn.LAUNCHES["gate_norm"] == 1
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),

@@ -15,6 +15,7 @@ import torch
 
 from torch_port_ref import load_reference, requires_cuda, skip_without_cuda
 
+from repro_torch import spans
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
@@ -77,7 +78,7 @@ def test_flash_oracle_matches_reference(R, case, via):
     want = R.flash_attention_ref(*(jnp.asarray(x).astype(dtype) for x in arrs),
                                  causal=causal, sliding_window=win)
     args = [torch.from_numpy(x).to(getattr(torch, dtype)) for x in arrs]
-    fa.reset_launch_counts()
+    spans.reset_counts()
     if via == "ref":
         got = kref.flash_attention_ref(*args, causal=causal,
                                        sliding_window=win)
@@ -101,7 +102,7 @@ def test_ssd_oracle_matches_reference(R, case, via):
     y_j, st_j = R.ssd_scan_ref(*(jnp.asarray(x) for x in arrs),
                                chunk=min(chunk, s))
     args = [torch.from_numpy(x) for x in arrs]
-    ssd.reset_launch_counts()
+    spans.reset_counts()
     if via == "ref":
         y, st = kref.ssd_scan_ref(*args, chunk=min(chunk, s))
     else:
@@ -136,8 +137,7 @@ def test_force_reference_launches_nothing_on_card():
     q, k, v = (torch.from_numpy(x).cuda()
                for x in _flash_inputs(1, 64, 64, 2, 1, 64))
     arrs = [torch.from_numpy(x).cuda() for x in _ssd_inputs(1, 64, 2, 1, 64, 64)]
-    fa.reset_launch_counts()
-    ssd.reset_launch_counts()
+    spans.reset_counts()
     with torch.no_grad():
         want = ops.flash_attention(q, k, v, force_reference=True)
         y_w, st_w = ops.ssd_scan(*arrs, chunk=32, force_reference=True)

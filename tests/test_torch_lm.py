@@ -20,6 +20,7 @@ import torch
 from torch_port_ref import load_reference, requires_cuda, skip_without_cuda
 
 from repro_torch import configs as tconfigs
+from repro_torch import spans
 from repro_torch.launch.steps import cross_entropy, make_prefill_step
 from repro_torch.models import build_model, layers, mlp, model_spec
 from repro_torch.models import params_from_reference
@@ -332,8 +333,7 @@ def test_kernel_path_matches_plain_path_on_card(arch):
     model = build_model(cfg, device="cuda")
     params = model.init(0)
     toks = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 48))).cuda()
-    fa.reset_launch_counts()
-    ssd.reset_launch_counts()
+    spans.reset_counts()
     kern = build_model(dataclasses.replace(cfg, use_flash_kernel=True), "cuda")
     got = make_prefill_step(kern)(params, {"tokens": toks})
     want = make_prefill_step(model)(params, {"tokens": toks})

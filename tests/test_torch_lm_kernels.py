@@ -25,8 +25,11 @@ import torch
 
 from torch_port_ref import load_reference, requires_cuda, skip_without_cuda
 
+from repro_torch import spans
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import gate_norm as gn
 from repro_torch.kernels import ops
+from repro_torch.kernels import renewal_scan as rs
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.models.attention import gqa_scores_reference
 from repro_torch.models.ssm import ssd_reference
@@ -208,8 +211,7 @@ def test_ssd_rejects_a_partial_chunk():
 
 
 def test_cpu_calls_launch_no_kernel():
-    fa.reset_launch_counts()
-    ssd.reset_launch_counts()
+    spans.reset_counts()
     q, k, v = (torch.from_numpy(x) for x in _flash_inputs(1, 64, 2, 1, 16))
     ops.flash_attention(q, k, v)
     ops.ssd_scan(*(torch.from_numpy(x) for x in _ssd_inputs(1, 32, 2, 1, 16, 16)),
@@ -218,11 +220,60 @@ def test_cpu_calls_launch_no_kernel():
     assert ssd.LAUNCHES == {"ssd_scan": 0}
 
 
-def test_mixed_devices_raise():
-    q, k, v = (torch.from_numpy(x) for x in _flash_inputs(1, 64, 2, 1, 16))
+def _kernel_layout_operands(entry):
+    """Small CPU operands of a kernel-layout entry point, its keyword
+    arguments and the rest of its ``_launch_cuda`` arguments."""
+    if entry == "flash_attention_bhsd":
+        q, k, v = (torch.from_numpy(x) for x in _flash_inputs(1, 64, 2, 1, 16))
+        ops = (q.reshape(2, 64, 16), k.reshape(1, 64, 16), v.reshape(1, 64, 16))
+        return fa, ops, dict(group=2), (2, True, None)
+    if entry == "ssd_scan_bhsp":
+        x, dt, a, bm, cm = (torch.from_numpy(t) for t in
+                            _ssd_inputs(1, 32, 2, 1, 16, 16))
+        ops = (x.transpose(1, 2).contiguous(),
+               dt.transpose(1, 2)[:, :, None].contiguous(), a,
+               bm.transpose(1, 2).contiguous(), cm.transpose(1, 2).contiguous())
+        return ssd, ops, dict(chunk=16), (16,)
+    if entry == "gate_norm":
+        gen = torch.Generator().manual_seed(0)
+        ops = (torch.randn(1, 4, 8, 16, generator=gen),
+               torch.randn(1, 4, 8, 16, generator=gen),
+               torch.randn(8, generator=gen), torch.randn(1, 4, 128, generator=gen),
+               torch.randn(128, generator=gen))
+        return gn, ops, dict(groups=1, eps=1e-5), (1, 1e-5)
+    ops = (torch.zeros(1, rs.N_PARAMS), torch.zeros(1, 3, 2),
+           torch.zeros(1, 5, 4), torch.ones(4, 8))
+    return rs, ops, {}, (None, True)
+
+
+KERNEL_LAYOUT = ["flash_attention_bhsd", "ssd_scan_bhsp", "gate_norm",
+                 "renewal_scan"]
+
+
+@pytest.mark.parametrize("entry", KERNEL_LAYOUT)
+def test_mixed_devices_raise(entry):
+    """Every kernel-layout entry point holds one device rule: an operand on
+    another device than the CPU's or CUDA's raises, and so does an operand
+    that is no tensor."""
+    mod, (*rest, last), kwargs, _ = _kernel_layout_operands(entry)
+    fn = getattr(mod, entry)
     with pytest.raises(ValueError, match="unsupported devices"):
-        fa.flash_attention_bhsd(q.reshape(2, 64, 16), k.reshape(1, 64, 16),
-                                v.reshape(1, 64, 16).to("meta"), group=2)
+        fn(*rest, last.to("meta"), **kwargs)
+    with pytest.raises(TypeError, match="torch tensors"):
+        fn(*rest, last.numpy(), **kwargs)
+    fn(*rest, last, **kwargs)                    # the CPU: the plain version
+
+
+@pytest.mark.parametrize("entry", KERNEL_LAYOUT)
+def test_every_launch_refuses_before_any_card(entry):
+    """Each ``_launch_cuda`` makes the same refusals first, before it
+    touches a card: an operand that requires grad under grad mode, and
+    operands on two devices."""
+    mod, (*rest, last), _, args = _kernel_layout_operands(entry)
+    with pytest.raises(RuntimeError, match="no backward"):
+        mod._launch_cuda(*rest, last.clone().requires_grad_(True), *args)
+    with pytest.raises(ValueError, match="one device"):
+        mod._launch_cuda(*rest, last.to("meta"), *args)
 
 
 def test_split_bf16_is_exact_to_float32_class():
@@ -372,7 +423,7 @@ def test_flash_kernel_matches_plain_on_card(case):
     skip_without_cuda()
     b, s, h, kh, d, win, dtype = case
     q, k, v = _kernel_layout_flash(b, s, h, kh, d, dtype)
-    fa.reset_launch_counts()
+    spans.reset_counts()
     got = fa.flash_attention_bhsd(q, k, v, group=h // kh, window=win)
     torch.cuda.synchronize()
     assert fa.LAUNCHES["flash_attention"] == 1
@@ -394,7 +445,7 @@ def test_flash_kernel_suffix_queries_match_plain_on_card(window, d):
     to = lambda shape, scale=1.0: torch.from_numpy(
         rng.standard_normal(shape, np.float32) * scale).to("cuda", torch.bfloat16)
     q, k, v = to((4, 200, d), d ** -0.5), to((2, 1000, d)), to((2, 1000, d))
-    fa.reset_launch_counts()
+    spans.reset_counts()
     got = fa.flash_attention_bhsd(q, k, v, group=2, window=window)
     torch.cuda.synchronize()
     assert fa.LAUNCHES["flash_attention"] == 1
@@ -416,7 +467,7 @@ def test_ssd_kernel_matches_plain_on_card(case, dtype):
     dt_ = lay(dt_)[:, :, None, :].contiguous()
     a = torch.from_numpy(a).cuda()
     chunk = min(chunk, s)
-    ssd.reset_launch_counts()
+    spans.reset_counts()
     y, st = ssd.ssd_scan_bhsp(x, dt_, a, bm, cm, chunk=chunk)
     torch.cuda.synchronize()
     assert ssd.LAUNCHES["ssd_scan"] == 1

@@ -34,6 +34,7 @@ from torch_port_ref import (assert_params_close, first_step_grads,
                             load_reference, requires_cuda, skip_without_cuda)
 
 from repro_torch import configs as tconfigs
+from repro_torch import spans
 from repro_torch._tree import items, leaves
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import build_model, model_spec, moe, params_from_reference
@@ -430,7 +431,7 @@ def test_kernel_path_matches_plain_path_on_card(arch):
     kern = build_model(dataclasses.replace(cfg, use_flash_kernel=True), "cuda")
     params = plain.init(0)
     toks = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 48))).cuda()
-    fa.reset_launch_counts()
+    spans.reset_counts()
     with torch.inference_mode():
         got, aux_k = kern.forward(params, {"tokens": toks})
         assert fa.LAUNCHES["flash_attention"] == cfg.num_layers

@@ -28,6 +28,7 @@ import torch
 from torch_port_ref import (load_reference, requires_cuda, skip_without_cuda,
                             to_np)
 
+from repro_torch import spans
 from repro_torch.core import failures as F
 from repro_torch.core import optimize as O
 from repro_torch.core import prng
@@ -305,7 +306,7 @@ def test_optimize_policy_on_card():
     kw = dict(table=table, work_s=WORK_S, mtbf_s=MTBF_S, n_runs=256,
               max_failures=32, device="cuda")
     scan = O.optimize_policy(cfg, prng.PRNGKey(2), **kw)
-    rs.reset_launch_counts()
+    spans.reset_counts()
     kern = O.optimize_policy(cfg, prng.PRNGKey(2), engine="kernel", **kw)
     assert rs.LAUNCHES["renewal_scan"] == 1
     assert _rel(kern.grid.mean_energy_j, scan.grid.mean_energy_j) <= 1e-4

@@ -1,6 +1,7 @@
-"""PyTorch port: the spans inside the prefill path, the MoE row counter and
-the shared-block call counter (``repro_torch.spans``, ``models/moe.py``'s
-``ROWS``, ``models/transformer.py``'s ``SHARED``), on the CPU.
+"""PyTorch port: the spans inside the prefill path and the port's counters
+(``repro_torch.spans``; ``models/moe.py``'s ``ROWS``,
+``models/transformer.py``'s ``SHARED`` and the kernels' ``LAUNCHES`` are
+counters it declares), on the CPU.
 
 A prefill of a tiny MoE model (row and flat dispatch), of a tiny Mamba2
 model and of the published Zamba2 layout at tiny widths, under
@@ -27,6 +28,7 @@ from torch_port_ref import requires_cuda, skip_without_cuda
 from repro_torch import configs as tconfigs
 from repro_torch import spans
 from repro_torch.configs import zamba2_7b
+from repro_torch.kernels import flash_attention, gate_norm, renewal_scan, ssd_scan
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import build_model, moe, transformer
 from repro_torch.models.api import MoEConfig
@@ -292,20 +294,58 @@ def test_computed_rows_are_the_experts_input_rows(ffn, monkeypatch):
 
 
 def test_counts_carries_the_launch_counters():
-    from repro_torch.kernels import (flash_attention, gate_norm, renewal_scan,
-                                     ssd_scan)
+    """``counts()`` is exactly the counters the imported modules declare,
+    under their keys, and ``spans.py`` imports none of those modules."""
+    import ast
+    import pathlib
 
     counted = spans.counts()
+    declared = {}
     for mod in (flash_attention, ssd_scan, renewal_scan, gate_norm):
-        for key, value in mod.LAUNCHES.items():
-            assert counted[key] == value
-    assert set(counted) == (set(flash_attention.LAUNCHES)
-                            | set(ssd_scan.LAUNCHES)
-                            | set(renewal_scan.LAUNCHES)
-                            | set(gate_norm.LAUNCHES)
-                            | {"moe.routed", "moe.computed", "moe.ragged",
-                               "shared.calls"})
+        declared.update(mod.LAUNCHES)
+    declared.update({f"moe.{k}": v for k, v in moe.ROWS.items()})
+    declared.update({f"shared.{k}": v for k, v in transformer.SHARED.items()})
+    assert counted == declared
+    assert set(counted) == {"flash_attention", "ssd_scan", "renewal_scan",
+                            "gate_norm", "moe.routed", "moe.computed",
+                            "moe.ragged", "shared.calls"}
     assert all(isinstance(v, int) for v in counted.values())
+    source = pathlib.Path(spans.__file__).read_text()
+    imported = set()
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            imported |= {alias.name for alias in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            imported.add(node.module)
+    assert imported == {"__future__", "contextlib", "functools", "sys",
+                        "typing", "torch"}
+    assert "repro_torch" not in source and "sys.modules" not in source
+
+
+def test_counts_after_the_same_calls():
+    """After a reset, three MoE FFN calls and a prefill of the published
+    Zamba2 layout on the CPU, ``counts()`` reads what the counters read
+    when each module kept its own dict: the same keys, the same values."""
+    spans.reset_counts()
+    assert set(spans.counts().values()) == {0}
+    d = 16
+    cfg = MoEConfig(num_experts=4, top_k=2, d_ff_expert=32,
+                    capacity_factor=1.5)
+    p = _moe_params(d, cfg)
+    x = torch.randn((2, 8, d), generator=torch.Generator().manual_seed(4))
+    for ffn in (moe.moe_ffn, moe.moe_ffn_flat, moe.moe_ffn_dense):
+        ffn(p, x, cfg, "swiglu")
+    _, step, params, batch = _published()
+    step(params, batch)
+    want = {"flash_attention": 0, "ssd_scan": 0, "gate_norm": 0,
+            "renewal_scan": 0, "moe.routed": 96, "moe.computed": 144,
+            "moe.ragged": 1, "shared.calls": 4}
+    assert spans.counts() == want
+    moe.reset_row_counts()                      # the MoE counter alone
+    assert spans.counts() == {**want, "moe.routed": 0, "moe.computed": 0,
+                              "moe.ragged": 0}
+    spans.reset_counts()
+    assert set(spans.counts().values()) == {0}
 
 
 @requires_cuda
@@ -315,8 +355,6 @@ def test_kernel_path_counts_one_gate_norm_launch_a_layer(published):
     gated-norm kernel once a layer (the published layout's two groups too),
     and ``counts()`` reads it."""
     skip_without_cuda()
-    from repro_torch.kernels import gate_norm
-
     cfg = zamba2_7b.published_smoke_config() if published \
         else tconfigs.get_smoke_config("mamba2-370m")
     model = build_model(dataclasses.replace(cfg, use_flash_kernel=True), "cuda")
@@ -324,12 +362,12 @@ def test_kernel_path_counts_one_gate_norm_launch_a_layer(published):
     tokens = torch.randint(0, cfg.vocab_size, (B, S),
                            generator=torch.Generator().manual_seed(1))
     step = tsteps.make_prefill_step(model)
-    gate_norm.reset_launch_counts()
+    spans.reset_counts()
     step(params, {"tokens": tokens.cuda()})
     step(params, {"tokens": tokens.cuda()})
     torch.cuda.synchronize()
     assert spans.counts()["gate_norm"] == 2 * cfg.num_layers
-    gate_norm.reset_launch_counts()
+    spans.reset_counts()
     assert spans.counts()["gate_norm"] == 0
 
 
@@ -400,11 +438,11 @@ def test_shared_calls_counts_each_call(published):
             zamba2_7b.published_smoke_config().hybrid,
             layer_ids=zamba2_7b.PUBLISHED_LAYER_IDS))
     cfg, step, params, batch = _published(**overrides)
-    transformer.reset_shared_counts()
+    spans.reset_counts()
     step(params, batch)
     step(params, batch)
     calls = len(cfg.hybrid.layer_ids)
     assert calls == (13 if published else 4)
     assert spans.counts()["shared.calls"] == 2 * calls
-    transformer.reset_shared_counts()
+    spans.reset_counts()
     assert spans.counts()["shared.calls"] == 0

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch_port_ref import requires_cuda, skip_without_cuda
 
 from repro_torch import configs as tconfigs
+from repro_torch import spans
 from repro_torch.configs import zamba2_7b
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
@@ -262,7 +263,7 @@ def test_flash_kernel_at_224_matches_plain_on_card(s):
     q, k, v = (torch.randn(bh, s, d, generator=gen, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
     q = (q.float() * (d / 2) ** -0.5).to(torch.bfloat16)
-    fa.reset_launch_counts()
+    spans.reset_counts()
     got = fa.flash_attention_bhsd(q, k, v, group=1)
     torch.cuda.synchronize()
     assert fa.LAUNCHES["flash_attention"] == 1
