@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's four CUDA kernels from the sources in this checkout (one
+Builds the port's five CUDA kernels from the sources in this checkout (one
 nvcc each, all started together) and holds each against its plain PyTorch
 version on the card.  Then it drives the port's paths at the size users
 run them, each with the launch counts set to 0 just before it and read just
@@ -62,14 +62,18 @@ same operands:
   (``zamba2_7b.published_config()``, the model of the benchmark's zamba2
   cell): a bf16 prefill of 2 x 4096 tokens through ``make_prefill_step``
   with 13 ``flash_attention`` launches at (64, 4096, 224), 81
-  ``ssd_scan`` launches at 2 groups and 81 ``gate_norm`` launches, the
+  ``ssd_scan`` launches at 2 groups, 81 ``gate_norm`` and 81 ``causal_conv``
+  launches, the
   first flash and SSD launches held against their plain versions and timed
   alone with their bounds (``[published-prefill]``);
 * the Mamba2 mixer's gated-norm kernel at the two SSM cells' shapes
   (mamba2-2.7b: 16 x 4096 tokens, 80 heads of 64, one group; zamba2-7b:
   2 x 4096, 112 heads of 64, two groups), on operands laid out as the mixer
   holds them, against the plain chain, timed alone beside it and its byte
-  bound (``[gate-norm]``).
+  bound (``[gate-norm]``); the mixer's causal-conv kernel at the same two
+  cells' shapes (5,376 and 7,424 channels read through the in projection's
+  row stride), bit for bit against the plain chain, timed alone beside it,
+  ``F.conv1d(groups=C)`` + SiLU and its byte bound (``[causal-conv]``).
 * training, at deepseek-7b's published widths cut to 2 of its 30 layers
   (bf16, 8 x 4096 tokens per step in 4 microbatches, AdamW): a kernel
   launch under grad mode raises (``[train-grad-guard]``), and
@@ -2036,12 +2040,14 @@ def published_zamba2_phase(card_line: str, fa, ssd) -> dict:
     (``zamba2_7b.published_config()``: 81 Mamba2 layers at 2 groups, two
     shared blocks by turns at 13 layers, 32 heads of 224), bf16, 2 x 4096
     tokens through ``make_prefill_step``.  Requires one flash launch per
-    shared-block call and one SSD and one gated-norm launch per layer,
+    shared-block call and one SSD, one gated-norm and one causal-conv
+    launch per layer,
     holds the first flash and SSD launches
     against its plain version on the operands the path gave it, and times
     it alone with its bound.  Returns those numbers by kernel name."""
     from repro_torch import spans
     from repro_torch.configs import zamba2_7b
+    from repro_torch.kernels import causal_conv as cc
     from repro_torch.kernels import gate_norm as gn
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_prefill_step
@@ -2067,9 +2073,10 @@ def published_zamba2_phase(card_line: str, fa, ssd) -> dict:
         torch.cuda.synchronize()
     launches = {"flash_attention": fa.LAUNCHES["flash_attention"],
                 "ssd_scan": ssd.LAUNCHES["ssd_scan"],
-                "gate_norm": gn.LAUNCHES["gate_norm"]}
+                "gate_norm": gn.LAUNCHES["gate_norm"],
+                "causal_conv": cc.LAUNCHES["causal_conv"]}
     expect = {"flash_attention": n_calls, "ssd_scan": cfg.num_layers,
-              "gate_norm": cfg.num_layers}
+              "gate_norm": cfg.num_layers, "causal_conv": cfg.num_layers}
     if launches != expect:
         raise Failed(f"published prefill launched {launches}, expected {expect}")
     if (len(cap_fa), len(cap_ssd)) != (n_calls, cfg.num_layers):
@@ -2179,6 +2186,63 @@ def gate_norm_phase(card_line: str) -> None:
              bytes=n_bytes, bound_ms=f"{bound_ms:.5f}", bound_by="bytes",
              bound_share=f"{bound_ms / k_ms:.4f}", max_abs_err=f"{err:.3e}")
         del y, x, z, d, w, args
+        free_cuda()
+
+
+# the SSM cells' causal convs: (cell, batch, tokens, d_inner, channels, the
+# in projection's row); the benchmark's mamba2-2.7b.prefill-16x4096 and
+# zamba2-7b.prefill-2x4096
+CAUSAL_CONV_CASES = (("mamba2-2.7b", 16, 4096, 5120, 5376, 10576),
+                     ("zamba2-7b", 2, 4096, 7168, 7424, 14704))
+
+
+def causal_conv_phase(card_line: str) -> None:
+    """``[causal-conv]``: the mixer's causal-conv kernel at both SSM cells'
+    shapes, x the xBC column slice of an in projection's output as
+    ``ssm_mixer`` holds it, held bit for bit to its plain version, timed
+    alone beside the plain chain, ``F.conv1d(groups=C)`` + SiLU (the one-call
+    PyTorch equivalent) and its byte bound (x and the output bf16, once)."""
+    import torch.nn.functional as F
+
+    from repro_torch import spans
+    from repro_torch.kernels import causal_conv as cc
+    from repro_torch.kernels import ops
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    for label, b, s, d_in, c, row in CAUSAL_CONV_CASES:
+        gen = torch.Generator(device=dev).manual_seed(33)
+        rand = lambda *shape: torch.randn(shape, device=dev, generator=gen)
+        x = rand(b, s, row).to(bf16)[..., d_in:d_in + c]
+        w, bias = (0.5 * rand(4, c)).to(bf16), (0.1 * rand(c)).to(bf16)
+        spans.reset_counts()
+        got = ops.causal_conv(x, w, bias)
+        torch.cuda.synchronize()
+        if cc.LAUNCHES["causal_conv"] != 1:
+            raise Failed(f"causal-conv {label}: {cc.LAUNCHES} launches, expected 1")
+        want = cc.causal_conv_reference(x, w, bias)
+        n_diff = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+        if n_diff:
+            raise Failed(f"causal-conv {label}: {n_diff} outputs differ from "
+                         f"the plain chain's bits")
+        del got, want
+        free_cuda()
+        taps = w.t().unsqueeze(1).contiguous()
+        k_ms, host_ms = kernel_only_ms(lambda: ops.causal_conv(x, w, bias),
+                                       LM_KERNEL_REPS)
+        plain_ms = statistics.median(cuda_ms(
+            lambda: cc.causal_conv_reference(x, w, bias), reps=3, warmup=1))
+        conv1d_ms = statistics.median(cuda_ms(
+            lambda: F.silu(F.conv1d(x.transpose(1, 2), taps, bias, padding=3,
+                                    groups=c)[..., :s]), reps=3, warmup=1))
+        n_bytes = 2 * b * s * c * 2 + nbytes(w, bias)
+        bound_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+        line("causal-conv", cell=label, card=repr(card_line), batch=b, tokens=s,
+             channels=c, row=row, kernel_ms=f"{k_ms:.5f}",
+             wrapper_host_ms=f"{host_ms:.5f}", plain_ms_median=f"{plain_ms:.3f}",
+             conv1d_silu_ms_median=f"{conv1d_ms:.3f}", bytes=n_bytes,
+             bound_ms=f"{bound_ms:.5f}", bound_by="bytes",
+             bound_share=f"{bound_ms / k_ms:.4f}", bits_differing=n_diff)
+        del x, w, bias, taps
         free_cuda()
 
 
@@ -3925,13 +3989,15 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
 
+    from repro_torch.kernels import causal_conv as cc
     from repro_torch.kernels import gate_norm as gn
 
+    libraries = (rs.LIBRARY, fa.LIBRARY, ssd.LIBRARY, gn.LIBRARY, cc.LIBRARY)
     t_build = time.perf_counter()
-    _build.load_libraries([rs.LIBRARY, fa.LIBRARY, ssd.LIBRARY, gn.LIBRARY])
-    line("build", kernels=4, wall_seconds=f"{time.perf_counter() - t_build:.2f}",
-         card=repr(card_line))
-    for name, _, flags in (rs.LIBRARY, fa.LIBRARY, ssd.LIBRARY, gn.LIBRARY):
+    _build.load_libraries(libraries)
+    line("build", kernels=len(libraries),
+         wall_seconds=f"{time.perf_counter() - t_build:.2f}", card=repr(card_line))
+    for name, _, flags in libraries:
         info = _build.build_log[name]
         line("build", kernel=name, seconds=f"{info['seconds']:.2f}",
              cached=info["cached"], fmad=("-fmad=false" not in flags))
@@ -4227,6 +4293,7 @@ def main() -> int:
     lm_records = lm_path(card_line, fa, ssd)
     published = published_zamba2_phase(card_line, fa, ssd)
     gate_norm_phase(card_line)
+    causal_conv_phase(card_line)
     for rec in lm_records:
         rec["published"] = published[rec["name"]]
         rec["max_abs_err"] = max(rec["max_abs_err"],

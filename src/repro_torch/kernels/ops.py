@@ -23,12 +23,13 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import causal_conv as _conv
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
 from repro_torch.kernels.gate_norm import gate_norm
 from repro_torch.kernels.ssd_scan import ssd_scan_bhsp
 
-__all__ = ["flash_attention", "ssd_scan", "gated_norm_skip"]
+__all__ = ["flash_attention", "ssd_scan", "gated_norm_skip", "causal_conv"]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -91,3 +92,17 @@ def gated_norm_skip(y: torch.Tensor, x: torch.Tensor, d: torch.Tensor,
     device, as the kernel takes neither."""
     _build.refuse_dtensor("gate_norm", y, x, d, z, w)
     return gate_norm(y, x, d, z, w, groups=groups, eps=eps)
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                ) -> torch.Tensor:
+    """The Mamba2 mixer's causal depthwise conv and its SiLU: x (b,s,c) with
+    channels contiguous (the in projection's xBC columns, read through
+    their row stride), w (width, c), b (c,) -> (b,s,c) contiguous, in x's
+    dtype.  It has no reference counterpart: the JAX package leaves this
+    chain to XLA, and the JAX mixer is its oracle.  A rank other than 3, a
+    width outside 2-4, a channel count no multiple of 8, or a pointer or row
+    stride no multiple of 16 bytes raises on every device, as the kernel
+    takes none of them."""
+    _build.refuse_dtensor("causal_conv", x, w, b)
+    return _conv.causal_conv(x, w, b)

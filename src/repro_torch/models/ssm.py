@@ -5,9 +5,9 @@ Per-head scalar decay ``a_t = exp(-exp(A_log) * dt_t)``, grouped B/C, a
 short causal depthwise conv over the (x, B, C) stream, gated RMSNorm (over
 ``SSMConfig.n_groups`` groups of channels) and the out projection.
 ``ssd_reference`` is the chunked oracle in model layout; with
-``cfg.use_flash_kernel`` ``ssm_mixer`` goes through ``kernels.ops.ssd_scan``
-and then ``kernels.ops.gated_norm_skip`` (the CUDA kernels on the card,
-their plain versions on the CPU).
+``cfg.use_flash_kernel`` ``ssm_mixer`` goes through ``kernels.ops.causal_conv``,
+``kernels.ops.ssd_scan`` and then ``kernels.ops.gated_norm_skip`` (the CUDA
+kernels on the card, their plain versions on the CPU).
 ``ssm_decode_step`` is the one-token recurrent form.  ``jax.nn.softplus``
 is ``logaddexp(x, 0)``, which ``F.softplus`` (threshold 20) is not.
 """
@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import spans
+from repro_torch.kernels.causal_conv import causal_conv_reference
 from repro_torch.models import layers
 from repro_torch.models.api import ModelConfig, SSMConfig
 from repro_torch.parallel.dtensor_ops import (shard_local, shards_dim,
@@ -56,23 +57,13 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-@spans.spanned("ssm.conv")
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                  ) -> torch.Tensor:
-    """Depthwise causal conv, x (B, S, C), w (W, C); for DTensors on each
-    rank's own rows and channels (``parallel.dtensor_ops.shard_local``)."""
-    return shard_local(_causal_conv_local, (x, w, b),
+    """Depthwise causal conv and SiLU, x (B, S, C), w (W, C), the plain
+    chain (``kernels.causal_conv.causal_conv_reference``); for DTensors on
+    each rank's own rows and channels (``parallel.dtensor_ops.shard_local``)."""
+    return shard_local(causal_conv_reference, (x, w, b),
                        ((0, 2), (None, 1), (None, 0)), ((0, 2),))
-
-
-def _causal_conv_local(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
-                       ) -> torch.Tensor:
-    width, s = w.shape[0], x.shape[1]
-    pad = F.pad(x, (0, 0, width - 1, 0))
-    out = torch.zeros_like(x)
-    for i in range(width):
-        out = out + pad[:, i:i + s, :] * w[i]
-    return F.silu(out + b)
 
 
 def _split_proj(p: dict, u: torch.Tensor, d_model: int, s: SSMConfig):
@@ -157,7 +148,12 @@ def ssm_mixer(p: dict, u: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Full Mamba2 mixer: u (B, S, D) -> (B, S, D)."""
     s_cfg = cfg.ssm
     z, xbc, dt, d_inner, n_heads = _split_proj(p, u, cfg.d_model, s_cfg)
-    xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
+    with spans.span("ssm.conv"):
+        if cfg.use_flash_kernel:
+            from repro_torch.kernels import ops as kops
+            xbc = kops.causal_conv(xbc, p["conv_w"], p["conv_b"])
+        else:
+            xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
     gn = s_cfg.n_groups * s_cfg.state_dim
     x, B, C = torch.split(xbc, [d_inner, gn, gn], dim=-1)
     b, s, _ = u.shape
@@ -168,7 +164,6 @@ def ssm_mixer(p: dict, u: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     A = -torch.exp(p["A_log"])
     with spans.span("ssm.scan"):
         if cfg.use_flash_kernel:
-            from repro_torch.kernels import ops as kops
             y, _ = kops.ssd_scan(x, dt, A, B, C, chunk=s_cfg.chunk_size)
         else:
             chunk = min(s_cfg.chunk_size, s)

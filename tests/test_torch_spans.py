@@ -28,7 +28,8 @@ from torch_port_ref import requires_cuda, skip_without_cuda
 from repro_torch import configs as tconfigs
 from repro_torch import spans
 from repro_torch.configs import zamba2_7b
-from repro_torch.kernels import flash_attention, gate_norm, renewal_scan, ssd_scan
+from repro_torch.kernels import (causal_conv, flash_attention, gate_norm,
+                                 renewal_scan, ssd_scan)
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import build_model, moe, transformer
 from repro_torch.models.api import MoEConfig
@@ -301,14 +302,14 @@ def test_counts_carries_the_launch_counters():
 
     counted = spans.counts()
     declared = {}
-    for mod in (flash_attention, ssd_scan, renewal_scan, gate_norm):
+    for mod in (flash_attention, ssd_scan, renewal_scan, gate_norm, causal_conv):
         declared.update(mod.LAUNCHES)
     declared.update({f"moe.{k}": v for k, v in moe.ROWS.items()})
     declared.update({f"shared.{k}": v for k, v in transformer.SHARED.items()})
     assert counted == declared
     assert set(counted) == {"flash_attention", "ssd_scan", "renewal_scan",
-                            "gate_norm", "moe.routed", "moe.computed",
-                            "moe.ragged", "shared.calls"}
+                            "gate_norm", "causal_conv", "moe.routed",
+                            "moe.computed", "moe.ragged", "shared.calls"}
     assert all(isinstance(v, int) for v in counted.values())
     source = pathlib.Path(spans.__file__).read_text()
     imported = set()
@@ -338,7 +339,7 @@ def test_counts_after_the_same_calls():
     _, step, params, batch = _published()
     step(params, batch)
     want = {"flash_attention": 0, "ssd_scan": 0, "gate_norm": 0,
-            "renewal_scan": 0, "moe.routed": 96, "moe.computed": 144,
+            "causal_conv": 0, "renewal_scan": 0, "moe.routed": 96, "moe.computed": 144,
             "moe.ragged": 1, "shared.calls": 4}
     assert spans.counts() == want
     moe.reset_row_counts()                      # the MoE counter alone
