@@ -3,10 +3,12 @@
 One generic ``ModelConfig`` covers all ten assigned architectures (dense GQA
 transformers, MoE, Mamba2/SSD, the Zamba2 hybrid, and the Whisper-style
 encoder-decoder).  The fields, defaults and ``param_count`` are the
-reference's, field for field; only ``activation_dtype`` returns a
-``torch.dtype``.  Models are functions of an explicit parameter tree
-(nested dicts of layer-stacked tensors, the reference's layout): see
-``repro_torch.models.transformer``.
+reference's, field for field, but for the port's own switches (the
+published Zamba2's ``HybridConfig`` fields, ``qk_norm``,
+``MoEConfig.norm_topk_prob``), whose defaults keep the reference's model;
+only ``activation_dtype`` returns a ``torch.dtype``.  Models are functions
+of an explicit parameter tree (nested dicts of layer-stacked tensors, the
+reference's layout): see ``repro_torch.models.transformer``.
 """
 from __future__ import annotations
 
@@ -29,6 +31,9 @@ class MoEConfig:
     # "flat": global flat-token capacity buffer (the paper-era baseline,
     #         kept for the §Perf A/B)
     dispatch: str = "row"
+    # the top-k gates divided by their sum (the reference's routing); False
+    # keeps them as the softmax gave them (OLMoE's norm_topk_prob=False)
+    norm_topk_prob: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +114,9 @@ class ModelConfig:
     d_ff: int = 0
     act: str = "swiglu"           # swiglu | geglu | gelu
     qkv_bias: bool = False
+    # RMSNorm over the whole q and k projections (every head together),
+    # before RoPE: OLMoE's q_norm and k_norm
+    qk_norm: bool = False
     rope_theta: float = 10_000.0
     mrope_sections: Optional[Tuple[int, ...]] = None   # M-RoPE (qwen2-vl)
     sliding_window: Optional[int] = None               # SWA (mixtral)
@@ -163,6 +171,8 @@ class ModelConfig:
         if self.family in ("dense", "moe", "hybrid", "encdec"):
             attn = d * hd * self.num_heads + 2 * d * hd * self.num_kv_heads \
                 + hd * self.num_heads * d
+            if self.qk_norm:
+                attn += hd * (self.num_heads + self.num_kv_heads)
         else:
             attn = 0
         if self.moe is not None:

@@ -1,9 +1,9 @@
-"""GQA attention (optional QKV bias, sliding window, M-RoPE) and the decode
-path over a KV cache, the counterparts of ``repro.models.attention``.  The
-full-sequence path goes through ``kernels.ops.flash_attention`` when
-``cfg.use_flash_kernel`` (the CUDA kernel on the card, its plain version on
-the CPU); otherwise through the einsum reference, chunked over queries
-above 1024 tokens.  ``cross_attention`` (the encoder-decoder's) has no
+"""GQA attention (optional QKV bias, QK-norm, sliding window, M-RoPE) and
+the decode path over a KV cache, the counterparts of
+``repro.models.attention``.  The full-sequence path goes through
+``kernels.ops.flash_attention`` when ``cfg.use_flash_kernel`` (the CUDA
+kernel on the card, its plain version on the CPU); otherwise through the
+einsum reference, chunked over queries above 1024 tokens.  ``cross_attention`` (the encoder-decoder's) has no
 rotation and no mask and, as the reference's, adds no QKV bias even where
 the parameters carry one."""
 from __future__ import annotations
@@ -25,10 +25,12 @@ __all__ = ["attn_spec", "attention", "gqa_scores_reference",
 
 
 def attn_spec(d_model: int, num_heads: int, num_kv_heads: int, head_dim: int,
-              qkv_bias: bool, dtype, d_out: Optional[int] = None) -> dict:
+              qkv_bias: bool, dtype, d_out: Optional[int] = None,
+              qk_norm: bool = False) -> dict:
     """Parameter spec (shape, dtype, init) of one attention, as ``init_attn``:
     q, k and v read ``d_model`` channels, the output projection writes
-    ``d_out`` (``d_model`` by default)."""
+    ``d_out`` (``d_model`` by default).  With ``qk_norm`` the RMSNorm weights
+    of the whole q and the whole k projection (``q_norm``, ``k_norm``)."""
     scale = d_model ** -0.5
     p = {
         "wq": ((d_model, num_heads * head_dim), dtype, scale),
@@ -40,6 +42,9 @@ def attn_spec(d_model: int, num_heads: int, num_kv_heads: int, head_dim: int,
         p["bq"] = ((num_heads * head_dim,), dtype, "zeros")
         p["bk"] = ((num_kv_heads * head_dim,), dtype, "zeros")
         p["bv"] = ((num_kv_heads * head_dim,), dtype, "zeros")
+    if qk_norm:
+        p["q_norm"] = ((num_heads * head_dim,), dtype, "zeros")
+        p["k_norm"] = ((num_kv_heads * head_dim,), dtype, "zeros")
     return p
 
 
@@ -51,6 +56,12 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
                layers.dense(x, p["wv"]))
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if "q_norm" in p:
+        # one RMS over every head's channels of q, one over k's (OLMoE),
+        # before the heads are split and rotated
+        with spans.span("attn.qk_norm"):
+            q = layers.rms_norm(q, p["q_norm"], cfg.norm_eps)
+            k = layers.rms_norm(k, p["k_norm"], cfg.norm_eps)
     return (split_dim(q, -1, (num_heads, hd)),
             split_dim(k, -1, (num_kv_heads, hd)),
             split_dim(v, -1, (num_kv_heads, hd)))

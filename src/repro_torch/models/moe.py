@@ -98,15 +98,18 @@ def moe_spec(d_model: int, cfg: MoEConfig, dtype) -> dict:
 
 def _route(p: dict, xf: torch.Tensor, cfg: MoEConfig
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Router: (N, D) -> top-k gates (N, K) renormalised, expert ids (N, K)
-    and the Switch load-balancing loss ``E * sum(me * ce)``.  The two means
-    are sums over the rows divided by N (a mean is its sum over the row
-    count, bit for bit), so on a mesh each rank routes its own rows and
-    the sums are reduced across the ranks."""
+    """Router: (N, D) -> top-k gates (N, K), expert ids (N, K) and the
+    Switch load-balancing loss ``E * sum(me * ce)``.  The gates are the
+    top-k softmax probabilities, divided by their sum where
+    ``cfg.norm_topk_prob`` (the reference's routing), else as they are.
+    The two means are sums over the rows divided by N (a mean is its sum
+    over the row count, bit for bit), so on a mesh each rank routes its
+    own rows and the sums are reduced across the ranks."""
     def local(xl, router):
         probs = torch.softmax(xl.float() @ router, dim=-1)     # (N, E)
         gates, eidx = torch.topk(probs, cfg.top_k, dim=-1)
-        gates = gates / gates.sum(dim=-1, keepdim=True)
+        if cfg.norm_topk_prob:
+            gates = gates / gates.sum(dim=-1, keepdim=True)
         picks = F.one_hot(eidx, cfg.num_experts).float().sum(dim=1)
         return gates, eidx, probs.sum(dim=0), picks.sum(dim=0)
 

@@ -73,7 +73,8 @@ def _attn_block_spec(cfg: ModelConfig, dtype) -> dict:
     p = {
         "ln1": ((cfg.d_model,), dtype, "zeros"),
         "attn": attn.attn_spec(cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                               cfg.resolved_head_dim, cfg.qkv_bias, dtype),
+                               cfg.resolved_head_dim, cfg.qkv_bias, dtype,
+                               qk_norm=cfg.qk_norm),
         "ln2": ((cfg.d_model,), dtype, "zeros"),
     }
     if cfg.moe is not None:

@@ -22,8 +22,10 @@ prefix names (``ssm.scan`` inside ``ssm``), and ``embed``, ``attn``,
 prefill step runs them.  ``shared`` is one call of a published Zamba2
 shared block: its ``attn`` (and ``attn.flash``) and ``shared.mlp`` lie
 inside it, and the concat, both norms and the call's projection are its
-own time.  What falls in no child of a span is that span's own time: the
-block pre-norms and residual adds are ``prefill``'s.
+own time.  ``attn.qk_norm`` (a model with ``qk_norm``: the RMSNorms of the
+whole q and k projections) lies inside ``attn`` in the prefill and stands
+alone in a decode step.  What falls in no child of a span is that span's
+own time: the block pre-norms and residual adds are ``prefill``'s.
 
 The port's counters live here too.  A module declares each where it
 counts, at import: ``counter("flash_attention")`` is one count under its
@@ -45,7 +47,7 @@ __all__ = ["NAMES", "span", "spanned", "off", "is_recording", "counter",
            "counts", "reset_counts"]
 
 NAMES = ("prefill", "embed", "head",
-         "attn", "attn.flash",
+         "attn", "attn.flash", "attn.qk_norm",
          "moe", "moe.router", "moe.dispatch", "moe.experts", "moe.combine",
          "ssm", "ssm.conv", "ssm.scan", "ssm.gate_norm",
          "shared", "shared.mlp")

@@ -72,19 +72,23 @@ def _np(x):
 # ---------------------------------------------------------------------------
 
 # fields the port's configs have beyond the reference's (the published
-# Zamba2 layout), with the defaults that keep the reference's model
-PORT_ONLY = {"hybrid": (HybridConfig(), ("layer_ids", "num_blocks",
-                                         "adapter_rank"))}
+# Zamba2 and OLMoE layouts), by group (None: the model's own), with the
+# defaults that keep the reference's model
+PORT_ONLY = {"hybrid": {name: getattr(HybridConfig(), name)
+                        for name in ("layer_ids", "num_blocks", "adapter_rank")},
+             "moe": {"norm_topk_prob": True},
+             None: {"qk_norm": False}}
 
 
 def _shared_fields(cfg) -> dict:
     """``dataclasses.asdict(cfg)`` without the port-only fields, each
     asserted at its default first."""
     out = dataclasses.asdict(cfg)
-    for group, (default, names) in PORT_ONLY.items():
-        if out[group] is not None:
-            for name in names:
-                assert out[group].pop(name) == getattr(default, name)
+    for group, defaults in PORT_ONLY.items():
+        fields = out if group is None else out[group]
+        if fields is not None:
+            for name, default in defaults.items():
+                assert fields.pop(name) == default
     return out
 
 

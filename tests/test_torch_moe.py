@@ -67,7 +67,9 @@ def _moe_params(R, jmoe, d, cfg, seed=0):
     """The reference's init_moe weights, as numpy and as port tensors."""
     jax = R.jax
     from repro.models.api import MoEConfig as JMoEConfig
-    jcfg = JMoEConfig(**dataclasses.asdict(cfg))
+    fields = dataclasses.asdict(cfg)
+    assert fields.pop("norm_topk_prob")       # the reference renormalises
+    jcfg = JMoEConfig(**fields)
     jp = jax.tree.map(np.asarray, jmoe.init_moe(jax.random.PRNGKey(seed), d,
                                                 jcfg, jax.numpy.float32))
     return jcfg, jp, {k: torch.from_numpy(v.copy()) for k, v in jp.items()}

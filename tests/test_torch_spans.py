@@ -4,7 +4,7 @@
 counters it declares), on the CPU.
 
 A prefill of a tiny MoE model (row and flat dispatch), of a tiny Mamba2
-model and of the published Zamba2 layout at tiny widths, under
+model and of the published Zamba2 and OLMoE layouts at tiny widths, under
 ``torch.profiler``, records each documented span the
 documented number of times, nested as documented, and each span's range
 holds the operators launched inside it.  Off (no profiler, a profile that
@@ -27,7 +27,7 @@ from torch_port_ref import requires_cuda, skip_without_cuda
 
 from repro_torch import configs as tconfigs
 from repro_torch import spans
-from repro_torch.configs import zamba2_7b
+from repro_torch.configs import olmoe_1b_7b, zamba2_7b
 from repro_torch.kernels import (causal_conv, flash_attention, gate_norm,
                                  renewal_scan, ssd_scan)
 from repro_torch.launch import steps as tsteps
@@ -447,3 +447,35 @@ def test_shared_calls_counts_each_call(published):
     assert spans.counts()["shared.calls"] == 2 * calls
     spans.reset_counts()
     assert spans.counts()["shared.calls"] == 0
+
+
+# --- the published OLMoE's QK-norm -----------------------------------------
+
+def test_published_olmoe_records_the_qk_norm_span():
+    """``attn.qk_norm`` inside ``attn`` beside ``attn.flash``, and the MoE
+    spans inside ``moe``, once a layer (the lists above stay as they are:
+    their configs have no QK-norm)."""
+    cfg = olmoe_1b_7b.published_smoke_config()
+    assert cfg.qk_norm and cfg.use_flash_kernel
+    model = build_model(cfg, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(1))
+    n = 2
+    events = _profile(tsteps.make_prefill_step(model), model.init(0),
+                      {"tokens": tokens}, n)
+    found = [e for e in events if e[0] in spans.NAMES]
+    got = {}
+    for ev in found:
+        key = (ev[0], _parent(ev, found))
+        got[key] = got.get(key, 0) + 1
+    layer = MOE_LAYER + [("attn.qk_norm", "attn")]
+    assert got == {key: n * (1 if key in ONCE else cfg.num_layers)
+                   for key in ONCE + layer}
+    # the norms' operators fall in the span
+    ranges = [(t0, t1) for name, t0, t1 in found if name == "attn.qk_norm"]
+    rsqrt = [(s0, s1) for name, s0, s1 in events if name == "aten::rsqrt"
+             and any(t0 <= s0 <= t1 for _, t0, t1 in
+                     [e for e in found if e[0] == "attn"])]
+    assert len(rsqrt) == 2 * n * cfg.num_layers
+    assert all(any(t0 <= s0 and s1 <= t1 for t0, t1 in ranges)
+               for s0, s1 in rsqrt)
