@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's five CUDA kernels from the sources in this checkout (one
+Builds the port's six CUDA kernels from the sources in this checkout (one
 nvcc each, all started together) and holds each against its plain PyTorch
 version on the card.  Then it drives the port's paths at the size users
 run them, each with the launch counts set to 0 just before it and read just
@@ -63,7 +63,8 @@ same operands:
   cell): a bf16 prefill of 2 x 4096 tokens through ``make_prefill_step``
   with 13 ``flash_attention`` launches at (64, 4096, 224), 81
   ``ssd_scan`` launches at 2 groups, 81 ``gate_norm`` and 81 ``causal_conv``
-  launches, the
+  launches, 108 ``rms_norm`` launches (a Mamba layer's, two a shared-block
+  call's and the final norm), the
   first flash and SSD launches held against their plain versions and timed
   alone with their bounds (``[published-prefill]``);
 * the Mamba2 mixer's gated-norm kernel at the two SSM cells' shapes
@@ -73,7 +74,12 @@ same operands:
   bound (``[gate-norm]``); the mixer's causal-conv kernel at the same two
   cells' shapes (5,376 and 7,424 channels read through the in projection's
   row stride), bit for bit against the plain chain, timed alone beside it,
-  ``F.conv1d(groups=C)`` + SiLU and its byte bound (``[causal-conv]``).
+  ``F.conv1d(groups=C)`` + SiLU and its byte bound (``[causal-conv]``);
+  the RMSNorm kernel at each cell's norm shape (mamba2-2.7b 65,536 x
+  2,560; zamba2-7b 8,192 x 3,584 and x 7,168; olmoe-1b-7b 8,192 x 2,048;
+  mixtral-8x22b 16,384 x 6,144; bf16), against the plain chain, timed alone
+  on inputs that do not fit in L2, beside the plain chain,
+  ``F.rms_norm(x, (D,), 1 + w, eps)`` and its byte bound (``[rms-norm]``).
 * training, at deepseek-7b's published widths cut to 2 of its 30 layers
   (bf16, 8 x 4096 tokens per step in 4 microbatches, AdamW): a kernel
   launch under grad mode raises (``[train-grad-guard]``), and
@@ -2041,7 +2047,7 @@ def published_zamba2_phase(card_line: str, fa, ssd) -> dict:
     shared blocks by turns at 13 layers, 32 heads of 224), bf16, 2 x 4096
     tokens through ``make_prefill_step``.  Requires one flash launch per
     shared-block call and one SSD, one gated-norm and one causal-conv
-    launch per layer,
+    launch per layer, and one RMSNorm launch per norm,
     holds the first flash and SSD launches
     against its plain version on the operands the path gave it, and times
     it alone with its bound.  Returns those numbers by kernel name."""
@@ -2050,6 +2056,7 @@ def published_zamba2_phase(card_line: str, fa, ssd) -> dict:
     from repro_torch.kernels import causal_conv as cc
     from repro_torch.kernels import gate_norm as gn
     from repro_torch.kernels import ops
+    from repro_torch.kernels import rms_norm as rn
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import build_model
 
@@ -2074,9 +2081,11 @@ def published_zamba2_phase(card_line: str, fa, ssd) -> dict:
     launches = {"flash_attention": fa.LAUNCHES["flash_attention"],
                 "ssd_scan": ssd.LAUNCHES["ssd_scan"],
                 "gate_norm": gn.LAUNCHES["gate_norm"],
-                "causal_conv": cc.LAUNCHES["causal_conv"]}
+                "causal_conv": cc.LAUNCHES["causal_conv"],
+                "rms_norm": rn.LAUNCHES["rms_norm"]}
     expect = {"flash_attention": n_calls, "ssd_scan": cfg.num_layers,
-              "gate_norm": cfg.num_layers, "causal_conv": cfg.num_layers}
+              "gate_norm": cfg.num_layers, "causal_conv": cfg.num_layers,
+              "rms_norm": cfg.num_layers + 2 * n_calls + 1}
     if launches != expect:
         raise Failed(f"published prefill launched {launches}, expected {expect}")
     if (len(cap_fa), len(cap_ssd)) != (n_calls, cfg.num_layers):
@@ -2243,6 +2252,73 @@ def causal_conv_phase(card_line: str) -> None:
              bound_ms=f"{bound_ms:.5f}", bound_by="bytes",
              bound_share=f"{bound_ms / k_ms:.4f}", bits_differing=n_diff)
         del x, w, bias, taps
+        free_cuda()
+
+
+# the cells' RMSNorms: (cell, rows, width); the block and final norms of
+# mamba2-2.7b.prefill-16x4096, zamba2-7b.prefill-2x4096 (and its shared
+# blocks' norm over concat([x, e])), olmoe-1b-7b.prefill-2x4096 (its
+# QK-norms too) and mixtral-8x22b.prefill-2x8192
+RMS_NORM_CASES = (("mamba2-2.7b", 65536, 2560), ("zamba2-7b", 8192, 3584),
+                  ("zamba2-7b-concat", 8192, 7168), ("olmoe-1b-7b", 8192, 2048),
+                  ("mixtral-8x22b", 16384, 6144))
+# inputs a timing cycles through, at least: more than the card's 50 MB of L2
+RMS_NORM_INPUT_BYTES = 200_000_000
+
+
+def rms_norm_phase(card_line: str) -> None:
+    """``[rms-norm]``: the RMSNorm kernel at each cell's norm shape in bf16,
+    held to the plain chain (``layers.rms_norm``) at flash's ``PLAIN_TOL``
+    with the share of outputs not bit-equal, timed alone over copies of the
+    input that together exceed L2 (each launch reads its x from device
+    memory, as the byte bound assumes), beside the plain chain,
+    ``F.rms_norm(x, (D,), 1 + w, eps)`` (the one-call PyTorch equivalent, on
+    ``1 + w`` made once) and its byte bound (x and the output once)."""
+    import itertools
+
+    import torch.nn.functional as F
+
+    from repro_torch import spans
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rms_norm as rn
+    from repro_torch.models import layers
+
+    dev, bf16, eps = torch.device("cuda"), torch.bfloat16, 1e-5
+    for label, rows, d in RMS_NORM_CASES:
+        gen = torch.Generator(device=dev).manual_seed(35)
+        copies = -(-RMS_NORM_INPUT_BYTES // (rows * d * 2))
+        xs = [(3 * torch.randn((rows, d), device=dev, generator=gen)).to(bf16)
+              for _ in range(copies)]
+        w = (0.1 * torch.randn((d,), device=dev, generator=gen)).to(bf16)
+        spans.reset_counts()
+        got = ops.rms_norm(xs[0], w, eps)
+        torch.cuda.synchronize()
+        if rn.LAUNCHES["rms_norm"] != 1:
+            raise Failed(f"rms-norm {label}: {rn.LAUNCHES} launches, expected 1")
+        want = layers.rms_norm(xs[0], w, eps)
+        err = check_close(f"rms-norm {label}", got, want, *fa.PLAIN_TOL[bf16])
+        differing = float((got != want).float().mean())
+        del got, want
+        free_cuda()
+        turn = itertools.cycle(xs)
+        k_ms, host_ms = kernel_only_ms(lambda: ops.rms_norm(next(turn), w, eps),
+                                       LM_KERNEL_REPS)
+        plain_ms = statistics.median(cuda_ms(
+            lambda: layers.rms_norm(next(turn), w, eps), reps=5, warmup=1))
+        w1 = 1 + w
+        lib_ms = statistics.median(cuda_ms(
+            lambda: F.rms_norm(next(turn), (d,), w1, eps), reps=5, warmup=1))
+        n_bytes = 2 * rows * d * 2 + nbytes(w)
+        bound_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+        line("rms-norm", cell=label, card=repr(card_line), rows=rows, width=d,
+             kernel_ms=f"{k_ms:.5f}", wrapper_host_ms=f"{host_ms:.5f}",
+             plain_ms_median=f"{plain_ms:.4f}",
+             f_rms_norm_ms_median=f"{lib_ms:.4f}", bytes=n_bytes,
+             bound_ms=f"{bound_ms:.5f}", bound_by="bytes",
+             bound_share=f"{bound_ms / k_ms:.4f}", input_copies=copies,
+             max_abs_err=f"{err:.3e}", share_not_bit_equal=f"{differing:.3e}")
+        del xs, w, w1, turn
         free_cuda()
 
 
@@ -3991,8 +4067,10 @@ def main() -> int:
 
     from repro_torch.kernels import causal_conv as cc
     from repro_torch.kernels import gate_norm as gn
+    from repro_torch.kernels import rms_norm as rn
 
-    libraries = (rs.LIBRARY, fa.LIBRARY, ssd.LIBRARY, gn.LIBRARY, cc.LIBRARY)
+    libraries = (rs.LIBRARY, fa.LIBRARY, ssd.LIBRARY, gn.LIBRARY, cc.LIBRARY,
+                 rn.LIBRARY)
     t_build = time.perf_counter()
     _build.load_libraries(libraries)
     line("build", kernels=len(libraries),
@@ -4294,6 +4372,7 @@ def main() -> int:
     published = published_zamba2_phase(card_line, fa, ssd)
     gate_norm_phase(card_line)
     causal_conv_phase(card_line)
+    rms_norm_phase(card_line)
     for rec in lm_records:
         rec["published"] = published[rec["name"]]
         rec["max_abs_err"] = max(rec["max_abs_err"],

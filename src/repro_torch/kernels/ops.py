@@ -26,10 +26,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import causal_conv as _conv
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
+from repro_torch.kernels import rms_norm as _rms
 from repro_torch.kernels.gate_norm import gate_norm
 from repro_torch.kernels.ssd_scan import ssd_scan_bhsp
 
-__all__ = ["flash_attention", "ssd_scan", "gated_norm_skip", "causal_conv"]
+__all__ = ["flash_attention", "ssd_scan", "gated_norm_skip", "causal_conv",
+           "rms_norm"]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -106,3 +108,15 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     takes none of them."""
     _build.refuse_dtensor("causal_conv", x, w, b)
     return _conv.causal_conv(x, w, b)
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm with the ``1 + w`` scale over x's last dim: x (..., D) with
+    contiguous rows, w (D,) -> (..., D) contiguous, in x's dtype;
+    ``layers.rms_norm`` bit for bit on the CPU.  It has no reference
+    counterpart: the JAX package leaves this chain to XLA, and its
+    ``layers.rms_norm`` is the oracle.  A width no multiple of 8 or above
+    ``kernels.rms_norm.MAX_WIDTH``, or a pointer or row stride no multiple
+    of 16 bytes raises on every device, as the kernel takes none of them."""
+    _build.refuse_dtensor("rms_norm", x, w)
+    return _rms.rms_norm(x, w, eps)

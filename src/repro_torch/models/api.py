@@ -128,8 +128,8 @@ class ModelConfig:
     encdec: Optional[EncDecConfig] = None
     dtype: str = "bfloat16"       # activation / weight dtype
     remat: str = "none"           # none | full | dots  (scan remat policy)
-    # the LM kernels: flash attention, the causal conv, the SSD scan and the
-    # gated norm on the card, their plain versions on the CPU
+    # the LM kernels: flash attention, the causal conv, the SSD scan, the
+    # gated norm and the RMSNorm on the card, their plain versions on the CPU
     use_flash_kernel: bool = False
     embeds_input: bool = False    # frontend stub: inputs are embeddings
     pad_vocab_multiple: int = 512  # pad embed/logits so vocab shards over TP

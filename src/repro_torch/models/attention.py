@@ -2,8 +2,9 @@
 the decode path over a KV cache, the counterparts of
 ``repro.models.attention``.  The full-sequence path goes through
 ``kernels.ops.flash_attention`` when ``cfg.use_flash_kernel`` (the CUDA
-kernel on the card, its plain version on the CPU); otherwise through the
-einsum reference, chunked over queries above 1024 tokens.  ``cross_attention`` (the encoder-decoder's) has no
+kernel on the card, its plain version on the CPU), and the QK-norm through
+``kernels.ops.rms_norm``; otherwise through the einsum reference, chunked
+over queries above 1024 tokens, and ``layers.rms_norm``.  ``cross_attention`` (the encoder-decoder's) has no
 rotation and no mask and, as the reference's, adds no QKV bias even where
 the parameters carry one."""
 from __future__ import annotations
@@ -60,8 +61,8 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
         # one RMS over every head's channels of q, one over k's (OLMoE),
         # before the heads are split and rotated
         with spans.span("attn.qk_norm"):
-            q = layers.rms_norm(q, p["q_norm"], cfg.norm_eps)
-            k = layers.rms_norm(k, p["k_norm"], cfg.norm_eps)
+            q = layers.model_rms_norm(q, p["q_norm"], cfg)
+            k = layers.model_rms_norm(k, p["k_norm"], cfg)
     return (split_dim(q, -1, (num_heads, hd)),
             split_dim(k, -1, (num_kv_heads, hd)),
             split_dim(v, -1, (num_kv_heads, hd)))

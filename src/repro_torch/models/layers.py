@@ -17,7 +17,7 @@ import torch
 from repro_torch.parallel.dtensor_ops import (fsdp_gather, sharded_embed,
                                               tp_dense)
 
-__all__ = ["rms_norm", "layer_norm", "rope_frequencies", "apply_rope",
+__all__ = ["rms_norm", "model_rms_norm", "layer_norm", "rope_frequencies", "apply_rope",
            "apply_mrope", "embed", "dense"]
 
 
@@ -40,6 +40,16 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6
     var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + weight.float())).to(dtype)
+
+
+def model_rms_norm(x: torch.Tensor, weight: torch.Tensor, cfg) -> torch.Tensor:
+    """``rms_norm(x, weight, cfg.norm_eps)`` as a model runs it: through
+    ``kernels.ops.rms_norm`` when ``cfg.use_flash_kernel`` (the CUDA kernel
+    on the card, ``rms_norm`` itself on the CPU), else ``rms_norm``."""
+    if cfg.use_flash_kernel:
+        from repro_torch.kernels import ops as kops
+        return kops.rms_norm(x, weight, cfg.norm_eps)
+    return rms_norm(x, weight, cfg.norm_eps)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

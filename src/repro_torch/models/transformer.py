@@ -259,9 +259,9 @@ def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
 def _attn_block(p: dict, x, positions, cfg: ModelConfig):
     """Returns the block's output and its MoE auxiliary loss (None for a
     dense MLP)."""
-    h = x + attn.attention(p["attn"], layers.rms_norm(x, p["ln1"], cfg.norm_eps),
+    h = x + attn.attention(p["attn"], layers.model_rms_norm(x, p["ln1"], cfg),
                            positions, cfg)
-    z = layers.rms_norm(h, p["ln2"], cfg.norm_eps)
+    z = layers.model_rms_norm(h, p["ln2"], cfg)
     if cfg.moe is None:
         return h + mlp.mlp(p["mlp"], z, cfg.act), None
     fn = moe.moe_ffn if cfg.moe.dispatch == "row" else moe.moe_ffn_flat
@@ -274,9 +274,9 @@ def _attn_block_decode(p: dict, x, kv: attn.KVCache, pos: int,
     """One-token attention block; writes the new key and value into the
     layer's cache ``kv`` in place."""
     a, _ = attn.decode_attention(
-        p["attn"], layers.rms_norm(x, p["ln1"], cfg.norm_eps), kv, pos, cfg)
+        p["attn"], layers.model_rms_norm(x, p["ln1"], cfg), kv, pos, cfg)
     x = x + a
-    z = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    z = layers.model_rms_norm(x, p["ln2"], cfg)
     if cfg.moe is None:
         return x + mlp.mlp(p["mlp"], z, cfg.act)
     y, _ = moe.moe_ffn_dense(p["moe"], z, cfg.moe, cfg.act)
@@ -287,7 +287,7 @@ def _ssm_block(p: dict, x, cfg: ModelConfig, extra=None):
     """``x + mixer(norm(x))``; with ``extra`` (a published Zamba2 shared
     block's projected output) ``x + mixer(norm(x + extra))``."""
     u = x if extra is None else x + extra
-    return x + ssm.ssm_mixer(p["ssm"], layers.rms_norm(u, p["ln"], cfg.norm_eps),
+    return x + ssm.ssm_mixer(p["ssm"], layers.model_rms_norm(u, p["ln"], cfg),
                              cfg)
 
 
@@ -297,7 +297,7 @@ def _ssm_block_decode(p: dict, x, state: ssm.SSMState, idx: tuple,
     layer's new state into the stacked ``state`` at ``idx`` in place."""
     st = ssm.SSMState(conv=state.conv[idx], ssd=state.ssd[idx])
     u = x if extra is None else x + extra
-    y, new = ssm.ssm_decode_step(p["ssm"], layers.rms_norm(u, p["ln"], cfg.norm_eps),
+    y, new = ssm.ssm_decode_step(p["ssm"], layers.model_rms_norm(u, p["ln"], cfg),
                                  st, cfg)
     st.conv.copy_(new.conv)
     st.ssd.copy_(new.ssd)
@@ -312,10 +312,9 @@ def _published_block(p: dict, call: dict, x, e, attend: Callable,
     the call's projection of the block's output (no residual inside).
     ``attend(p_attn, h)`` is the prefill's or the decode's attention."""
     SHARED["calls"] += 1
-    eps = cfg.norm_eps
-    a = attend(p["attn"], layers.rms_norm(torch.cat([x, e], dim=-1), p["ln1"],
-                                          eps))
-    y = mlp.gelu_lora_mlp(p["mlp"], layers.rms_norm(a, p["ln2"], eps),
+    a = attend(p["attn"], layers.model_rms_norm(torch.cat([x, e], dim=-1),
+                                                p["ln1"], cfg))
+    y = mlp.gelu_lora_mlp(p["mlp"], layers.model_rms_norm(a, p["ln2"], cfg),
                           call["lora_a"], call["lora_b"])
     return layers.dense(y, call["proj"])
 
@@ -343,7 +342,7 @@ def _embed_in(params, batch, cfg: ModelConfig):
 
 @spans.spanned("head")
 def _logits_out(params, x, cfg: ModelConfig):
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = layers.model_rms_norm(x, params["final_norm"], cfg)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return constrain(layers.dense(x, head.to(x.dtype)).float(), "logits")
 

@@ -187,6 +187,45 @@ def test_the_qk_norm_span_is_recorded(parts):
     assert names.count("attn.qk_norm") == names.count("attn") == dims["layers"]
 
 
+@requires_cuda
+def test_the_qk_norm_launches_lie_inside_the_span_on_card(parts, monkeypatch):
+    """On the card the RMSNorm kernel's launches of the q and k norms lie
+    inside ``attn.qk_norm``, two a layer, so ``qk_norm_share`` reads them:
+    each launch is marked on the host and found in the span's range."""
+    skip_without_cuda()
+    from repro_torch.kernels import rms_norm as rn
+
+    cfg_mod, _, dims = parts
+    cfg = cfg_mod.port_config(dims)
+    real = rn._launch_cuda
+
+    def marked(*args):
+        with torch.profiler.record_function("test.rms_norm_launch"):
+            return real(*args)
+
+    monkeypatch.setattr(rn, "_launch_cuda", marked)
+    step = make_prefill_step(build_model(cfg, device="cuda"))
+    params = _weights(cfg_mod, dims, device="cuda")
+    tokens = _tokens(dims["vocab"]).cuda()
+    step(params, {"tokens": tokens})
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        step(params, {"tokens": tokens})
+    events = [(e.name, e.time_range.start, e.time_range.end)
+              for e in prof.events()]
+    spans_of = {name: [(t0, t1) for n, t0, t1 in events if n == name]
+                for name in ("attn", "attn.qk_norm")}
+    launches = [(t0, t1) for n, t0, t1 in events if n == "test.rms_norm_launch"]
+    assert len(launches) == 4 * dims["layers"] + 1
+
+    def inside(ev, name):
+        return any(t0 <= ev[0] and ev[1] <= t1 for t0, t1 in spans_of[name])
+
+    in_attn = [ev for ev in launches if inside(ev, "attn")]
+    assert len(in_attn) == 2 * dims["layers"]
+    assert all(inside(ev, "attn.qk_norm") for ev in in_attn)
+
+
 def test_registry_olmoe_is_unchanged():
     cfg = tconfigs.get_config("olmoe-1b-7b")
     assert cfg.moe == MoEConfig(num_experts=64, top_k=8, d_ff_expert=1024,

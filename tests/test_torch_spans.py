@@ -29,7 +29,7 @@ from repro_torch import configs as tconfigs
 from repro_torch import spans
 from repro_torch.configs import olmoe_1b_7b, zamba2_7b
 from repro_torch.kernels import (causal_conv, flash_attention, gate_norm,
-                                 renewal_scan, ssd_scan)
+                                 renewal_scan, rms_norm, ssd_scan)
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import build_model, moe, transformer
 from repro_torch.models.api import MoEConfig
@@ -302,13 +302,14 @@ def test_counts_carries_the_launch_counters():
 
     counted = spans.counts()
     declared = {}
-    for mod in (flash_attention, ssd_scan, renewal_scan, gate_norm, causal_conv):
+    for mod in (flash_attention, ssd_scan, renewal_scan, gate_norm, causal_conv,
+                rms_norm):
         declared.update(mod.LAUNCHES)
     declared.update({f"moe.{k}": v for k, v in moe.ROWS.items()})
     declared.update({f"shared.{k}": v for k, v in transformer.SHARED.items()})
     assert counted == declared
     assert set(counted) == {"flash_attention", "ssd_scan", "renewal_scan",
-                            "gate_norm", "causal_conv", "moe.routed",
+                            "gate_norm", "causal_conv", "rms_norm", "moe.routed",
                             "moe.computed", "moe.ragged", "shared.calls"}
     assert all(isinstance(v, int) for v in counted.values())
     source = pathlib.Path(spans.__file__).read_text()
@@ -339,7 +340,8 @@ def test_counts_after_the_same_calls():
     _, step, params, batch = _published()
     step(params, batch)
     want = {"flash_attention": 0, "ssd_scan": 0, "gate_norm": 0,
-            "causal_conv": 0, "renewal_scan": 0, "moe.routed": 96, "moe.computed": 144,
+            "causal_conv": 0, "rms_norm": 0, "renewal_scan": 0, "moe.routed": 96,
+            "moe.computed": 144,
             "moe.ragged": 1, "shared.calls": 4}
     assert spans.counts() == want
     moe.reset_row_counts()                      # the MoE counter alone
@@ -370,6 +372,38 @@ def test_kernel_path_counts_one_gate_norm_launch_a_layer(published):
     assert spans.counts()["gate_norm"] == 2 * cfg.num_layers
     spans.reset_counts()
     assert spans.counts()["gate_norm"] == 0
+
+
+@requires_cuda
+@pytest.mark.parametrize("family", ["mamba2", "zamba2-ids", "olmoe-ids"])
+def test_kernel_path_counts_one_rms_norm_launch_a_norm(family):
+    """On the card a kernel-path prefill launches the RMSNorm kernel once a
+    norm, and ``counts()`` reads it: a block norm a layer and the final norm
+    on the ssm decoder; one a Mamba layer, two a shared-block call and the
+    final on the published hybrid; two block norms, the q and the k norm a
+    layer and the final on the published OLMoE."""
+    skip_without_cuda()
+    if family == "mamba2":
+        cfg = tconfigs.get_smoke_config("mamba2-370m")
+        norms = cfg.num_layers + 1
+    elif family == "zamba2-ids":
+        cfg = zamba2_7b.published_smoke_config()
+        norms = cfg.num_layers + 2 * len(cfg.hybrid.layer_ids) + 1
+    else:
+        cfg = olmoe_1b_7b.published_smoke_config()
+        norms = 4 * cfg.num_layers + 1
+    model = build_model(dataclasses.replace(cfg, use_flash_kernel=True), "cuda")
+    params = model.init(0)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(1))
+    step = tsteps.make_prefill_step(model)
+    spans.reset_counts()
+    step(params, {"tokens": tokens.cuda()})
+    step(params, {"tokens": tokens.cuda()})
+    torch.cuda.synchronize()
+    assert spans.counts()["rms_norm"] == 2 * norms
+    spans.reset_counts()
+    assert spans.counts()["rms_norm"] == 0
 
 
 # --- the published Zamba2's shared blocks ----------------------------------
