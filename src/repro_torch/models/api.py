@@ -2,11 +2,14 @@
 
 One generic ``ModelConfig`` covers all ten assigned architectures (dense GQA
 transformers, MoE, Mamba2/SSD, the Zamba2 hybrid, and the Whisper-style
-encoder-decoder).  The fields, defaults and ``param_count`` are the
-reference's, field for field, but for the port's own switches (the
-published Zamba2's ``HybridConfig`` fields, ``qk_norm``,
-``MoEConfig.norm_topk_prob``), whose defaults keep the reference's model;
-only ``activation_dtype`` returns a ``torch.dtype``.  Models are functions
+encoder-decoder), and the port's own ``hybrid_moe`` family (Granite-4.0-H:
+a per-layer list of Mamba2 and attention mixers, each followed by the MoE
+FFN).  The fields, defaults and ``param_count`` are the reference's, field
+for field, but for the port's own switches (the published Zamba2's
+``HybridConfig`` fields, ``qk_norm``, ``MoEConfig.norm_topk_prob`` and
+``d_ff_shared``, ``layer_types``, ``use_rope``, ``attention_scale`` and the
+three multipliers), whose defaults keep the reference's model; only
+``activation_dtype`` returns a ``torch.dtype``.  Models are functions
 of an explicit parameter tree (nested dicts of layer-stacked tensors, the
 reference's layout): see ``repro_torch.models.transformer``.
 """
@@ -34,6 +37,9 @@ class MoEConfig:
     # the top-k gates divided by their sum (the reference's routing); False
     # keeps them as the softmax gave them (OLMoE's norm_topk_prob=False)
     norm_topk_prob: bool = True
+    # width of an always-on SwiGLU expert every token runs, added to the
+    # routed experts' output (Granite's shared_mlp); 0: none
+    d_ff_shared: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,7 +110,7 @@ class EncDecConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | moe | ssm | hybrid | encdec
+    family: str                   # dense | moe | ssm | hybrid | encdec | hybrid_moe
     num_layers: int
     d_model: int
     vocab_size: int
@@ -126,6 +132,18 @@ class ModelConfig:
     ssm: Optional[SSMConfig] = None
     hybrid: Optional[HybridConfig] = None
     encdec: Optional[EncDecConfig] = None
+    # hybrid_moe: each layer's mixer, "mamba" or "attention", in order
+    layer_types: Optional[Tuple[str, ...]] = None
+    # rotary embedding of q and k; False: no positional encoding (NoPE)
+    use_rope: bool = True
+    # the attention's softmax scale; None: head_dim ** -0.5
+    attention_scale: Optional[float] = None
+    # the embedding output times ``embedding_multiplier``; the logits
+    # divided by ``logits_scaling``; in a hybrid_moe block each branch's
+    # output times ``residual_multiplier`` before its residual add
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
     dtype: str = "bfloat16"       # activation / weight dtype
     remat: str = "none"           # none | full | dots  (scan remat policy)
     # the LM kernels: flash attention, the causal conv, the SSD scan, the
@@ -168,7 +186,7 @@ class ModelConfig:
         d, v, L = self.d_model, self.vocab_size, self.num_layers
         total = v * d * (1 if self.tie_embeddings else 2)
         hd = self.resolved_head_dim
-        if self.family in ("dense", "moe", "hybrid", "encdec"):
+        if self.family in ("dense", "moe", "hybrid", "encdec", "hybrid_moe"):
             attn = d * hd * self.num_heads + 2 * d * hd * self.num_kv_heads \
                 + hd * self.num_heads * d
             if self.qk_norm:
@@ -176,12 +194,26 @@ class ModelConfig:
         else:
             attn = 0
         if self.moe is not None:
-            ff = self.moe.num_experts * 3 * d * self.moe.d_ff_expert + d * self.moe.num_experts
+            ff = self.moe.num_experts * 3 * d * self.moe.d_ff_expert + d * self.moe.num_experts \
+                + 3 * d * self.moe.d_ff_shared
         elif self.d_ff:
             n_mats = 3 if self.act in ("swiglu", "geglu") else 2
             ff = n_mats * d * self.d_ff
         else:
             ff = 0
+        if self.family == "hybrid_moe":
+            # exact, every leaf of the tree: the two block norms a layer and
+            # the final norm, each mixer's conv, A_log, D, dt_bias and
+            # gated-norm weights too
+            s = self.ssm or SSMConfig()
+            d_in = s.expand * d
+            n_heads = d_in // s.head_dim
+            conv = d_in + 2 * s.n_groups * s.state_dim
+            mamba = d * (d_in + conv + n_heads) + (s.conv_width + 1) * conv \
+                + 3 * n_heads + d_in + d_in * d
+            n_mamba = self.layer_types.count("mamba")
+            return total + d + L * (2 * d + ff) + n_mamba * mamba \
+                + (L - n_mamba) * attn
         if self.family == "ssm":
             s = self.ssm or SSMConfig()
             d_in = s.expand * d

@@ -1,4 +1,5 @@
-"""GQA attention (optional QKV bias, QK-norm, sliding window, M-RoPE) and
+"""GQA attention (optional QKV bias, QK-norm, sliding window, M-RoPE, no
+positional encoding with ``use_rope`` off, the config's softmax scale) and
 the decode path over a KV cache, the counterparts of
 ``repro.models.attention``.  The full-sequence path goes through
 ``kernels.ops.flash_attention`` when ``cfg.use_flash_kernel`` (the CUDA
@@ -69,6 +70,8 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _apply_positional(q, k, positions, cfg: ModelConfig):
+    if not cfg.use_rope:
+        return q, k
     if cfg.mrope_sections is not None:
         q = layers.apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = layers.apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
@@ -154,10 +157,11 @@ def attention(p: dict, x: torch.Tensor, positions, cfg: ModelConfig, *,
               num_kv_heads: Optional[int] = None,
               causal: bool = True,
               scale: Optional[float] = None) -> torch.Tensor:
-    """Full-sequence attention (prefill); the softmax scale is
-    ``head_dim ** -0.5`` unless ``scale`` is given."""
+    """Full-sequence attention (prefill); the softmax scale is ``scale``,
+    else ``cfg.attention_scale``, else ``head_dim ** -0.5``."""
     nh = num_heads or cfg.num_heads
     nk = num_kv_heads or cfg.num_kv_heads
+    scale = cfg.attention_scale if scale is None else scale
     q, k, v = _project_qkv(p, x, cfg, nh, nk)
     if positions is not None:
         q, k = _apply_positional(q, k, positions, cfg)
@@ -214,7 +218,8 @@ def decode_attention(p: dict, x: torch.Tensor, cache: KVCache, pos: int,
                      num_kv_heads: Optional[int] = None,
                      scale: Optional[float] = None
                      ) -> Tuple[torch.Tensor, KVCache]:
-    """One-token decode: x (B, 1, D) at position ``pos``.
+    """One-token decode: x (B, 1, D) at position ``pos``, at
+    ``attention``'s softmax scale.
 
     Writes the new key and value into ``cache`` in place (the reference's
     donated dynamic_update_slice) and attends over the first pos+1 entries;
@@ -226,6 +231,7 @@ def decode_attention(p: dict, x: torch.Tensor, cache: KVCache, pos: int,
     nh = num_heads or cfg.num_heads
     nk = num_kv_heads or cfg.num_kv_heads
     hd = cfg.resolved_head_dim
+    scale = cfg.attention_scale if scale is None else scale
     b = x.shape[0]
     pos = int(pos)
     q, k_new, v_new = _project_qkv(p, x, cfg, nh, nk)

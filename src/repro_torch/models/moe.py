@@ -22,7 +22,10 @@ a buffer of E*cap rows a sequence and a batched matmul over the expert
 axis, whose static (E, rows, D) shape DTensor's propagation shards.
 ``moe_ffn_flat`` keeps one such buffer over all tokens (capacity
 ``ceil(N*K*cf/E)``); ``moe_ffn_dense`` (decode) runs every expert on every
-token and never drops a pair.
+token and never drops a pair.  With ``MoEConfig.d_ff_shared`` each path
+also runs the shared expert (``_shared_expert``), a SwiGLU of that width
+over every token whose output the routed picks are added onto (Granite's
+``shared_mlp``); with 0 no path changes.
 
 Every kept pair has a buffer row of its own, so the reference's
 scatter-add into a zeroed buffer is a plain scatter here, in place (the
@@ -41,7 +44,8 @@ E x capacity per buffer of the capacity paths, E x tokens on the dense
 path; exact wherever nothing can drop) and the calls that took the packed
 path (``ragged``).  Under a profiler the row and flat paths mark the
 router, the dispatch (into the experts' row layout), the experts and the
-combine (from it back) as spans (``repro_torch.spans``).
+combine (from it back) as spans (``repro_torch.spans``), and the shared
+expert as ``moe.shared_expert``.
 
 On a mesh the routing, the dispatch and the combine run on each rank's own
 rows (``parallel.dtensor_ops.shard_local``), the grouped expert FFN on
@@ -61,6 +65,7 @@ import torch.nn.functional as F
 
 from repro_torch import spans
 from repro_torch.models.api import MoEConfig
+from repro_torch.models.layers import dense
 from repro_torch.parallel.constraints import constrain
 from repro_torch.parallel.dtensor_ops import (fsdp_gather, is_dtensor,
                                               rank_offsets, replicate,
@@ -85,15 +90,22 @@ def _count_rows(routed: int, computed: int) -> None:
 
 def moe_spec(d_model: int, cfg: MoEConfig, dtype) -> dict:
     """Parameter spec (shape, dtype, init) of one MoE FFN, as ``init_moe``:
-    the router is float32 whatever the model dtype."""
+    the router is float32 whatever the model dtype.  With ``d_ff_shared``
+    the shared expert's ``shared`` (``w_gate``, ``w_up``, ``w_down``)."""
     e, f = cfg.num_experts, cfg.d_ff_expert
     si, so = d_model ** -0.5, f ** -0.5
-    return {
+    p = {
         "router": ((d_model, e), torch.float32, si),
         "w_gate": ((e, d_model, f), dtype, si),
         "w_up": ((e, d_model, f), dtype, si),
         "w_down": ((e, f, d_model), dtype, so),
     }
+    fs = cfg.d_ff_shared
+    if fs:
+        p["shared"] = {"w_gate": ((d_model, fs), dtype, si),
+                       "w_up": ((d_model, fs), dtype, si),
+                       "w_down": ((fs, d_model), dtype, fs ** -0.5)}
+    return p
 
 
 def _route(p: dict, xf: torch.Tensor, cfg: MoEConfig
@@ -173,6 +185,15 @@ def _ffn(mm, x: torch.Tensor, p: dict, act: str) -> torch.Tensor:
     return mm(h, p["w_down"])
 
 
+def _shared_expert(p: dict, xf: torch.Tensor, cfg: MoEConfig, act: str):
+    """The shared expert's output (N, D) on every row of xf (N, D), None
+    without one."""
+    if not cfg.d_ff_shared:
+        return None
+    with spans.span("moe.shared_expert"):
+        return _ffn(dense, xf, p["shared"], act)
+
+
 def _experts(bufr: torch.Tensor, p: dict, act: str) -> torch.Tensor:
     """Grouped expert FFN: bufr (E, C, D) -> (E, C, D), one batched matmul
     per weight over the expert axis.  DTensor weights are gathered over the
@@ -242,12 +263,13 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: MoEConfig, act: str
             buf.index_put_((row[:, j],), xf)
     with spans.span("moe.experts"):
         y = _experts_ragged(buf[:rows], ends, p, act)
+    shared = _shared_expert(p, xf, cfg, act)
     with spans.span("moe.combine"):
         # a token picks an expert once: at cap >= S nothing drops and no
         # pick reads the spare row, which is zeros where one can
         if cap < s:
             y = torch.cat([y, y.new_zeros((1, d))])
-        out = _gather_picks(y, row, gates)
+        out = _gather_picks(y, row, gates, shared)
     return out.reshape(b, s, d), aux
 
 
@@ -275,6 +297,9 @@ def _moe_ffn_padded(p: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
         y = y.reshape(e, b, cap, d).transpose(0, 1).reshape(b, e * cap, d)
         y = constrain(y, "batch")
         out = shard_local(_combine, (y, slot, gates), rowwise * 3, rowwise)
+    shared = _shared_expert(p, x.reshape(-1, d), cfg, act)
+    if shared is not None:
+        out = out + shared.reshape(b, s, d)
     return out, aux
 
 
@@ -291,12 +316,13 @@ def _dispatch_flat(xf: torch.Tensor, eidx: torch.Tensor, before, e: int,
     return buf, slot
 
 
-def _gather_picks(yf: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor
-                  ) -> torch.Tensor:
+def _gather_picks(yf: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor,
+                  base=None) -> torch.Tensor:
     """Each pick's row of yf (R, D), weighted by its gate, added over the K
-    picks in slot order: (N, D) for slot and gates (N, K)."""
-    out = torch.zeros((slot.shape[0], yf.shape[-1]), dtype=yf.dtype,
-                      device=yf.device)
+    picks in slot order onto ``base`` (N, D; zeros where None): (N, D) for
+    slot and gates (N, K)."""
+    out = base if base is not None else torch.zeros(
+        (slot.shape[0], yf.shape[-1]), dtype=yf.dtype, device=yf.device)
     for j in range(slot.shape[1]):
         out = out + gates[:, j, None].to(yf.dtype) * yf.index_select(0, slot[:, j])
     return out
@@ -342,6 +368,9 @@ def moe_ffn_flat(p: dict, x: torch.Tensor, cfg: MoEConfig, act: str
     with spans.span("moe.combine"):
         out = shard_local(_combine_flat, (slot, gates, y),
                           (rows, rows, (None, None)), (rows,))
+    shared = _shared_expert(p, xf, cfg, act)
+    if shared is not None:
+        out = out + shared
     return out.reshape(b, s, d), aux
 
 
@@ -349,7 +378,8 @@ def moe_ffn_dense(p: dict, x: torch.Tensor, cfg: MoEConfig, act: str
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense path (decode): every expert computes on every token, outputs
     weighted by the gates routed to it; the terms are added in x's dtype in
-    expert order, as the reference's scan carries them."""
+    expert order, as the reference's scan carries them, onto the shared
+    expert's output where there is one."""
     b, s, d = x.shape
     xf = x.reshape(-1, d)
     e = cfg.num_experts
@@ -360,7 +390,9 @@ def moe_ffn_dense(p: dict, x: torch.Tensor, cfg: MoEConfig, act: str
         w = w + gates[:, j, None] * F.one_hot(eidx[:, j], e).float()
     y = _experts(xf.expand(e, -1, -1), p, act)                 # (E, N, D)
     terms = w.T[:, :, None].to(x.dtype) * y
-    acc = torch.zeros_like(xf)
+    acc = _shared_expert(p, xf, cfg, act)
+    if acc is None:
+        acc = torch.zeros_like(xf)
     for i in range(e):
         acc = acc + terms[i]
     return acc.reshape(b, s, d), aux

@@ -18,6 +18,14 @@ layers.  With ``HybridConfig.layer_ids`` set it is the published Zamba2
 ``layers`` (L, ...) Mamba2 layers, ``shared`` (num_blocks, ...) blocks used
 by turns, ``calls`` (len(layer_ids), ...) each call's LoRA and projection;
 the reference has no counterpart, and its sharding rules do not cover it.
+Neither has the ``hybrid_moe`` family (Granite-4.0-H, ``_build_hybrid_moe``):
+``ModelConfig.layer_types`` names each layer's mixer, a Mamba2 mixer
+(``ssm`` (n_mamba, ...)) or attention (``attn`` (n_attention, ...)), and
+every layer (``blocks`` (L, ...): both norms and the MoE FFN) runs
+``h = x + r * mixer(norm(x))``, ``x' = h + r * moe(norm(h))`` at
+``r = residual_multiplier``, with the embedding output times
+``embedding_multiplier`` and the logits over ``logits_scaling``; the other
+families refuse these three multipliers.
 
 The forward trains: under grad mode ``remat="full"`` (or ``"dots"``, which
 has no finer PyTorch policy and recomputes the whole layer too) wraps each
@@ -52,6 +60,10 @@ __all__ = ["Model", "build_model", "model_spec", "abstract_params",
 # calls of a published Zamba2 shared block (forward and decode), counted on
 # the host; ``spans.counts()`` reads it as ``shared.calls``
 SHARED = spans.counter("shared", "calls")
+# hybrid_moe layers run (forward and decode) by mixer, counted on the host:
+# ``mixers.mamba`` and ``mixers.attention``
+MIXERS = spans.counter("mixers", "mamba", "attention")
+MIXER_KINDS = ("mamba", "attention")
 
 
 class Model(NamedTuple):
@@ -111,6 +123,29 @@ def _call_spec(cfg: ModelConfig, dtype) -> dict:
             "proj": ((d, d), dtype, d ** -0.5)}
 
 
+def _hybrid_moe_spec(cfg: ModelConfig, dtype) -> dict:
+    """The hybrid_moe family's layers: the Mamba2 mixers and the attention
+    mixers each stacked over their own layers, the norms and the MoE FFN
+    over every layer."""
+    kinds = cfg.layer_types or ()
+    if not kinds or len(kinds) != cfg.num_layers \
+            or set(kinds) - set(MIXER_KINDS) or cfg.moe is None:
+        raise ValueError(f"layer_types {kinds} must name {cfg.num_layers} "
+                         f"mixers of {MIXER_KINDS}, with an MoE FFN")
+    d = cfg.d_model
+    return {
+        "ssm": _stacked(ssm.ssm_spec(d, cfg.ssm, dtype), kinds.count("mamba")),
+        "attn": _stacked(attn.attn_spec(d, cfg.num_heads, cfg.num_kv_heads,
+                                        cfg.resolved_head_dim, cfg.qkv_bias,
+                                        dtype, qk_norm=cfg.qk_norm),
+                         kinds.count("attention")),
+        "blocks": _stacked({"ln1": ((d,), dtype, "zeros"),
+                            "ln2": ((d,), dtype, "zeros"),
+                            "moe": moe.moe_spec(d, cfg.moe, dtype)},
+                           cfg.num_layers),
+    }
+
+
 def _embedding_spec(cfg: ModelConfig, dtype) -> dict:
     v, d = cfg.padded_vocab_size, cfg.d_model
     p = {"embed": ((v, d), dtype, 0.02), "final_norm": ((d,), dtype, "zeros")}
@@ -152,6 +187,8 @@ def model_spec(cfg: ModelConfig) -> dict:
                                   cfg.hybrid.num_blocks)
         spec["calls"] = _stacked(_call_spec(cfg, dtype),
                                  len(cfg.hybrid.layer_ids))
+    elif cfg.family == "hybrid_moe":
+        spec.update(_hybrid_moe_spec(cfg, dtype))
     elif cfg.family == "hybrid":
         n_super, tail = divmod(cfg.num_layers, cfg.hybrid.shared_every)
         spec["main"] = _stacked(_ssm_block_spec(cfg, dtype), n_super,
@@ -319,13 +356,32 @@ def _published_block(p: dict, call: dict, x, e, attend: Callable,
     return layers.dense(y, call["proj"])
 
 
+def _hybrid_moe_block(p: dict, mixer: Callable, x, ffn: Callable,
+                      cfg: ModelConfig):
+    """``h = x + r * mixer(norm(x))``, then ``h + r * ffn(norm(h))`` (the
+    routed and the shared experts), each branch scaled in its add; returns
+    the output and the FFN's auxiliary loss."""
+    r = cfg.residual_multiplier
+    h = x.add(mixer(layers.model_rms_norm(x, p["ln1"], cfg)), alpha=r)
+    y, aux = ffn(p["moe"], layers.model_rms_norm(h, p["ln2"], cfg), cfg.moe,
+                 cfg.act)
+    return h.add(y, alpha=r), aux
+
+
+def _embed_tokens(params, tokens, cfg: ModelConfig):
+    """The embedding's rows at ``tokens`` times ``embedding_multiplier``."""
+    x = layers.embed(params["embed"], tokens, cfg.activation_dtype)
+    return x if cfg.embedding_multiplier == 1.0 \
+        else x * cfg.embedding_multiplier
+
+
 @spans.spanned("embed")
 def _embed_in(params, batch, cfg: ModelConfig):
     dtype = cfg.activation_dtype
     if cfg.embeds_input:
         x = batch["embeds"].to(dtype)
     else:
-        x = layers.embed(params["embed"], batch["tokens"], dtype)
+        x = _embed_tokens(params, batch["tokens"], cfg)
     x = constrain(x, "hidden")
     b, s = x.shape[:2]
     base = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -344,7 +400,10 @@ def _embed_in(params, batch, cfg: ModelConfig):
 def _logits_out(params, x, cfg: ModelConfig):
     x = layers.model_rms_norm(x, params["final_norm"], cfg)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return constrain(layers.dense(x, head.to(x.dtype)).float(), "logits")
+    logits = layers.dense(x, head.to(x.dtype)).float()
+    if cfg.logits_scaling != 1.0:
+        logits = logits.div_(cfg.logits_scaling)
+    return constrain(logits, "logits")
 
 
 def _ssm_cache(prefix: tuple, batch: int, cfg: ModelConfig, device):
@@ -544,11 +603,91 @@ def _build_published_hybrid(cfg: ModelConfig, device: torch.device) -> Model:
     return Model(cfg, device, init, forward, init_cache, decode_step)
 
 
+def _build_hybrid_moe(cfg: ModelConfig, device: torch.device) -> Model:
+    """The hybrid_moe family (the module doc): layer i's mixer is the k-th
+    of its kind, k the layers of that kind before it."""
+    spec = model_spec(cfg)
+    kinds = cfg.layer_types
+    nth = [kinds[:i].count(kind) for i, kind in enumerate(kinds)]
+    ffn = moe.moe_ffn if cfg.moe.dispatch == "row" else moe.moe_ffn_flat
+
+    def init(seed_or_gen):
+        return _init_tree(spec, _seeded(seed_or_gen, device), device)
+
+    def forward(params, batch):
+        x, positions = _embed_in(params, batch, cfg)
+
+        def mamba(bp, mp, h):
+            return _hybrid_moe_block(
+                bp, lambda u: ssm.ssm_mixer(mp, u, cfg), h, ffn, cfg)
+
+        def attention(bp, ap, h):
+            return _hybrid_moe_block(
+                bp, lambda u: attn.attention(ap, u, positions, cfg), h, ffn,
+                cfg)
+
+        layer = {"mamba": _remat(mamba, cfg), "attention": _remat(attention, cfg)}
+        mixer = {"mamba": params["ssm"], "attention": params["attn"]}
+        auxes = []
+        for i, kind in enumerate(kinds):
+            MIXERS[kind] += 1
+            x, aux = layer[kind](_at(params["blocks"], i),
+                                 _at(mixer[kind], nth[i]), x)
+            x = constrain(x, "hidden")
+            auxes.append(aux)
+        return _logits_out(params, x, cfg), torch.stack(auxes).mean()
+
+    def init_cache(batch, max_len):
+        kv = attn.init_kv_cache(batch, max_len, cfg.num_kv_heads,
+                                cfg.resolved_head_dim, cfg.activation_dtype,
+                                device)
+        n_attn = kinds.count("attention")
+        return {"ssm": _ssm_cache((kinds.count("mamba"),), batch, cfg, device),
+                "kv": attn.KVCache(*(t.expand((n_attn,) + t.shape).clone()
+                                     for t in kv))}
+
+    def decode_step(params, cache, tokens, pos):
+        x = _embed_tokens(params, tokens, cfg)
+
+        def mamba_mixer(k: int):
+            def run(u):
+                st = ssm.SSMState(conv=cache["ssm"].conv[k],
+                                  ssd=cache["ssm"].ssd[k])
+                y, new = ssm.ssm_decode_step(_at(params["ssm"], k), u, st, cfg)
+                st.conv.copy_(new.conv)
+                st.ssd.copy_(new.ssd)
+                return y
+            return run
+
+        def attention_mixer(k: int):
+            kv = attn.KVCache(cache["kv"].k[k], cache["kv"].v[k])
+            return lambda u: attn.decode_attention(_at(params["attn"], k), u,
+                                                   kv, pos, cfg)[0]
+
+        mixers = {"mamba": mamba_mixer, "attention": attention_mixer}
+        for i, kind in enumerate(kinds):
+            MIXERS[kind] += 1
+            x, _ = _hybrid_moe_block(_at(params["blocks"], i),
+                                     mixers[kind](nth[i]), x,
+                                     moe.moe_ffn_dense, cfg)
+        return _logits_out(params, x, cfg), cache
+
+    return Model(cfg, device, init, forward, init_cache, decode_step)
+
+
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
     """The model of ``cfg`` on ``device`` (``"cuda"`` by default; a CUDA
     request without a card raises).  ``decode_step`` updates the cache in
     place and returns it."""
     dev = resolve_device(device)
+    if cfg.family != "hybrid_moe" and (cfg.embedding_multiplier,
+                                       cfg.residual_multiplier,
+                                       cfg.logits_scaling) != (1.0, 1.0, 1.0):
+        raise ValueError("embedding_multiplier, residual_multiplier and "
+                         "logits_scaling are the hybrid_moe family's, not "
+                         f"the {cfg.family!r} family's")
+    if cfg.family == "hybrid_moe":
+        return _build_hybrid_moe(cfg, dev)
     if cfg.family in ("dense", "moe"):
         return _build_decoder(cfg, dev)
     if cfg.family == "ssm":

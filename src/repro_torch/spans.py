@@ -24,7 +24,8 @@ shared block: its ``attn`` (and ``attn.flash``) and ``shared.mlp`` lie
 inside it, and the concat, both norms and the call's projection are its
 own time.  ``attn.qk_norm`` (a model with ``qk_norm``: the RMSNorms of the
 whole q and k projections) lies inside ``attn`` in the prefill and stands
-alone in a decode step.  What falls in no child of a span is that span's
+alone in a decode step; so does ``moe.shared_expert`` (a shared expert's
+SwiGLU over every token) inside ``moe``.  What falls in no child of a span is that span's
 own time: the block pre-norms and residual adds are ``prefill``'s.
 
 The port's counters live here too.  A module declares each where it
@@ -49,6 +50,7 @@ __all__ = ["NAMES", "span", "spanned", "off", "is_recording", "counter",
 NAMES = ("prefill", "embed", "head",
          "attn", "attn.flash", "attn.qk_norm",
          "moe", "moe.router", "moe.dispatch", "moe.experts", "moe.combine",
+         "moe.shared_expert",
          "ssm", "ssm.conv", "ssm.scan", "ssm.gate_norm",
          "shared", "shared.mlp")
 _KNOWN = frozenset(NAMES)

@@ -72,12 +72,14 @@ def _np(x):
 # ---------------------------------------------------------------------------
 
 # fields the port's configs have beyond the reference's (the published
-# Zamba2 and OLMoE layouts), by group (None: the model's own), with the
-# defaults that keep the reference's model
+# Zamba2, OLMoE and Granite layouts), by group (None: the model's own),
+# with the defaults that keep the reference's model
 PORT_ONLY = {"hybrid": {name: getattr(HybridConfig(), name)
                         for name in ("layer_ids", "num_blocks", "adapter_rank")},
-             "moe": {"norm_topk_prob": True},
-             None: {"qk_norm": False}}
+             "moe": {"norm_topk_prob": True, "d_ff_shared": 0},
+             None: {"qk_norm": False, "layer_types": None, "use_rope": True,
+                    "attention_scale": None, "embedding_multiplier": 1.0,
+                    "residual_multiplier": 1.0, "logits_scaling": 1.0}}
 
 
 def _shared_fields(cfg) -> dict:

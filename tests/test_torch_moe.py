@@ -69,6 +69,7 @@ def _moe_params(R, jmoe, d, cfg, seed=0):
     from repro.models.api import MoEConfig as JMoEConfig
     fields = dataclasses.asdict(cfg)
     assert fields.pop("norm_topk_prob")       # the reference renormalises
+    assert fields.pop("d_ff_shared") == 0     # and has no shared expert
     jcfg = JMoEConfig(**fields)
     jp = jax.tree.map(np.asarray, jmoe.init_moe(jax.random.PRNGKey(seed), d,
                                                 jcfg, jax.numpy.float32))

@@ -1,10 +1,11 @@
 """PyTorch port: the spans inside the prefill path and the port's counters
 (``repro_torch.spans``; ``models/moe.py``'s ``ROWS``,
-``models/transformer.py``'s ``SHARED`` and the kernels' ``LAUNCHES`` are
-counters it declares), on the CPU.
+``models/transformer.py``'s ``SHARED`` and ``MIXERS`` and the kernels'
+``LAUNCHES`` are counters it declares), on the CPU.
 
 A prefill of a tiny MoE model (row and flat dispatch), of a tiny Mamba2
-model and of the published Zamba2 and OLMoE layouts at tiny widths, under
+model and of the published Zamba2, OLMoE and Granite layouts at tiny
+widths, under
 ``torch.profiler``, records each documented span the
 documented number of times, nested as documented, and each span's range
 holds the operators launched inside it.  Off (no profiler, a profile that
@@ -27,7 +28,7 @@ from torch_port_ref import requires_cuda, skip_without_cuda
 
 from repro_torch import configs as tconfigs
 from repro_torch import spans
-from repro_torch.configs import olmoe_1b_7b, zamba2_7b
+from repro_torch.configs import granite_4_0_h_small, olmoe_1b_7b, zamba2_7b
 from repro_torch.kernels import (causal_conv, flash_attention, gate_norm,
                                  renewal_scan, rms_norm, ssd_scan)
 from repro_torch.launch import steps as tsteps
@@ -307,10 +308,12 @@ def test_counts_carries_the_launch_counters():
         declared.update(mod.LAUNCHES)
     declared.update({f"moe.{k}": v for k, v in moe.ROWS.items()})
     declared.update({f"shared.{k}": v for k, v in transformer.SHARED.items()})
+    declared.update({f"mixers.{k}": v for k, v in transformer.MIXERS.items()})
     assert counted == declared
     assert set(counted) == {"flash_attention", "ssd_scan", "renewal_scan",
                             "gate_norm", "causal_conv", "rms_norm", "moe.routed",
-                            "moe.computed", "moe.ragged", "shared.calls"}
+                            "moe.computed", "moe.ragged", "shared.calls",
+                            "mixers.mamba", "mixers.attention"}
     assert all(isinstance(v, int) for v in counted.values())
     source = pathlib.Path(spans.__file__).read_text()
     imported = set()
@@ -342,7 +345,8 @@ def test_counts_after_the_same_calls():
     want = {"flash_attention": 0, "ssd_scan": 0, "gate_norm": 0,
             "causal_conv": 0, "rms_norm": 0, "renewal_scan": 0, "moe.routed": 96,
             "moe.computed": 144,
-            "moe.ragged": 1, "shared.calls": 4}
+            "moe.ragged": 1, "shared.calls": 4, "mixers.mamba": 0,
+            "mixers.attention": 0}
     assert spans.counts() == want
     moe.reset_row_counts()                      # the MoE counter alone
     assert spans.counts() == {**want, "moe.routed": 0, "moe.computed": 0,
@@ -513,3 +517,49 @@ def test_published_olmoe_records_the_qk_norm_span():
     assert len(rsqrt) == 2 * n * cfg.num_layers
     assert all(any(t0 <= s0 and s1 <= t1 for t0, t1 in ranges)
                for s0, s1 in rsqrt)
+
+
+# --- Granite-4.0-H's layers: a Mamba2 or attention mixer, then the MoE FFN --
+
+def test_granite_records_its_layers_spans():
+    """A Mamba2 layer's ``ssm.*`` spans, or an attention layer's ``attn``
+    and ``attn.flash``, then ``moe.router``, ``moe.dispatch``,
+    ``moe.experts``, ``moe.shared_expert`` and ``moe.combine`` inside
+    ``moe``, once a layer (the lists above stay as they are: their configs
+    have no shared expert); the shared expert's products fall in its span."""
+    cfg = granite_4_0_h_small.smoke_config()
+    assert cfg.use_flash_kernel and cfg.moe.d_ff_shared
+    model = build_model(cfg, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(1))
+    n = 2
+    events = _profile(tsteps.make_prefill_step(model), model.init(0),
+                      {"tokens": tokens}, n)
+    found = [e for e in events if e[0] in spans.NAMES]
+    got = {}
+    for ev in found:
+        key = (ev[0], _parent(ev, found))
+        got[key] = got.get(key, 0) + 1
+    n_mamba = cfg.layer_types.count("mamba")
+    n_attn = cfg.layer_types.count("attention")
+    moe_layer = [key for key in MOE_LAYER if key[0].startswith("moe")] \
+        + [("moe.shared_expert", "moe")]
+    want = {key: n for key in ONCE}
+    for key in SSM_LAYER:
+        want[key] = n * n_mamba
+    for key in MOE_LAYER[:2]:
+        want[key] = n * n_attn
+    for key in moe_layer:
+        want[key] = n * cfg.num_layers
+    assert got == want
+    ranges = [(t0, t1) for name, t0, t1 in found if name == "moe.shared_expert"]
+    moe_ranges = [(t0, t1) for name, t0, t1 in found if name == "moe"]
+    outside = [(t0, t1) for name, t0, t1 in found
+               if name in ("moe.experts", "moe.router", "moe.dispatch",
+                           "moe.combine")]
+    mms = [(s0, s1) for name, s0, s1 in events if name == "aten::mm"
+           and any(t0 <= s0 <= t1 for t0, t1 in moe_ranges)
+           and not any(t0 <= s0 <= t1 for t0, t1 in outside)]
+    assert len(mms) == 3 * n * cfg.num_layers
+    assert all(any(t0 <= s0 and s1 <= t1 for t0, t1 in ranges)
+               for s0, s1 in mms)
